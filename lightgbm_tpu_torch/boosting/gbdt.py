@@ -1,11 +1,14 @@
 """Gradient Boosting Decision Tree trainer (counterpart of
-lightgbm_tpu/boosting/gbdt.py, lean: one tree per iteration, no bagging).
+lightgbm_tpu/boosting/gbdt.py, lean: one tree per iteration).
 
 Each iteration computes the objective's gradients from the training
-score, grows one tree with the wave grower (K1 on the card), shrinks it,
-and adds it to the training and validation scores — all on the training
-device.  The trees are kept as host ``Tree`` objects for prediction and
-model text (reference: GBDT::TrainOneIter, gbdt.cpp:368-449).
+score, refreshes the bagging mask, grows one tree with the wave grower
+(K1 on the card), shrinks it, and adds it to the training and validation
+scores — all on the training device.  Bagging masks are drawn on the host
+from numpy's generator seeded with ``bagging_seed``, as in the reference,
+so both packages draw the same rows.  The trees are kept as host ``Tree``
+objects for prediction and model text (reference: GBDT::TrainOneIter,
+gbdt.cpp:368-449).
 """
 from __future__ import annotations
 
@@ -85,10 +88,13 @@ class GBDT:
             wave_capacity=int(config.tpu_wave_capacity),
             highest=config.hist_mode(),
             gain_gate=float(config.tpu_wave_gain_gate),
-            fused_sibling=bool(config.tpu_fused_sibling))
+            fused_sibling=bool(config.tpu_fused_sibling),
+            quant_seed=int(config.seed))
         self._train_score = torch.zeros(N, dtype=torch.float32,
                                         device=self.device)
         self._bag_mask = torch.ones(N, dtype=torch.float32, device=self.device)
+        self._bag_mask_host = np.ones(N, dtype=bool)
+        self._rng = np.random.default_rng(config.bagging_seed)
         self._feat_rng = np.random.default_rng(config.feature_fraction_seed)
         self.class_need_train = objective.class_need_train(0)
 
@@ -125,6 +131,35 @@ class GBDT:
         self._train_score = self._train_score + value
         self._valid_scores = [s + value for s in self._valid_scores]
 
+    def _bagging(self, it: int) -> None:
+        """Row-subsample mask refresh every ``bagging_freq`` iterations,
+        plain or balanced by class (reference: gbdt.py ``_bagging``,
+        gbdt.cpp:160-276)."""
+        c = self.config
+        N = self.train_ds.num_data
+        balanced = c.pos_bagging_fraction < 1.0 or c.neg_bagging_fraction < 1.0
+        if c.bagging_freq <= 0 or (c.bagging_fraction >= 1.0
+                                   and not balanced):
+            return
+        if it % c.bagging_freq != 0:
+            return
+        mask = np.zeros(N, dtype=bool)
+        if balanced:
+            label = self.train_ds.metadata.label
+            if label is None or not np.all((label == 0) | (label == 1)):
+                log.fatal("pos/neg_bagging_fraction requires binary (0/1) "
+                          "labels")
+            for cls, frac in ((1, c.pos_bagging_fraction),
+                              (0, c.neg_bagging_fraction)):
+                rows = np.flatnonzero(label == cls)
+                take = self._rng.permutation(len(rows))[:int(frac * len(rows))]
+                mask[rows[take]] = True
+        else:
+            mask[self._rng.permutation(N)[:int(c.bagging_fraction * N)]] = True
+        self._bag_mask_host = mask
+        self._bag_mask = torch.as_tensor(mask.astype(np.float32)).to(
+            self.device)
+
     def _feature_mask(self):
         F = self.train_ds.num_features
         frac = float(self.config.feature_fraction)
@@ -142,6 +177,7 @@ class GBDT:
         t0 = time.perf_counter()
         init_score = self._boost_from_average()
         g, h = self.objective.get_gradients(self._train_score)
+        self._bagging(self.iter_)
         feature_mask = self._feature_mask()
         nl = 1
         if self.class_need_train and self.train_ds.num_features > 0:

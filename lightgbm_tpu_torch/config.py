@@ -121,11 +121,7 @@ _OBJECTIVE_ALIASES = {
 # (the reference default, the ROADMAP.md item that brings it).
 _SERIAL = "the rest of queue 1: the serial grower"
 _REFUSED: Dict[str, tuple] = {
-    "boosting": ("gbdt", "bagging/GOSS; DART and RF: the rest of queue 1"),
-    "bagging_fraction": (1.0, "bagging/GOSS"),
-    "pos_bagging_fraction": (1.0, "bagging/GOSS"),
-    "neg_bagging_fraction": (1.0, "bagging/GOSS"),
-    "bagging_freq": (0, "bagging/GOSS"),
+    "boosting": ("gbdt", "GOSS; DART and RF: the rest of queue 1"),
     "feature_fraction_bynode": (1.0, _SERIAL),
     "forcedsplits_filename": ("", _SERIAL),
     "forcedbins_filename": ("", "native binning"),
@@ -167,6 +163,7 @@ class Config:
     pos_bagging_fraction: float = 1.0
     neg_bagging_fraction: float = 1.0
     bagging_freq: int = 0
+    bagging_seed: int = 3
     feature_fraction: float = 1.0
     feature_fraction_bynode: float = 1.0
     feature_fraction_seed: int = 2
@@ -211,7 +208,9 @@ class Config:
     gpu_use_dp: bool = False
     tpu_hist_dtype: str = "2xbf16"      # histogram input rounding of g/h:
                                         # 2xbf16 = hi/lo bf16 split, bf16
-                                        # = one rounding, highest = f32
+                                        # = one rounding, highest = f32;
+                                        # int16 / int8 = quantized g/h,
+                                        # integer accumulation
     tpu_wave_capacity: int = 63         # leaves histogrammed per wave
     tpu_wave_gain_gate: float = 0.5     # split-phase commit throttle
     tpu_fused_sibling: bool = True      # siblings from the same launch
@@ -257,14 +256,18 @@ class Config:
         if self.num_class != 1:
             log.fatal("num_class must be 1: multiclass is not in the PyTorch "
                       "port yet (ROADMAP.md port queue: the rest of queue 1)")
-        if self.tpu_hist_dtype in ("int16", "int8"):
-            log.fatal(f"tpu_hist_dtype={self.tpu_hist_dtype} is not in the "
-                      "PyTorch port yet (ROADMAP.md port queue: int16/int8 "
-                      "with a bit-exact stochastic_round)")
         if self.tpu_hist_dtype not in ("2xbf16", "bf16", "highest",
+                                       "int16", "int8",
                                        "float32", "bfloat16"):
-            log.fatal("tpu_hist_dtype should be 2xbf16, bf16 or highest "
+            log.fatal("tpu_hist_dtype should be 2xbf16, bf16, highest, "
+                      "int16 or int8 "
                       "(aliases: float32 -> 2xbf16, bfloat16 -> bf16)")
+        if self.tpu_hist_dtype in ("int16", "int8") \
+                and self.num_leaves > 32000:
+            log.fatal("quantized histogram modes carry leaf ids in the "
+                      "int16 vector stream: num_leaves must be <= 32000")
+        if not (0.0 < self.bagging_fraction <= 1.0):
+            log.fatal("bagging_fraction should be in (0.0, 1.0]")
         if not (0.0 < self.feature_fraction <= 1.0):
             log.fatal("feature_fraction should be in (0.0, 1.0]")
         if self.num_leaves < 2:
@@ -285,6 +288,8 @@ class Config:
             return "highest"
         if self.tpu_hist_dtype in ("bfloat16", "bf16"):
             return "bf16"
+        if self.tpu_hist_dtype in ("int16", "int8"):
+            return self.tpu_hist_dtype
         return "2xbf16"
 
     def to_params(self) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
 """Wave-scheduled leaf-wise tree growth (counterpart of
-lightgbm_tpu/core/wave_grower.py, packed + fused, eager schedule,
-batched split apply).
+lightgbm_tpu/core/wave_grower.py: packed or triple layout, fused or
+unfused sibling, float or quantized histograms, eager schedule, batched
+split apply).
 
 Growth alternates two phases until no ready leaf has positive gain and
 nothing is pending:
@@ -22,6 +23,14 @@ commit phase's scalar steps cost nothing; the [N]-sized and histogram
 work stays on the device: the partition, the row compaction, K1 and the
 split scan.  Each wave copies the children's split results to the host
 once.
+
+Quantized modes (``int16``/``int8``): per tree, g and h are scaled by
+``s = max|x| / QMAX`` over the bag-masked rows and stochastic-rounded to
+integers (``ops/quant.py``).  Histograms stay in integer units through
+K1, the sibling subtraction and the per-leaf store; they are dequantized
+only at split-scan time, ``hist * [s_g, s_h, 1]``, as in the reference
+(an in-kernel dequant would let a compiler fuse ``parent - child*s``
+and break the bit-identity of the fused and unfused siblings).
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import numpy as np
 import torch
 
 from ..convert import tree_arrays_from_numpy
-from ..ops.hist_wave import C_MAX, P_MAX_PACKED, hist_wave
+from ..ops.hist_wave import C_MAX, resolve_mode, hist_wave, \
+    wave_capacity_max
+from ..ops.quant import QUANT_MODES, QUANT_QMAX, SEED_H_XOR, stochastic_round
 from .grower import _empty_tree, go_left_bins
 from .histogram import hist_subtract
 from .meta import DeviceMeta, SplitConfig
@@ -38,11 +49,15 @@ from .splitter import best_split, leaf_output
 NEG_INF = np.float32(-np.inf)
 
 
-def effective_pipeline(wave_capacity: int, fused_sibling: bool = True):
+def effective_pipeline(wave_capacity: int, packed: bool = True,
+                       fused_sibling: bool = True):
     """The (packed, capacity, fused) triple ``build_wave_grow_fn`` runs —
     the reference's gate with the mixed-width, bundled and data-parallel
-    cases (not in the port yet) always off, so the layout is packed."""
-    return True, max(1, min(int(wave_capacity), P_MAX_PACKED)), \
+    cases (not in the port yet) always off: capacity 63 packed, 42
+    triple."""
+    packed = bool(packed)
+    return packed, max(1, min(int(wave_capacity),
+                              wave_capacity_max(packed))), \
         bool(fused_sibling)
 
 
@@ -110,7 +125,8 @@ class _LeafState:
 def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                        wave_capacity: int = 63, highest="highest",
                        gain_gate: float = 0.0,
-                       fused_sibling: bool = True):
+                       fused_sibling: bool = True, packed: bool = True,
+                       quant_seed: int = 0):
     """``grow(bins_fm, g, h, sample_mask, feature_mask)`` with K1 on the
     bins' device.  Returns ``(TreeArrays, leaf_id, (waves, rows))``:
     tensors on that device, then the K1 launches taken and the rows they
@@ -120,9 +136,20 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
     times the phase's best ready gain (0 = split everything positive, 1 =
     strict best-of-phase); ``highest`` is the histogram rounding mode;
     ``fused_sibling`` takes the siblings from K1's launch instead of a
-    separate subtraction (the histograms are the same either way)."""
+    separate subtraction (the histograms are the same either way);
+    ``packed`` picks K1's lane-pair layout (63 leaves a wave) or the
+    triple one (42).  In the int16/int8 modes ``quant_seed`` seeds the
+    gradients' stochastic rounding (the hessians' seed is ``quant_seed ^
+    0x9E3779B9``)."""
     L = cfg.num_leaves
-    _, P, fused = effective_pipeline(wave_capacity, fused_sibling)
+    packed, P, fused = effective_pipeline(wave_capacity, packed,
+                                          fused_sibling)
+    mode = resolve_mode(highest)
+    quant = mode in QUANT_MODES
+    if quant and L + 2 >= 32768:
+        raise ValueError("quantized K1 carries leaf ids as int16: "
+                         "num_leaves must be <= 32000")
+    lanes = 2 if packed else 3
     gain_gate = np.float32(min(max(float(gain_gate), 0.0), 1.0))
     meta_np = {k: v.detach().cpu().numpy() for k, v in meta._asdict().items()}
     monotone = meta_np["monotone"]
@@ -186,14 +213,18 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.pend_cnt += 1
         return leaf, new, f, t, dl
 
-    def scan_children(st, hist, cand, feature_mask):
-        """Best splits of one wave's children, copied to the host state."""
+    def scan_children(st, hist, cand, feature_mask, scales):
+        """Best splits of one wave's children, copied to the host state;
+        ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit histograms."""
         dev = hist.device
         cand_t = torch.as_tensor(cand, dtype=torch.int64).to(dev)
 
         def col(a):
             return torch.as_tensor(a[cand]).to(dev)
-        bs = best_split(hist[cand_t], col(st.g), col(st.h), col(st.c), meta,
+        hist_c = hist[cand_t]
+        if scales is not None:
+            hist_c = hist_c * scales
+        bs = best_split(hist_c, col(st.g), col(st.h), col(st.c), meta,
                         cfg, col(st.min_c), col(st.max_c),
                         feature_mask=feature_mask)
         gain = bs.gain
@@ -211,7 +242,30 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.best_lg[cand], st.best_lh[cand], st.best_lc[cand] = res[4:7]
         st.best_lout[cand], st.best_rout[cand] = res[7], res[8]
 
-    def wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv, cv, feature_mask):
+    def to_leaf_major(h, n, F):
+        """K1's channel layout -> per-leaf [n, F, B, 3]."""
+        if packed:
+            hg, hc = h
+            gh = hg[:, :, :2 * n].reshape(F, B, n, 2)
+            return torch.cat([gh, hc[:, :, :n, None]], -1).permute(2, 0, 1, 3)
+        return h[:, :, :3 * n].reshape(F, B, n, 3).permute(2, 0, 1, 3)
+
+    def to_channels(par, n, F):
+        """Per-leaf [n, F, B, 3] -> K1's channel layout (the parents)."""
+        dev = par.device
+        if not packed:
+            out = torch.zeros((F, B, C_MAX), dtype=torch.float32, device=dev)
+            out[:, :, :3 * n] = par.permute(1, 2, 0, 3).reshape(F, B, 3 * n)
+            return out
+        par_gh = torch.zeros((F, B, C_MAX), dtype=torch.float32, device=dev)
+        par_ct = torch.zeros_like(par_gh)
+        par_gh[:, :, :2 * n] = par[..., :2].permute(1, 2, 0, 3).reshape(
+            F, B, 2 * n)
+        par_ct[:, :, :n] = par[..., 2].permute(1, 2, 0)
+        return par_gh, par_ct
+
+    def wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv, cv, feature_mask,
+             scales):
         """One K1 launch over the pending leaves + their children's scans.
         Returns the number of rows histogrammed."""
         dev = hist.device
@@ -220,21 +274,11 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         larges = st.pend_large[:n].copy()
         parents = np.minimum(smalls, larges)   # the left child kept its id
         slot_leaf = np.full(C_MAX, -1, np.int32)
-        slot_leaf[:2 * n] = np.repeat(smalls, 2)
+        slot_leaf[:lanes * n] = np.repeat(smalls, lanes)
         slot_t = torch.as_tensor(slot_leaf).to(dev)
         par_t = torch.as_tensor(parents, dtype=torch.int64).to(dev)
         F = hist.shape[1]
-
-        kern_parent = None
-        if fused:
-            par = hist[par_t]                               # [n, F, B, 3]
-            par_gh = torch.zeros((F, B, C_MAX), dtype=torch.float32,
-                                 device=dev)
-            par_ct = torch.zeros_like(par_gh)
-            par_gh[:, :, :2 * n] = par[..., :2].permute(1, 2, 0, 3).reshape(
-                F, B, 2 * n)
-            par_ct[:, :, :n] = par[..., 2].permute(1, 2, 0)
-            kern_parent = (par_gh, par_ct)
+        kern_parent = to_channels(hist[par_t], n, F) if fused else None
 
         # ---- active-row compaction ------------------------------------
         # Only rows in a pending-small leaf that carry weight contribute.
@@ -252,19 +296,12 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         else:
             args = (bins_rm.index_select(0, idx).t().contiguous(),
                     gv[idx], hv[idx], cv[idx], leaf_id[idx])
-        hw = hist_wave(*args, slot_t, B, highest=highest, packed=True,
+        hw = hist_wave(*args, slot_t, B, highest=mode, packed=packed,
                        parent=kern_parent, num_slots=n)
-
-        def to_leaf_major(h):
-            """Packed (gh, cnt) -> per-leaf [n, F, B, 3]."""
-            hg, hc = h
-            gh = hg[:, :, :2 * n].reshape(F, B, n, 2)
-            return torch.cat([gh, hc[:, :, :n, None]], -1).permute(2, 0, 1, 3)
-
         if fused:
-            child, sib = to_leaf_major(hw[0]), to_leaf_major(hw[1])
+            child, sib = to_leaf_major(hw[0], n, F), to_leaf_major(hw[1], n, F)
         else:
-            child = to_leaf_major(hw)
+            child = to_leaf_major(hw, n, F)
             sib = hist_subtract(hist[par_t], child)
         hist[torch.as_tensor(smalls, dtype=torch.int64).to(dev)] = child
         hist[torch.as_tensor(larges, dtype=torch.int64).to(dev)] = sib
@@ -272,7 +309,7 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.pend_large[:] = -1
         st.pend_cnt = 0
         scan_children(st, hist, np.concatenate([smalls, larges]),
-                      feature_mask)
+                      feature_mask, scales)
         return n_rows
 
     def grow(bins_fm, g, h, sample_mask, feature_mask):
@@ -281,7 +318,22 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         gv = (g * sample_mask).float()
         hv = (h * sample_mask).float()
         cv = sample_mask.float()
-        root = torch.stack([gv.sum(), hv.sum(), cv.sum()])
+        scales = None
+        if quant:
+            # per-tree symmetric scales over the bag-masked rows, then
+            # value-hash stochastic rounding; masked rows are exact zeros
+            # and stay zeros.  Root sums are integer totals times the scale.
+            qmax = torch.tensor(QUANT_QMAX[mode], device=dev)
+            tiny = torch.tensor(1e-30, device=dev)
+            s_g = torch.maximum(gv.abs().amax(), tiny) / qmax
+            s_h = torch.maximum(hv.abs().amax(), tiny) / qmax
+            gv = stochastic_round(gv / s_g, quant_seed)
+            hv = stochastic_round(hv / s_h, quant_seed ^ SEED_H_XOR)
+            scales = torch.stack([s_g, s_h, torch.ones_like(s_g)])
+            root = torch.stack([gv.double().sum().float() * s_g,
+                                hv.double().sum().float() * s_h, cv.sum()])
+        else:
+            root = torch.stack([gv.sum(), hv.sum(), cv.sum()])
         root_out = leaf_output(root[0], root[1], cfg)
         sum_g, sum_h, cnt, out0 = torch.cat(
             [root, root_out[None]]).cpu().numpy()
@@ -312,7 +364,7 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             leaf_id = apply_splits(leaf_id, bins_rm, splits)
             if st.pend_cnt > 0:
                 n_rows += wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv,
-                               cv, feature_mask)
+                               cv, feature_mask, scales)
                 n_waves += 1
 
         tr = st.tree._replace(

@@ -1,123 +1,78 @@
-"""Wave histogram K1: the CUDA kernel's wrapper, its plain PyTorch version
-and its build (counterpart of lightgbm_tpu/ops/pallas_hist.py
+"""Wave histogram K1: the CUDA kernel's wrapper and its plain PyTorch
+version (counterpart of lightgbm_tpu/ops/pallas_hist.py
 ``hist_pallas_wave`` / ``_hist_wave_kernel``).
 
-One wave's per-leaf histograms: for each lane-pair slot s, the sums over
-rows r with ``leaf_id[r] == slot_leaf[2s]`` and ``bins[f, r] == b`` of g
-(lane 2s), h (lane 2s+1) and the count weight (count lane s), in the
-packed layout ``(gh, cnt)``, each f32 [F, B, 128].  With ``parent`` the
-call also returns ``sibling = parent - child`` from the same launch.
+One wave's per-leaf histograms: the sums over rows r with ``leaf_id[r] ==
+slot_leaf[c]`` and ``bins[f, r] == b`` of lane c's value, in one of two
+channel layouts, each f32 [F, B, 128]:
 
-Modes round g/h before the f32 accumulation, as the Pallas kernel's MXU
-passes do: ``highest`` keeps f32, ``bf16`` rounds once, ``2xbf16`` adds
-the bf16 hi part and the bf16 rounding of the remainder (16 mantissa
-bits).  Count weights go through bf16 in every mode (exact for 0/1).
+* packed (``packed=True``, 63 leaves): lane pairs (g, h) in ``gh`` and the
+  count weight of pair s in lane s of ``cnt``; returns ``(gh, cnt)``;
+* triple (``packed=False``, 42 leaves): lanes 3s, 3s+1, 3s+2 hold g, h and
+  the count; returns one array.
+
+With ``parent`` (in the same layout) the call also returns ``sibling =
+parent - child`` from the same launch.
+
+Modes.  Float modes round g/h before the f32 accumulation, as the Pallas
+kernel's MXU passes do: ``highest`` keeps f32, ``bf16`` rounds once,
+``2xbf16`` adds the bf16 hi part and the bf16 rounding of the remainder
+(16 mantissa bits).  The packed count goes through bf16 in every mode
+(exact for 0/1); the triple count lane is rounded like g and h.  The
+quantized modes ``int16``/``int8`` take integer-valued g/h
+(``ops/quant.stochastic_round`` output): the row vectors travel as [N, 4]
+int16, the sums are exact integers and the outputs hold them in f32
+("integer units"; the wave grower dequantizes at split-scan time).
 
 On Hopper (``csrc/hist_wave.cu``) the kernel is bound by bytes: the
-``F*N`` bin read, the ``16*N`` row-vector read and the [F, B, 128]
-histogram traffic per launch; the shared atomics are the practical
-limit.  The design keeps accumulation in shared memory, one privatized
-histogram per block, and reduces the block partials in a second pass
-instead of with global atomics.  The source's header says more.
+``F*N`` bin read, the row-vector read (16 bytes a row, 8 quantized) and
+the [F, B, 128] histogram traffic per launch; the shared atomics are the
+practical limit.  The design keeps accumulation in shared memory, one
+privatized histogram per block, and reduces the block partials in a
+second pass instead of with global atomics.  The source's header says
+more.
 
-The shared-memory atomics add in an order that changes from run to run,
-so the kernel's g/h sums agree with ``hist_wave_plain`` to f32 rounding
-(within 1e-5 of each cell's sum of magnitudes), counts exactly.  A
-deterministic reduction is ROADMAP.md port-queue item 4.
+The float modes' shared atomics add in an order that changes from run to
+run, so the kernel's g/h sums agree with ``hist_wave_plain`` to f32
+rounding (within 1e-5 of each cell's sum of magnitudes), counts exactly.
+The int modes add integers and equal the plain version bit for bit.
 
 ``hist_wave`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 
 from ..utils import log
+from . import build as _build
+from .quant import QUANT_MODES
 
-C_MAX = 128                      # lanes of the packed channel layout
+C_MAX = 128                      # lanes of one output
 P_MAX_PACKED = C_MAX // 2 - 1    # 63 leaves per wave
-_MODES = {"highest": 0, "2xbf16": 1, "bf16": 2}
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "hist_wave.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_lib = None
-_lib_lock = threading.Lock()
+P_MAX_TRIPLE = C_MAX // 3        # 42 leaves per wave
+_MODES = {"highest": 0, "2xbf16": 1, "bf16": 2, "int16": 3, "int8": 4}
+_INT16_MIN, _INT16_MAX = -32768, 32767
+_INT_ROWS_PER_CHUNK = 65535      # int32 cell sums of |q| <= 32767 cannot wrap
 
 
-def _resolve_mode(highest) -> str:
+def wave_capacity_max(packed: bool) -> int:
+    """Leaves one launch can histogram under the given layout."""
+    return P_MAX_PACKED if packed else P_MAX_TRIPLE
+
+
+def resolve_mode(highest) -> str:
     """True -> "highest", False -> "bf16"; strings pass through."""
     if isinstance(highest, str):
         if highest not in _MODES:
-            log.fatal(f"hist_wave mode {highest!r}: the PyTorch port has "
-                      "highest, 2xbf16 and bf16 (int16/int8: ROADMAP.md "
-                      "port queue)")
+            log.fatal(f"hist_wave mode {highest!r}: the modes are "
+                      f"{', '.join(_MODES)}")
         return highest
     return "highest" if highest else "bf16"
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    return str(cand) if cand.exists() else "nvcc"
-
-
-def build() -> Path:
-    """Compile ``csrc/hist_wave.cu`` into ``build/`` (keyed by the source
-    and flags, so a changed source rebuilds) and return the library path.
-    The compiler's output (ptxas register/shared-memory report) is kept
-    beside it as ``.log``."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"hist_wave_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {_SRC.name}:\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.lgbm_hist_wave.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p] * 8)
-            lib.lgbm_hist_wave.restype = ctypes.c_int
-            lib.lgbm_hist_wave_smem_bytes.argtypes = [ctypes.c_int] * 2
-            lib.lgbm_hist_wave_smem_bytes.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _pair_slot_masks(leaf_id, slot_leaf):
-    """Row x slot membership for the g lanes (even channels) and h lanes
-    (odd channels): [N, 64] bool each."""
-    even, odd = slot_leaf[0::2].long(), slot_leaf[1::2].long()
-    leaf = leaf_id.long()[:, None]
-    return ((leaf == even[None]) & (even >= 0)[None],
-            (leaf == odd[None]) & (odd >= 0)[None])
-
-
 def round_values(x, mode: str):
-    """g/h as the kernel accumulates them (see the module docstring)."""
+    """Float-mode g/h as the kernel accumulates them (module docstring)."""
     if mode == "highest":
         return x
     hi = x.to(torch.bfloat16).float()
@@ -126,39 +81,71 @@ def round_values(x, mode: str):
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
+def _int_stream(gv, hv, cv, leaf_id):
+    """The quantized row vectors [N, 4] int16 (g, h, count weight, leaf),
+    converted as the reference's f32 -> int16 cast does: saturating to
+    [-32768, 32767], NaN to 0.  The stochastic rounding can lift a
+    maximum of 32767 to 32768, which saturates back; leaf ids stay below
+    32768 because the config caps ``num_leaves`` at 32000."""
+    vecs = torch.stack([gv.float(), hv.float(), cv.float(),
+                        leaf_id.float()], 1)
+    return vecs.nan_to_num(0.0).clamp(_INT16_MIN, _INT16_MAX).to(torch.int16)
+
+
 def hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
                     highest="bf16", packed: bool = True, parent=None):
     """Plain PyTorch K1 with ``hist_pallas_wave``'s data arguments and
-    packed output (its TPU tiling knobs have no counterpart).
+    outputs (its TPU tiling knobs have no counterpart).
 
     bins_fm: uint8 [F, N]; gv/hv/cv: f32 [N] (bag-masked g, h and count
-    weights); leaf_id: int [N]; slot_leaf: int32 [128] channel -> leaf
-    (-1 unused).  Returns ``(gh, cnt)`` f32 [F, B, 128]; with ``parent``
-    (the same pair) returns ``((gh, cnt), (sib_gh, sib_cnt))``."""
-    if not packed:
-        log.fatal("the triple channel layout is not in the PyTorch port yet "
-                  "(ROADMAP.md port queue: K1 triple layout)")
-    mode = _resolve_mode(highest)
+    weights; integer-valued in the int modes); leaf_id: int [N];
+    slot_leaf: int32 [128] lane -> leaf (-1 unused).  Returns the layout's
+    output (module docstring); with ``parent`` ``(child, sibling)``."""
+    mode = resolve_mode(highest)
     F, N = bins_fm.shape
     dev = bins_fm.device
-    vals = (round_values(gv.float(), mode), round_values(hv.float(), mode),
-            cv.float().to(torch.bfloat16).float())
-    m_g, m_h = _pair_slot_masks(leaf_id, slot_leaf)
-    gh = torch.zeros(F * B * C_MAX, dtype=torch.float32, device=dev)
-    cnt = torch.zeros(F * B * C_MAX, dtype=torch.float32, device=dev)
+    if mode in QUANT_MODES:
+        q = _int_stream(gv, hv, cv, leaf_id).long()
+        vals = (q[:, 0], q[:, 1], q[:, 2])
+        leaf = q[:, 3]
+        acc_dtype = torch.int64
+    else:
+        count_mode = mode if not packed else "bf16"
+        vals = (round_values(gv.float(), mode), round_values(hv.float(), mode),
+                round_values(cv.float(), count_mode))
+        leaf = leaf_id.long()
+        acc_dtype = torch.float32
+    slot = slot_leaf.long()
+    lanes = torch.arange(C_MAX, device=dev)
+    if packed:
+        # (output, value, lanes read for the leaf, lanes written)
+        even, odd = lanes[0::2], lanes[1::2]
+        passes = ((0, vals[0], even, even), (0, vals[1], odd, odd),
+                  (1, vals[2], even, lanes[:C_MAX // 2]))
+    else:
+        kind = lanes % 3
+        passes = tuple((0, vals[k], lanes[kind == k], lanes[kind == k])
+                       for k in range(3))
+    n_out = 2 if packed else 1
+    outs = [torch.zeros(F * B * C_MAX, dtype=acc_dtype, device=dev)
+            for _ in range(n_out)]
     fb = torch.arange(F, device=dev)[:, None] * B
-    for out, mask, val, lane in ((gh, m_g, vals[0], lambda s: 2 * s),
-                                 (gh, m_h, vals[1], lambda s: 2 * s + 1),
-                                 (cnt, m_g, vals[2], lambda s: s)):
-        r, s = torch.nonzero(mask, as_tuple=True)
+    for o, val, read, write in passes:
+        want = slot[read]
+        r, s = torch.nonzero((leaf[:, None] == want[None]) & (want >= 0)[None],
+                             as_tuple=True)
         b = bins_fm[:, r].long()                            # [F, K]
         keep = b < B
-        idx = (fb + b) * C_MAX + lane(s)[None, :]
-        out.index_add_(0, idx[keep], val[r][None, :].expand(F, -1)[keep])
-    child = (gh.reshape(F, B, C_MAX), cnt.reshape(F, B, C_MAX))
+        idx = (fb + b) * C_MAX + write[s][None, :]
+        outs[o].index_add_(0, idx[keep],
+                           val[r][None, :].expand(F, -1)[keep].to(acc_dtype))
+    outs = [o.float().reshape(F, B, C_MAX) for o in outs]
+    child = tuple(outs) if packed else outs[0]
     if parent is None:
         return child
-    return child, (parent[0] - child[0], parent[1] - child[1])
+    if packed:
+        return child, (parent[0] - child[0], parent[1] - child[1])
+    return child, parent - child
 
 
 def _check(name, t, dtype, shape=None, device=None):
@@ -174,13 +161,17 @@ def _check(name, t, dtype, shape=None, device=None):
         raise ValueError(f"hist_wave: {name} must be contiguous")
 
 
-def _chunks(dev, F: int, N: int, smem: int) -> int:
+def _chunks(dev, F: int, N: int, smem: int, max_rows: int = None) -> int:
     """Row chunks per feature: enough blocks for two rounds over the SMs
-    at the occupancy the shared-memory size allows, and >= 4096 rows each."""
+    at the occupancy the shared-memory size allows, >= 4096 rows each and
+    at most ``max_rows``."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_sm = max(1, min(4, (227 * 1024) // max(smem, 1)))
     want = -(-2 * sms * per_sm // max(F, 1))
-    return max(1, min(want, -(-N // 4096)))
+    chunks = max(1, min(want, -(-N // 4096)))
+    if max_rows is not None:
+        chunks = max(chunks, -(-N // max_rows))
+    return chunks
 
 
 def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
@@ -188,26 +179,27 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
               num_slots: int = None):
     """K1 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Same arguments and results as
-    ``hist_wave_plain``; ``num_slots`` (default 63) tells the kernel how
-    many leading lane pairs are in use, which sizes its shared memory.
+    ``hist_wave_plain``; ``num_slots`` (default: the layout's capacity)
+    tells the kernel how many leading slots are in use, which sizes its
+    shared memory.
 
-    Kernel preconditions (the wave grower meets them): ``slot_leaf[2s] ==
-    slot_leaf[2s+1]``, pairs from ``num_slots`` on are -1, no leaf in two
-    pairs, ``B <= 256``."""
+    Kernel preconditions (the wave grower meets them): the lanes of each
+    slot s < ``num_slots`` map to one leaf, lanes past them are -1, no
+    leaf in two slots, ``B <= 256``."""
     if bins_fm.device.type == "cpu":
         return hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B,
                                highest=highest, packed=packed, parent=parent)
     if not bins_fm.is_cuda:
         raise ValueError(f"hist_wave: no kernel for device {bins_fm.device}")
-    if not packed:
-        log.fatal("the triple channel layout is not in the PyTorch port yet "
-                  "(ROADMAP.md port queue: K1 triple layout)")
-    mode = _resolve_mode(highest)
+    mode = resolve_mode(highest)
+    quant = mode in QUANT_MODES
     dev = bins_fm.device
     F, N = bins_fm.shape
-    S = P_MAX_PACKED if num_slots is None else int(num_slots)
-    if not (0 <= S <= P_MAX_PACKED):
-        raise ValueError(f"hist_wave: num_slots must be in [0, 63], got {S}")
+    cap = wave_capacity_max(packed)
+    S = cap if num_slots is None else int(num_slots)
+    if not (0 <= S <= cap):
+        raise ValueError(f"hist_wave: num_slots must be in [0, {cap}], "
+                         f"got {S}")
     if not (1 <= B <= 256):
         raise ValueError(f"hist_wave: B must be in [1, 256], got {B}")
     _check("bins_fm", bins_fm, torch.uint8)
@@ -218,41 +210,48 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
     _check("leaf_id", leaf_id, leaf_id.dtype, (N,), dev)
     _check("slot_leaf", slot_leaf, torch.int32, (C_MAX,), dev)
     hist_shape = (F, B, C_MAX)
-    par_gh = par_ct = None
+    n_out = 2 if packed else 1
+    pars = [None, None]
     if parent is not None:
-        par_gh, par_ct = parent
-        _check("parent[0]", par_gh, torch.float32, hist_shape, dev)
-        _check("parent[1]", par_ct, torch.float32, hist_shape, dev)
+        pars = list(parent) if packed else [parent, None]
+        for i in range(n_out):
+            _check(f"parent[{i}]", pars[i], torch.float32, hist_shape, dev)
 
-    lib = _load()
-    # leaf ids ride the f32 vector stream like the Pallas kernel's (exact
-    # below 2^24)
-    vecs = torch.stack([gv, hv, cv, leaf_id.float()], 1)
+    lib = _build.load()
+    if quant:
+        vecs = _int_stream(gv, hv, cv, leaf_id)
+    else:
+        # leaf ids ride the f32 vector stream like the Pallas kernel's
+        # (exact below 2^24)
+        vecs = torch.stack([gv, hv, cv, leaf_id.float()], 1)
     smem = lib.lgbm_hist_wave_smem_bytes(B, S)
-    chunks = _chunks(dev, F, N, smem) if N else 1
+    chunks = (_chunks(dev, F, N, smem,
+                      _INT_ROWS_PER_CHUNK if quant else None) if N else 1)
     ws = torch.empty(chunks * F * B * S * 3 if N else 0,
-                     dtype=torch.float32, device=dev)
-    out_gh = torch.empty(hist_shape, dtype=torch.float32, device=dev)
-    out_ct = torch.empty(hist_shape, dtype=torch.float32, device=dev)
-    sib_gh = sib_ct = None
+                     dtype=torch.int32 if quant else torch.float32,
+                     device=dev)
+    outs = [torch.empty(hist_shape, dtype=torch.float32, device=dev)
+            for _ in range(n_out)] + [None] * (2 - n_out)
+    sibs = [None, None]
     if parent is not None:
-        sib_gh = torch.empty_like(out_gh)
-        sib_ct = torch.empty_like(out_ct)
+        sibs = [torch.empty(hist_shape, dtype=torch.float32, device=dev)
+                for _ in range(n_out)] + [None] * (2 - n_out)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.lgbm_hist_wave(
-        ptr(bins_fm), ptr(vecs), ptr(slot_leaf), F, N, B, S, _MODES[mode],
-        chunks, ptr(ws), ptr(par_gh), ptr(par_ct), ptr(out_gh), ptr(out_ct),
-        ptr(sib_gh), ptr(sib_ct), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hist_wave: CUDA launch failed with error {err}")
+    _build.check_launch("hist_wave", lib.lgbm_hist_wave(
+        ptr(bins_fm), ptr(vecs), ptr(slot_leaf), F, N, B, S,
+        2 if packed else 3, _MODES[mode], chunks, ptr(ws), ptr(pars[0]),
+        ptr(pars[1]), ptr(outs[0]), ptr(outs[1]), ptr(sibs[0]),
+        ptr(sibs[1]), torch.cuda.current_stream(dev).cuda_stream))
     hist_wave.launches += 1
-    child = (out_gh, out_ct)
+    hist_wave.layout_launches["packed" if packed else "triple"] += 1
+    child = tuple(outs) if packed else outs[0]
     if parent is None:
         return child
-    return child, (sib_gh, sib_ct)
+    return child, (tuple(sibs) if packed else sibs[0])
 
 
-hist_wave.launches = 0
+hist_wave.launches = 0                                   # all launches
+hist_wave.layout_launches = {"packed": 0, "triple": 0}   # by layout

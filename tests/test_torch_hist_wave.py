@@ -1,10 +1,13 @@
 """K1's plain PyTorch version against the Pallas kernel (interpret mode) in
-the packed layout, fused and unfused, in the float modes; the CPU dispatch
-of the wrapper; and, on a CUDA card, the kernel against the plain version.
+the packed and triple layouts, fused and unfused, in every mode; the CPU
+dispatch of the wrapper; and, on a CUDA card, the kernel against the plain
+version.
 
-Tolerance: counts exact; g/h at rtol=1e-5, atol=1e-5 — both sides round
-g/h the same way and accumulate in f32, only the summation order differs
-(as tests/test_wave.py holds the Pallas kernel to its XLA oracle)."""
+Tolerance: counts exact; float-mode g/h at rtol=1e-5, atol=1e-5 — both
+sides round g/h the same way and accumulate in f32, only the summation
+order differs (as tests/test_wave.py holds the Pallas kernel to its XLA
+oracle).  The int16/int8 modes are array-equal: integer sums, every cell
+below 2^24."""
 import numpy as np
 import pytest
 import torch
@@ -13,11 +16,12 @@ from lightgbm_tpu_torch.core.histogram import hist_scatter
 from lightgbm_tpu_torch.ops import hist_wave as hw
 
 MODES = ["highest", "2xbf16", "bf16"]
+QUANT = {"int16": 32767, "int8": 127}
 
 
 def _inputs(N=700, F=6, B=64, pend=(3, 0, 7, 5, 9), seed=0):
     rng = np.random.default_rng(seed)
-    bins = rng.integers(0, B - 3, size=(F, N)).astype(np.uint8)
+    bins = rng.integers(0, B, size=(F, N)).astype(np.uint8)   # 0 .. B-1
     gv = rng.normal(size=N).astype(np.float32)
     hv = (0.05 + rng.random(size=N)).astype(np.float32)
     cv = (rng.random(size=N) < 0.9).astype(np.float32)   # bag-masked rows
@@ -91,13 +95,168 @@ def test_wrapper_takes_plain_on_cpu_without_counting():
     assert hw.hist_wave.launches == before
 
 
+def _quant_inputs(mode, N=700, F=6, B=64, leaves=12, seed=0, packed=True,
+                  n_slots=5):
+    """Integer g/h as the quantized grower forms them (|q| <= QMAX, zeros
+    on bag-masked rows), leaf ids, and the layout's slot map and parent
+    in integer units."""
+    rng = np.random.default_rng(seed)
+    qmax = QUANT[mode]
+    bins = rng.integers(0, B, size=(F, N)).astype(np.uint8)
+    cv = (rng.random(size=N) < 0.9).astype(np.float32)
+    gv = rng.integers(-qmax, qmax + 1, size=N).astype(np.float32) * cv
+    hv = rng.integers(0, qmax + 1, size=N).astype(np.float32) * cv
+    leaf = rng.integers(0, leaves, size=N).astype(np.int32)
+    pend = rng.permutation(leaves)[:n_slots].astype(np.int32)
+    lanes = 2 if packed else 3
+    slot = np.full(128, -1, np.int32)
+    slot[:lanes * n_slots] = np.repeat(pend, lanes)
+    par = [rng.integers(-10 ** 6, 10 ** 6, size=(F, B, 128)).astype(np.float32)
+           for _ in range(2 if packed else 1)]
+    return (bins, gv, hv, cv, leaf, slot), (tuple(par) if packed else par[0])
+
+
+def _as_np(x):
+    return (tuple(np.asarray(a) for a in x) if isinstance(x, tuple)
+            else np.asarray(x))
+
+
+def _assert_equal(got, want):
+    got, want = _as_np(got), _as_np(want)
+    if isinstance(got, tuple):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("mode", list(QUANT))
+def test_plain_quantized_equals_pallas_interpret(mode, packed, fused):
+    """int16/int8: the plain version's integer sums are the Pallas
+    kernel's, bit for bit, in both layouts, fused and unfused."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.pallas_hist import hist_pallas_wave
+    arrs, parent = _quant_inputs(mode, packed=packed,
+                                 n_slots=5 if packed else 4,
+                                 seed=2 * packed + fused)
+    jpar = None
+    if fused:
+        jpar = (tuple(jnp.asarray(p) for p in parent) if packed
+                else jnp.asarray(parent))
+    ref = hist_pallas_wave(*(jnp.asarray(a) for a in arrs), B=64,
+                           highest=mode, interpret=True, packed=packed,
+                           parent=jpar)
+    tpar = None
+    if fused:
+        tpar = tuple(_torch(parent)) if packed else _torch([parent])[0]
+    got = hw.hist_wave_plain(*_torch(arrs), 64, highest=mode, packed=packed,
+                             parent=tpar)
+    if fused:
+        _assert_equal(got[0], ref[0])
+        _assert_equal(got[1], ref[1])
+    else:
+        _assert_equal(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["highest", "2xbf16", "bf16", "int16",
+                                  "int8"])
+def test_packed_and_triple_agree(mode):
+    """The two layouts hold the same per-leaf sums: bit for bit in the int
+    modes (integer units), and in the float modes wherever both round the
+    value the same way (g, h; the packed count goes through bf16)."""
+    if mode in QUANT:
+        (bins, gv, hv, cv, leaf, _), _ = _quant_inputs(mode, seed=5)
+    else:
+        bins, gv, hv, cv, leaf, _, _ = _inputs(seed=5)
+    pend = np.array([3, 0, 7, 5], np.int32)
+    sp = np.full(128, -1, np.int32)
+    sp[:8] = np.repeat(pend, 2)
+    st = np.full(128, -1, np.int32)
+    st[:12] = np.repeat(pend, 3)
+    t = _torch([bins, gv, hv, cv, leaf])
+    gh, cnt = hw.hist_wave_plain(*t, torch.from_numpy(sp), 64, highest=mode)
+    tri = hw.hist_wave_plain(*t, torch.from_numpy(st), 64, highest=mode,
+                             packed=False)
+    assert torch.equal(tri[..., 0:12:3], gh[..., 0:8:2])
+    assert torch.equal(tri[..., 1:12:3], gh[..., 1:8:2])
+    assert torch.equal(tri[..., 2:12:3], cnt[..., :4])
+    assert not tri[..., 12:].any()
+
+
 def test_refuses_triple_layout_and_quantized_modes():
+    """Unknown modes are refused.  Leaf ids past the int16 vector stream are
+    refused where they would arise: ``num_leaves`` > 32000 under int16/int8.
+    A stray one that reaches K1 saturates, as the reference's int16 cast
+    does (array-equal to the Pallas kernel)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.pallas_hist import hist_pallas_wave
+    from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.utils.log import LightGBMError
     t = _torch(_inputs()[:6])
-    with pytest.raises(LightGBMError, match="triple"):
-        hw.hist_wave(*t, 64, packed=False)
     with pytest.raises(LightGBMError, match="int16"):
-        hw.hist_wave(*t, 64, highest="int16")
+        hw.hist_wave(*t, 64, highest="int4")
+    for mode in QUANT:
+        with pytest.raises(LightGBMError, match="32000"):
+            Config.from_params({"tpu_hist_dtype": mode, "num_leaves": 32001})
+    for packed in (True, False):
+        arrs, _ = _quant_inputs("int16", packed=packed, seed=9)
+        arrs[3][7] = 1.0                     # row 7 carries weight ...
+        arrs[4][7] = 40000                   # ... and a leaf id past int16
+        arrs[5][:2 if packed else 3] = 32767
+        ref = hist_pallas_wave(*(jnp.asarray(a) for a in arrs), B=64,
+                               highest="int16", interpret=True, packed=packed)
+        got = hw.hist_wave(*_torch(arrs), 64, highest="int16", packed=packed)
+        _assert_equal(got, ref)
+        count0 = got[1][..., 0] if packed else got[..., 2]
+        assert float(count0.sum()) == arrs[0].shape[0]   # row 7, per feature
+
+
+# stochastic_round(32767.0, SAT_SEED) == 32768.0: the rounding lifts a
+# scaled maximum past the int16 range under this seed
+SAT_SEED = 1822
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fused", [False, True])
+def test_plain_saturates_like_pallas_interpret(packed, fused):
+    """g and h at the int16 maximum, stochastic-rounded with a seed that
+    lifts 32767 to 32768: the plain version saturates them as the
+    reference's cast does, array-equal to the Pallas kernel, and does not
+    raise."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.pallas_hist import hist_pallas_wave
+    from lightgbm_tpu_torch.ops.quant import stochastic_round
+    arrs, parent = _quant_inputs("int16", packed=packed, seed=11 + fused)
+    bins, gv, hv, cv, leaf, slot = arrs
+    top = cv > 0
+    top[np.nonzero(top)[0][50:]] = False          # 50 rows at the maximum
+    gv = np.where(top, 32767.0, gv).astype(np.float32)
+    hv = np.where(top, 32767.0, hv).astype(np.float32)
+    gq = stochastic_round(torch.from_numpy(gv), SAT_SEED).numpy()
+    hq = stochastic_round(torch.from_numpy(hv), SAT_SEED).numpy()
+    assert gq.max() == hq.max() == 32768.0
+    arrs = (bins, gq, hq, cv, leaf, slot)
+    jpar = tpar = None
+    if fused:
+        jpar = (tuple(jnp.asarray(p) for p in parent) if packed
+                else jnp.asarray(parent))
+        tpar = tuple(_torch(parent)) if packed else _torch([parent])[0]
+    ref = hist_pallas_wave(*(jnp.asarray(a) for a in arrs), B=64,
+                           highest="int16", interpret=True, packed=packed,
+                           parent=jpar)
+    got = hw.hist_wave_plain(*_torch(arrs), 64, highest="int16",
+                             packed=packed, parent=tpar)
+    if fused:
+        _assert_equal(got[0], ref[0])
+        _assert_equal(got[1], ref[1])
+    else:
+        _assert_equal(got, ref)
 
 
 @pytest.mark.cuda
@@ -117,3 +276,53 @@ def test_kernel_matches_plain_on_card(mode, fused):
     for g, w in pairs:
         assert torch.equal(g[1], w[1])
         torch.testing.assert_close(g[0], w[0], rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("mode", list(QUANT))
+def test_quantized_kernel_equals_plain_on_card(mode, packed, fused):
+    """Integer atomics are order-free: the kernel equals its plain version
+    bit for bit, with leaf ids past the 4096-entry slot table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    S = 30 if packed else 20
+    arrs, parent = _quant_inputs(mode, N=150_000, F=7, B=256, leaves=9000,
+                                 seed=6, packed=packed, n_slots=S)
+    t = [torch.from_numpy(a).cuda() for a in arrs]
+    par = None
+    if fused:
+        par = (tuple(torch.from_numpy(p).cuda() for p in parent) if packed
+               else torch.from_numpy(parent).cuda())
+    got = hw.hist_wave(*t, 256, highest=mode, packed=packed, parent=par,
+                       num_slots=S)
+    want = hw.hist_wave_plain(*t, 256, highest=mode, packed=packed,
+                              parent=par)
+    _assert_equal(tuple(x.cpu() for x in _flat(got)),
+                  tuple(x.cpu() for x in _flat(want)))
+
+
+def _flat(x):
+    if isinstance(x, torch.Tensor):
+        return (x,)
+    return tuple(t for part in x for t in _flat(part))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_triple_kernel_matches_plain_on_card(mode, fused):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    bins, gv, hv, cv, leaf, _, _ = _inputs(N=50_000, F=7, seed=7)
+    slot = np.full(128, -1, np.int32)
+    slot[:15] = np.repeat(np.array([3, 0, 7, 5, 9], np.int32), 3)
+    t = [x.cuda() for x in _torch([bins, gv, hv, cv, leaf, slot])]
+    par = (torch.randn((7, 64, 128), device="cuda") * 50) if fused else None
+    got = hw.hist_wave(*t, 64, highest=mode, packed=False, parent=par,
+                       num_slots=5)
+    want = hw.hist_wave_plain(*t, 64, highest=mode, packed=False, parent=par)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g[..., 2::3], w[..., 2::3])      # counts
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)

@@ -133,10 +133,12 @@ def test_convert_round_trips(trained):
 
 
 @pytest.mark.parametrize("params", [
-    {"bagging_fraction": 0.5, "bagging_freq": 1}, {"boosting": "goss"},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"boosting": "goss"},
     {"boosting": "dart"}, {"tree_learner": "data"},
     {"feature_fraction_bynode": 0.5}, {"tpu_wave_overlap": True},
-    {"tpu_hist_dtype": "int16"}, {"objective": "multiclass", "num_class": 3},
+    {"max_bin_by_feature": [15] * 10},
+    {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"}, {"cegb_penalty_split": 0.1},
     {"categorical_feature": "0"}, {"forcedsplits_filename": "f.json"}])
 def test_outside_the_slice_is_refused(params):
