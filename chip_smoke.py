@@ -6,7 +6,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. set-up: the card's name and power limit, and the build of every kernel
    from ``lightgbm_tpu_torch/csrc`` into ``build/`` (one nvcc per source,
-   all started together; timed);
+   all started together; timed); the SASS census of atomic, reduction and
+   warp-match instructions by kernel;
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same inputs, times by CUDA events (median of 25), bounds from these
    inputs:
@@ -16,8 +17,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      64, 7 leaves); int8 on the ragged shape; the triple layout (42
      leaves) in 2xbf16 and int16, fused and unfused; a ragged int16 case
      and a 2xbf16 one whose leaf ids lie past the kernel's 4,096-entry slot
-     table.  Bins are drawn over all of [0, B).  Float modes: counts exact
-     and g/h within the f32 bound below; int modes: ``torch.equal``;
+     table.  Bins are drawn over all of [0, B).  Then 2xbf16 fused at the
+     main shape on skewed bins (half the features take 2 bins, the rest
+     put 90% of their rows in one): packed at 63 leaves and at 1 (a root
+     wave), triple at 42.  Float modes: counts exact and g/h within the
+     f32 bound below; int modes: ``torch.equal``;
    - K2 (``ops/hist_channels.hist_channels``) at 1,000,000 x 28 x 256 with
      C=128 and at 3,001 x 5 x 64 with C=256, within the f32 bound;
 3. small-input reference: 3 rounds on 20,000 rows trained on the card and
@@ -46,9 +50,10 @@ Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all and by layout.  Prints a ``{"kernels": [...]}`` line
 (``launches`` from each kernel's path, ``training_path_launches`` over the
-three training phases, ``check_launches`` from phase 2) and, last, the
-device line ``{"ok": true, "device": {...}}``.  Imports no jax and
-nothing of lightgbm_tpu.
+three training phases, ``check_launches`` from phase 2, ``skewed`` the
+skewed-bin cases' times and errors) and, last, the device line
+``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
+lightgbm_tpu.
 """
 from __future__ import annotations
 
@@ -68,6 +73,11 @@ REPS = 25
 # f32 sums of the same values in another order: per cell the difference
 # is bounded by a few ulps of the sum of magnitudes in that cell
 REL_TOL = 1e-5
+# ... for a cell of up to this many rows.  The rounding of an f32 sum of n
+# terms grows as sqrt(n) (the plain version's own included), so a cell of
+# n rows more is held to sqrt(n / ROWS_AT_REL_TOL) times REL_TOL: ~11
+# standard deviations of the difference of two summation orders at any n
+ROWS_AT_REL_TOL = 1000
 DEV = "cuda"
 MAIN_ROWS = 1_000_000            # the headline configuration's rows
 
@@ -109,11 +119,30 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def sass_atomics(lib) -> dict:
-    """Count of each shared-memory atomic opcode (ATOMS.*) in the built
-    library's SASS, by ``cuobjdump`` from the CUDA toolkit: shows whether
-    an atomic add compiled to one instruction or to a compare-and-swap
-    loop."""
+def kernel_name(symbol: str) -> str:
+    """The unqualified name of a mangled kernel symbol
+    (``_ZN12_GLOBAL__N_120hist_wave_float_rowsE...`` ->
+    ``hist_wave_float_rows``); other strings pass through."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    i = 3 if symbol.startswith("_ZN") else 2
+    name = symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        n = int(symbol[i:j])
+        name, i = symbol[j:j + n], j + n
+    return name
+
+
+def sass_census(lib) -> dict:
+    """Per kernel of the built library, the count of each atomic,
+    reduction and warp-match opcode in its SASS (``cuobjdump`` from the
+    CUDA toolkit): shared-memory atomics (ATOMS.*), global atomics and
+    reductions (ATOMG.*, ATOM.*, RED.*, REDG.*) and MATCH.*.  Shows
+    whether an add compiled to one instruction or to a compare-and-swap
+    loop, and which instruction a global reduction became."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     try:
@@ -121,10 +150,29 @@ def sass_atomics(lib) -> dict:
                              text=True, timeout=120).stdout
     except OSError as err:
         return {"cuobjdump": f"unavailable ({err})"}
+    census, fn = {}, "?"
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line.split("Function :")[1].strip())
+            continue
+        for tok in line.split():
+            if tok.startswith(("ATOMS.", "ATOMG.", "ATOM.", "RED.", "REDG.",
+                               "MATCH.")):
+                ops = census.setdefault(fn, {})
+                ops[tok] = ops.get(tok, 0) + 1
+    return census
+
+
+def sass_atomics(census: dict) -> dict:
+    """Count of each shared-memory atomic opcode (ATOMS.*) over every
+    kernel of ``sass_census``'s result."""
+    if "cuobjdump" in census:
+        return census
     counts = {}
-    for tok in out.split():
-        if tok.startswith("ATOMS."):
-            counts[tok] = counts.get(tok, 0) + 1
+    for ops in census.values():
+        for op, n in ops.items():
+            if op.startswith("ATOMS."):
+                counts[op] = counts.get(op, 0) + n
     return counts
 
 
@@ -146,18 +194,30 @@ def flat(x):
     return [t for part in x for t in flat(part)]
 
 
-def wave_inputs(N, F, B, leaves, fused, mode, packed, seed, leaf_hi=None):
+def wave_inputs(N, F, B, leaves, fused, mode, packed, seed, leaf_hi=None,
+                skew=False):
     """Random K1 inputs as the wave grower forms them: bins over [0, B),
     g/h/count vectors (stochastic-rounded integers under a bag mask in the
     int modes), leaf ids over 2*leaves ids drawn from [0, leaf_hi) of which
     the first half are pending, the layout's slot map and, fused, a parent
-    histogram in that layout."""
+    histogram in that layout.  ``skew``: the first half of the features
+    take two bins (0 and B-1), the rest put 90% of their rows in one bin
+    and spread the others over [0, B)."""
     import torch
     from lightgbm_tpu_torch.ops.quant import QUANT_MODES, QUANT_QMAX
     g = torch.Generator(device=DEV).manual_seed(seed)
     dev = DEV
     bins = torch.randint(0, B, (F, N), generator=g, device=dev,
-                         dtype=torch.int32).to(torch.uint8)
+                         dtype=torch.int32)
+    if skew:
+        half = F // 2
+        bins[:half] = torch.randint(0, 2, (half, N), generator=g, device=dev,
+                                    dtype=torch.int32) * (B - 1)
+        hot = torch.rand((F - half, N), generator=g, device=dev) < 0.9
+        hot_bin = torch.arange(half, F, device=dev,
+                               dtype=torch.int32)[:, None] * 37 % B
+        bins[half:] = torch.where(hot, hot_bin, bins[half:])
+    bins = bins.to(torch.uint8)
     if mode in QUANT_MODES:
         q = int(QUANT_QMAX[mode])
         cv = (torch.rand(N, generator=g, device=dev) < 0.9).float()
@@ -186,21 +246,22 @@ def wave_inputs(N, F, B, leaves, fused, mode, packed, seed, leaf_hi=None):
 
 
 def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
-                 leaf_hi=None):
+                 leaf_hi=None, skew=False):
     """K1 against its plain version on one shape; returns the numbers of
     the kernels line."""
     import torch
     from lightgbm_tpu_torch.ops.quant import QUANT_MODES
     quant = mode in QUANT_MODES
     bins, gv, hv, cv, leaf, slot, parent = wave_inputs(
-        N, F, B, leaves, fused, mode, packed, seed, leaf_hi)
+        N, F, B, leaves, fused, mode, packed, seed, leaf_hi, skew)
     args = (bins, gv, hv, cv, leaf, slot, B)
     kw = dict(highest=mode, packed=packed, parent=parent)
     got = flat(hw.hist_wave(*args, **kw, num_slots=leaves))
     want = flat(hw.hist_wave_plain(*args, **kw))
     torch.cuda.synchronize()
     tag = (f"K1 {mode} {'packed' if packed else 'triple'} "
-           f"{'fused' if fused else 'unfused'} N={N} F={F} B={B}")
+           f"{'fused' if fused else 'unfused'} N={N} F={F} B={B}"
+           f"{f' S={leaves} skewed bins' if skew else ''}")
     max_err = 0.0
     if quant:
         for g_t, w_t in zip(got, want):
@@ -209,6 +270,11 @@ def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
     else:
         mag = flat(hw.hist_wave_plain(bins, gv.abs(), hv.abs(), cv, leaf,
                                       slot, B, highest=mode, packed=packed))
+        # rows in each lane's cell (every row weighs 1 here): its count lane
+        lane = torch.arange(128, device=DEV)
+        rows = want[1][..., lane // 2] if packed else \
+            want[0][..., (lane // 3 * 3 + 2).clamp(max=127)]
+        scale = (rows / ROWS_AT_REL_TOL).sqrt().clamp(min=1.0)
         for i, (g_t, w_t) in enumerate(zip(got, want)):
             counts = ([(g_t, w_t)] if packed and i % 2 == 1 else
                       [] if packed else [(g_t[..., 2::3], w_t[..., 2::3])])
@@ -216,7 +282,7 @@ def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
                 if not torch.equal(g_c, w_c):
                     raise AssertionError(f"{tag}: counts differ")
             err = (g_t - w_t).abs()
-            lim = REL_TOL * mag[i % len(mag)] + 1e-6
+            lim = REL_TOL * mag[i % len(mag)] * scale + 1e-6
             if fused:
                 lim = lim + REL_TOL * w_t.abs()
             if not bool((err <= lim).all()):
@@ -518,8 +584,11 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s -> {lib.name}",
           flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
-    print(f"shared-memory atomics in the SASS: {sass_atomics(lib)}",
+    census = sass_census(lib)
+    print(f"shared-memory atomics in the SASS: {sass_atomics(census)}",
           flush=True)
+    print(f"atomics, reductions and warp matches by kernel in the SASS: "
+          f"{json.dumps(census)}", flush=True)
 
     # ---- 2. kernels vs plain ---------------------------------------------
     M = (MAIN_ROWS, 28, 256)
@@ -537,13 +606,18 @@ def main() -> int:
          30_000),
         ("k1_high_ids_2xbf16", (50_001, 7, 256), 40, False, "2xbf16", False,
          30_000),
+        # low-cardinality features: many rows reduce into few cells
+        ("k1_skew", M, 63, True, "2xbf16", True, None, True),
+        ("k1_triple_skew", M, 42, True, "2xbf16", False, None, True),
+        ("k1_skew_one_slot", M, 1, True, "2xbf16", True, None, True),
     ]
     res = {}
-    for i, (key, (N, F, B), leaves, fused, mode, packed, hi) in enumerate(
-            k1_cases):
+    for i, (key, (N, F, B), leaves, fused, mode, packed, hi, *skew) in \
+            enumerate(k1_cases):
         n0 = hw.hist_wave.launches
         tag, res[key] = check_kernel(hw, N, F, B, leaves, fused, mode, i,
-                                     packed=packed, leaf_hi=hi)
+                                     packed=packed, leaf_hi=hi,
+                                     skew=bool(skew))
         res[key].update(tag=tag, check_launches=hw.hist_wave.launches - n0)
     for i, (key, (N, F, B), C) in enumerate((("k2", M, 128),
                                              ("k2_ragged", R, 256))):
@@ -635,19 +709,29 @@ def main() -> int:
 
     def on_trainer(key):
         return sum(c[key] for c in (counts, counts16, counts8))
+
+    def skewed(*keys):
+        # the skewed-bin cases' numbers, by case
+        return {k: {n: res[k][n] for n in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "max_abs_err")}
+                for k in keys}
     k1_src = "lightgbm_tpu_torch/csrc/hist_wave.cu"
     k1_at = "lightgbm_tpu/ops/pallas_hist.py:584"
     kernels = [
         entry("hist_wave (K1)", "k1", k1_src, k1_at, counts["k1_packed"],
-              ["k1", "k1_ragged", "k1_high_ids_2xbf16"]),
+              ["k1", "k1_ragged", "k1_high_ids_2xbf16", "k1_skew",
+               "k1_skew_one_slot"],
+              skewed=skewed("k1_skew", "k1_skew_one_slot")),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
                                       "k1_triple_int16"]),
         entry("hist_wave triple (K1 c)", "k1_triple", k1_src, k1_at,
               counts_triple["k1_triple"], ["k1_triple", "k1_triple_unfused",
-                                           "k1_triple_int16_unfused"],
-              training_path_launches=on_trainer("k1_triple")),
+                                           "k1_triple_int16_unfused",
+                                           "k1_triple_skew"],
+              training_path_launches=on_trainer("k1_triple"),
+              skewed=skewed("k1_triple_skew")),
         entry("hist_channels (K2)", "k2",
               "lightgbm_tpu_torch/csrc/hist_channels.cu",
               "lightgbm_tpu/ops/pallas_hist.py:199", counts_k2["k2"],

@@ -24,18 +24,35 @@ quantized modes ``int16``/``int8`` take integer-valued g/h
 int16, the sums are exact integers and the outputs hold them in f32
 ("integer units"; the wave grower dequantizes at split-scan time).
 
-On Hopper (``csrc/hist_wave.cu``) the kernel is bound by bytes: the
+On Hopper (``csrc/hist_wave.cu``) the function's byte bound is the
 ``F*N`` bin read, the row-vector read (16 bytes a row, 8 quantized) and
-the [F, B, 128] histogram traffic per launch; the shared atomics are the
-practical limit.  The design keeps accumulation in shared memory, one
-privatized histogram per block, and reduces the block partials in a
-second pass instead of with global atomics.  The source's header says
-more.
+the [F, B, 128] histogram traffic per launch.  The two mode families
+have two designs:
 
-The float modes' shared atomics add in an order that changes from run to
-run, so the kernel's g/h sums agree with ``hist_wave_plain`` to f32
-rounding (within 1e-5 of each cell's sum of magnitudes), counts exactly.
-The int modes add integers and equal the plain version bit for bit.
+* float modes: one thread a row, features in an inner loop, the lanes of
+  a warp that hit the same cell summed first; the sums go into an f32
+  accumulator [F, B, S, 4] in device memory (L2-resident, zeroed here
+  with each launch) with one 16-byte vector reduction each, or, in a wave
+  whose whole histogram fits in shared memory (at 28 features x 256 bins
+  one or two slots: the root wave and the next two), into a per-block
+  copy there that one warp a feature writes without atomics and that is
+  reduced into the accumulator once; an epilogue writes the layout and
+  the sibling.  The L2's reduction rate bounds the first, the warp's
+  settling of shared cells the second;
+* int modes: per-block int32 histograms in shared memory (native integer
+  atomics, exact), written to a workspace of row-chunk partials that the
+  epilogue sums in int64.  They keep this design: their int32 shared
+  adds are single instructions, where the accumulator would need 64-bit
+  reductions.  The float modes left it: f32 shared adds are
+  compare-and-swap loops.
+
+The source's header says more.  The float reductions add in an order
+that changes from run to run, so the kernel's g/h sums agree with
+``hist_wave_plain`` to f32 rounding (within 1e-5 of each cell's sum of
+magnitudes in a cell of up to 1,000 rows, sqrt(n / 1000) times that in a
+cell of n rows more: the rounding of either f32 sum grows as sqrt(n)),
+counts exactly.  The int modes add integers and equal the plain version
+bit for bit.
 
 ``hist_wave`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -161,17 +178,15 @@ def _check(name, t, dtype, shape=None, device=None):
         raise ValueError(f"hist_wave: {name} must be contiguous")
 
 
-def _chunks(dev, F: int, N: int, smem: int, max_rows: int = None) -> int:
-    """Row chunks per feature: enough blocks for two rounds over the SMs
-    at the occupancy the shared-memory size allows, >= 4096 rows each and
-    at most ``max_rows``."""
+def _int_chunks(dev, F: int, N: int, smem: int) -> int:
+    """Int modes' row chunks per feature: enough blocks for two rounds over
+    the SMs at the occupancy the shared-memory size allows, >= 4096 rows
+    each and at most ``_INT_ROWS_PER_CHUNK``."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_sm = max(1, min(4, (227 * 1024) // max(smem, 1)))
     want = -(-2 * sms * per_sm // max(F, 1))
     chunks = max(1, min(want, -(-N // 4096)))
-    if max_rows is not None:
-        chunks = max(chunks, -(-N // max_rows))
-    return chunks
+    return max(chunks, -(-N // _INT_ROWS_PER_CHUNK))
 
 
 def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
@@ -181,7 +196,7 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
     plain version for CPU tensors.  Same arguments and results as
     ``hist_wave_plain``; ``num_slots`` (default: the layout's capacity)
     tells the kernel how many leading slots are in use, which sizes its
-    shared memory.
+    accumulator (float modes) or shared memory (int modes).
 
     Kernel preconditions (the wave grower meets them): the lanes of each
     slot s < ``num_slots`` map to one leaf, lanes past them are -1, no
@@ -218,18 +233,22 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
             _check(f"parent[{i}]", pars[i], torch.float32, hist_shape, dev)
 
     lib = _build.load()
+    rows = N > 0 and F > 0 and S > 0
     if quant:
         vecs = _int_stream(gv, hv, cv, leaf_id)
+        # int32 partials [chunks, F, B, S, 3], each chunk written whole
+        chunks = (_int_chunks(dev, F, N, lib.lgbm_hist_wave_smem_bytes(B, S))
+                  if rows else 1)
+        ws = torch.empty(chunks * F * B * S * 3 if rows else 0,
+                         dtype=torch.int32, device=dev)
     else:
         # leaf ids ride the f32 vector stream like the Pallas kernel's
         # (exact below 2^24)
         vecs = torch.stack([gv, hv, cv, leaf_id.float()], 1)
-    smem = lib.lgbm_hist_wave_smem_bytes(B, S)
-    chunks = (_chunks(dev, F, N, smem,
-                      _INT_ROWS_PER_CHUNK if quant else None) if N else 1)
-    ws = torch.empty(chunks * F * B * S * 3 if N else 0,
-                     dtype=torch.int32 if quant else torch.float32,
-                     device=dev)
+        # the f32 accumulator [F, B, S, 4] the row pass reduces into
+        chunks = 1                   # unused: the kernel sizes its grid
+        ws = torch.zeros(F * B * S * 4 if rows else 0, dtype=torch.float32,
+                         device=dev)
     outs = [torch.empty(hist_shape, dtype=torch.float32, device=dev)
             for _ in range(n_out)] + [None] * (2 - n_out)
     sibs = [None, None]

@@ -68,6 +68,93 @@ def test_plain_matches_pallas_interpret(mode, fused):
         _assert_close(got, ref)
 
 
+def _skew(bins, seed=0):
+    """Low-cardinality features in place: feature 0 takes two bins (0 and
+    B-1), feature 1 puts every row in one bin, feature 2 90% of its rows;
+    the others stay spread over [0, B)."""
+    rng = np.random.default_rng(seed)
+    B = int(bins.max()) + 1
+    N = bins.shape[1]
+    bins = bins.copy()
+    bins[0] = rng.integers(0, 2, size=N) * (B - 1)
+    bins[1] = 5
+    bins[2] = np.where(rng.random(N) < 0.9, 3, bins[2])
+    return bins
+
+
+def _slots(pend, packed):
+    lanes = 2 if packed else 3
+    slot = np.full(128, -1, np.int32)
+    slot[:lanes * len(pend)] = np.repeat(np.asarray(pend, np.int32), lanes)
+    return slot
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("mode", ["2xbf16", "highest"])
+def test_plain_matches_pallas_interpret_skewed_bins(mode, packed, fused):
+    """Skewed bins (the cells where the card's kernel reduces many rows):
+    the plain version against the Pallas kernel in both layouts."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.pallas_hist import hist_pallas_wave
+    bins, gv, hv, cv, leaf, _, parent = _inputs(seed=20 + 2 * packed + fused)
+    bins = _skew(bins, seed=packed + 2 * fused)
+    slot = _slots((3, 0, 7, 5), packed)
+    par = parent if packed else parent[0]
+    jpar = tpar = None
+    if fused:
+        jpar = (tuple(jnp.asarray(p) for p in par) if packed
+                else jnp.asarray(par))
+        tpar = tuple(_torch(par)) if packed else _torch([par])[0]
+    ref = hist_pallas_wave(
+        *(jnp.asarray(a) for a in (bins, gv, hv, cv, leaf, slot)), B=64,
+        highest=mode, interpret=True, packed=packed, parent=jpar)
+    t = _torch([bins, gv, hv, cv, leaf, slot])
+    got = hw.hist_wave_plain(*t, 64, highest=mode, packed=packed, parent=tpar)
+    mag = hw.hist_wave_plain(t[0], t[1].abs(), t[2].abs(), *t[3:], 64,
+                             highest=mode, packed=packed)
+    _assert_f32_close(got, ref, mag, packed)
+    child = _leaves(got)[0]
+    assert child[1, 5].any() and not child[1, :5].any() \
+        and not child[1, 6:].any()             # feature 1: one bin only
+
+
+def _leaves(x):
+    """The arrays of a K1 result (torch or jax), in order."""
+    if isinstance(x, tuple):
+        return [a for part in x for a in _leaves(part)]
+    return [x]
+
+
+def _assert_f32_close(got, want, mag, packed):
+    """Counts equal, g/h within 1e-5 of each cell's sum of magnitudes
+    ``mag`` (the plain version on |g|, |h|): both sides add the same
+    rounded values in f32, in another order.  That holds for cells of up
+    to 1,000 rows; the rounding of an f32 sum of n terms grows as sqrt(n)
+    (either side's), so a cell of n rows more is held to sqrt(n / 1000)
+    times it (chip_smoke.py's ROWS_AT_REL_TOL).  A fused sibling (parent -
+    child) adds the rounding of the subtraction."""
+    got = [np.asarray(a) for a in _leaves(got)]
+    want = [np.asarray(a) for a in _leaves(want)]
+    mag = [np.asarray(a) for a in _leaves(mag)]
+    assert len(got) == len(want)
+    lane = np.arange(128)
+    rows = (want[1][..., lane // 2] if packed
+            else want[0][..., np.minimum(lane // 3 * 3 + 2, 127)])
+    scale = np.maximum(np.sqrt(rows / 1000.0), 1.0)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if packed and i % 2 == 1:
+            np.testing.assert_array_equal(g, w)           # counts
+            continue
+        if not packed:
+            np.testing.assert_array_equal(g[..., 2::3], w[..., 2::3])
+        lim = 1e-5 * mag[i % len(mag)] * scale + 1e-6
+        if i >= len(mag):
+            lim = lim + 1e-5 * np.abs(w)
+        assert (np.abs(g - w) <= lim).all(), float(np.abs(g - w).max())
+
+
 def test_plain_matches_scatter_oracle_per_slot():
     """Each lane pair holds its leaf's single-leaf histogram."""
     bins, gv, hv, cv, leaf, slot, _ = _inputs()
@@ -307,6 +394,81 @@ def _flat(x):
     if isinstance(x, torch.Tensor):
         return (x,)
     return tuple(t for part in x for t in _flat(part))
+
+
+def _card_matches_plain(arrs, B, mode, packed, parent, S):
+    """One kernel launch on the card against the plain version on the
+    same inputs (``_assert_f32_close``)."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrs]
+    par = None
+    if parent is not None:
+        par = (tuple(torch.from_numpy(p).cuda() for p in parent) if packed
+               else torch.from_numpy(parent).cuda())
+    before = hw.hist_wave.launches
+    got = hw.hist_wave(*t, B, highest=mode, packed=packed, parent=par,
+                       num_slots=S)
+    assert hw.hist_wave.launches == before + 1
+    want = hw.hist_wave_plain(*t, B, highest=mode, packed=packed, parent=par)
+    mag = hw.hist_wave_plain(t[0], t[1].abs(), t[2].abs(), *t[3:], B,
+                             highest=mode, packed=packed)
+    _assert_f32_close(*(tuple(a.cpu() for a in _leaves(x))
+                        for x in (got, want, mag)), packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("many_slots", [False, True])
+def test_kernel_matches_plain_on_card_skewed_bins(many_slots, packed, fused):
+    """Skewed bins: many rows of a warp reduce into one cell.  4 slots
+    take the float pass's shared-memory form (the whole histogram fits a
+    block); the layout's most slots its L2 form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    bins, gv, hv, cv, _, _, parent = _inputs(N=50_000, F=7, seed=30)
+    bins = _skew(bins, seed=31)
+    S = hw.wave_capacity_max(packed) if many_slots else 4
+    rng = np.random.default_rng(32)
+    leaf = rng.integers(0, 2 * S, size=bins.shape[1]).astype(np.int32)
+    par = parent if packed else parent[0]
+    _card_matches_plain((bins, gv, hv, cv, leaf,
+                         _slots(rng.permutation(2 * S)[:S], packed)),
+                        64, "2xbf16", packed, par if fused else None, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("case", ["one_slot", "most_slots", "no_rows",
+                                  "leaf_ids_past_table"])
+def test_kernel_edge_shapes_on_card(case, packed):
+    """S=1 with every row in its slot (a root wave, on skewed bins), the
+    layout's most slots (63 packed, 42 triple), N=0 (the child is zero and
+    the sibling the parent) and leaf ids past the 4,096-entry slot table,
+    fused, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(40)
+    N, F, B = (0 if case == "no_rows" else 60_000), 5, 256
+    bins = rng.integers(0, B, size=(F, N)).astype(np.uint8)
+    gv = rng.normal(size=N).astype(np.float32)
+    hv = (0.05 + rng.random(size=N)).astype(np.float32)
+    cv = np.ones(N, np.float32)
+    S = wave_cap = hw.wave_capacity_max(packed)
+    ids = np.arange(2 * wave_cap, dtype=np.int32)
+    if case == "one_slot":
+        S = 1
+        bins = _skew(bins, seed=41) if N else bins
+        ids = ids[:2] * 0 + 3
+    elif case == "leaf_ids_past_table":
+        S = 9
+        ids = 5000 + 7 * ids
+    leaf = ids[rng.integers(0, len(ids), size=N)]
+    pend = rng.permutation(np.unique(ids))[:S]
+    parent = [(rng.normal(size=(F, B, 128)) * 50).astype(np.float32),
+              rng.integers(0, 500, size=(F, B, 128)).astype(np.float32)]
+    _card_matches_plain((bins, gv, hv, cv, leaf, _slots(pend, packed)), B,
+                        "2xbf16", packed,
+                        tuple(parent) if packed else parent[0], S)
 
 
 @pytest.mark.cuda
