@@ -21,9 +21,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      main shape on skewed bins (half the features take 2 bins, the rest
      put 90% of their rows in one): packed at 63 leaves and at 1 (a root
      wave), triple at 42.  Float modes: counts exact and g/h within the
-     f32 bound below; int modes: ``torch.equal``;
+     f32 bound below; int modes: ``torch.equal``.  Then int16 fused at the
+     main shape on the same skewed bins: packed at 63 leaves and at 1;
    - K2 (``ops/hist_channels.hist_channels``) at 1,000,000 x 28 x 256 with
-     C=128 and at 3,001 x 5 x 64 with C=256, within the f32 bound;
+     C=128, on uniform and on skewed bins (90% of every feature's rows in
+     one bin), and at 3,001 x 5 x 64 with C=256, within the f32 bound, and
+     two launches on the same inputs bit-equal;
 3. small-input reference: 3 rounds on 20,000 rows trained on the card and
    on the CPU (plain kernels) must agree, in 2xbf16 and in int16 with
    bagging;
@@ -48,15 +51,18 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
-its launches in all and by layout.  Prints a ``{"kernels": [...]}`` line
-(``launches`` from each kernel's path, ``training_path_launches`` over the
-three training phases, ``check_launches`` from phase 2, ``skewed`` the
-skewed-bin cases' times and errors) and, last, the device line
+its launches in all and by layout.  Each training phase prints a digest
+of its model text (equal digests, equal trees).  Prints a
+``{"kernels": [...]}`` line (``launches`` from each kernel's path,
+``training_path_launches`` over the three training phases,
+``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
+and errors) and, last, the device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
 lightgbm_tpu.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -140,7 +146,8 @@ def sass_census(lib) -> dict:
     """Per kernel of the built library, the count of each atomic,
     reduction and warp-match opcode in its SASS (``cuobjdump`` from the
     CUDA toolkit): shared-memory atomics (ATOMS.*), global atomics and
-    reductions (ATOMG.*, ATOM.*, RED.*, REDG.*) and MATCH.*.  Shows
+    reductions (ATOMG.*, ATOM.*, RED.*, REDG.*), warp reductions (REDUX.*)
+    and MATCH.*.  Shows
     whether an add compiled to one instruction or to a compare-and-swap
     loop, and which instruction a global reduction became."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -157,7 +164,7 @@ def sass_census(lib) -> dict:
             continue
         for tok in line.split():
             if tok.startswith(("ATOMS.", "ATOMG.", "ATOM.", "RED.", "REDG.",
-                               "MATCH.")):
+                               "REDUX", "MATCH.")):
                 ops = census.setdefault(fn, {})
                 ops[tok] = ops.get(tok, 0) + 1
     return census
@@ -326,20 +333,31 @@ def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
     return tag, res
 
 
-def check_channels(hc, N, F, B, C, seed):
-    """K2 against its plain version on one shape; the library yardstick is
-    one ``index_add_`` over the flattened (feature, bin) index with its
-    expanded [F*N, C] source built outside the timed region."""
+def check_channels(hc, N, F, B, C, seed, skew=False):
+    """K2 against its plain version on one shape, and two launches on the
+    same inputs bit-equal (every cell has one owner, the chunks are summed
+    in order); the library yardstick is one ``index_add_`` over the
+    flattened (feature, bin) index with its expanded [F*N, C] source built
+    outside the timed region.  ``skew``: 90% of every feature's rows in
+    one bin."""
     import torch
     g = torch.Generator(device=DEV).manual_seed(seed)
     bins = torch.randint(0, B, (F, N), generator=g, device=DEV,
-                         dtype=torch.int32).to(torch.uint8)
+                         dtype=torch.int32)
+    if skew:
+        hot = torch.rand((F, N), generator=g, device=DEV) < 0.9
+        hot_bin = torch.arange(F, device=DEV, dtype=torch.int32)[:, None]
+        bins = torch.where(hot, hot_bin * 37 % B, bins)
+    bins = bins.to(torch.uint8)
     gh = torch.randn((N, C), generator=g, device=DEV)
     got = hc.hist_channels(bins, gh, B)
+    again = hc.hist_channels(bins, gh, B)
     want = hc.hist_channels_plain(bins, gh, B)
     mag = hc.hist_channels_plain(bins, gh.abs(), B)
     torch.cuda.synchronize()
-    tag = f"K2 N={N} F={F} B={B} C={C}"
+    tag = f"K2 N={N} F={F} B={B} C={C}{' skewed bins' if skew else ''}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: two launches differ")
     err = (got - want).abs()
     if not bool((err <= REL_TOL * mag + 1e-6).all()):
         raise AssertionError(f"{tag}: beyond the f32 bound: max err "
@@ -476,8 +494,15 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5):
           f"{float(np.median(per_iter)):.4f}), first {gb.iter_seconds[0]:.4f};"
           f" peak device memory {torch.cuda.max_memory_allocated()} bytes "
           f"[{kind}, {card}]", flush=True)
-    print(f"{name}: train logloss {loss}, auc {auc}", flush=True)
+    print(f"{name}: train logloss {loss}, auc {auc}; model digest "
+          f"{model_digest(bst)}", flush=True)
     return bst, counts, loss, auc, float(np.median(per_iter)) * 1e3
+
+
+def model_digest(bst) -> str:
+    """First 16 hex digits of the sha256 of the model text: equal digests
+    mean equal trees (two package copies on the same data compare by it)."""
+    return hashlib.sha256(bst.model_to_string().encode()).hexdigest()[:16]
 
 
 def grower_inputs(gb):
@@ -610,6 +635,8 @@ def main() -> int:
         ("k1_skew", M, 63, True, "2xbf16", True, None, True),
         ("k1_triple_skew", M, 42, True, "2xbf16", False, None, True),
         ("k1_skew_one_slot", M, 1, True, "2xbf16", True, None, True),
+        ("k1_int16_skew", M, 63, True, "int16", True, None, True),
+        ("k1_int16_skew_one_slot", M, 1, True, "int16", True, None, True),
     ]
     res = {}
     for i, (key, (N, F, B), leaves, fused, mode, packed, hi, *skew) in \
@@ -619,10 +646,12 @@ def main() -> int:
                                      packed=packed, leaf_hi=hi,
                                      skew=bool(skew))
         res[key].update(tag=tag, check_launches=hw.hist_wave.launches - n0)
-    for i, (key, (N, F, B), C) in enumerate((("k2", M, 128),
-                                             ("k2_ragged", R, 256))):
+    for i, (key, (N, F, B), C, *skew) in enumerate((
+            ("k2", M, 128), ("k2_ragged", R, 256),
+            ("k2_skew", M, 128, True))):
         n0 = hc.hist_channels.launches
-        tag, res[key] = check_channels(hc, N, F, B, C, 100 + i)
+        tag, res[key] = check_channels(hc, N, F, B, C, 100 + i,
+                                       skew=bool(skew))
         res[key].update(tag=tag,
                         check_launches=hc.hist_channels.launches - n0)
     for k in res.values():
@@ -725,7 +754,9 @@ def main() -> int:
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
-                                      "k1_triple_int16"]),
+                                      "k1_triple_int16", "k1_int16_skew",
+                                      "k1_int16_skew_one_slot"],
+              skewed=skewed("k1_int16_skew", "k1_int16_skew_one_slot")),
         entry("hist_wave triple (K1 c)", "k1_triple", k1_src, k1_at,
               counts_triple["k1_triple"], ["k1_triple", "k1_triple_unfused",
                                            "k1_triple_int16_unfused",
@@ -735,7 +766,9 @@ def main() -> int:
         entry("hist_channels (K2)", "k2",
               "lightgbm_tpu_torch/csrc/hist_channels.cu",
               "lightgbm_tpu/ops/pallas_hist.py:199", counts_k2["k2"],
-              ["k2", "k2_ragged"], training_path_launches=on_trainer("k2")),
+              ["k2", "k2_ragged", "k2_skew"],
+              training_path_launches=on_trainer("k2"),
+              skewed=skewed("k2_skew")),
     ]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

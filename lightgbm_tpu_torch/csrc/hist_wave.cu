@@ -5,7 +5,8 @@
 // Replaces lightgbm_tpu/ops/pallas_hist.py _hist_wave_kernel /
 // hist_pallas_wave.  The Pallas kernel turns accumulation into one-hot
 // MXU matmuls because a TPU has no fast scatter; Hopper scatters instead,
-// with one design for the float modes and another for the integer ones.
+// in one pass over the rows for every mode: f32 sums in the float modes,
+// exact integer sums in the int ones.
 //
 // Float modes (highest, bf16, 2xbf16): one pass over the rows into an f32
 // accumulator [F][B][S][4] of 16-byte cells (g, h, count, 0) in device
@@ -48,26 +49,39 @@
 // compare-and-swap loops on Hopper (ATOMS.CAST.SPIN), and a [B][S][3]
 // histogram per feature block leaves one block per SM at 63 slots.
 //
-// Integer modes (int16, int8): the row vectors travel as [N, 4] int16 (8
-// bytes a row) and accumulate in int32, whose shared-memory atomics are
-// single instructions (ATOMS.ADD) and order-free: the result is exact and
-// deterministic.
+// Integer modes (int16, int8): the same row pass with integer sums.  The
+// kernel reads g, h and the count weights as f32 and leaf ids as int32, and
+// casts each value to int16 as the reference's f32 -> int16 cast does.
+// Every sum is an integer sum, exact and independent of the order of the
+// adds, for any number of rows: the output holds the integer totals
+// converted to f32 once.  (The Pallas kernel accumulates the same integers
+// in f32: exact while every cell stays below 2^24; above that the two
+// differ only by the f32 rounding of the same integer total.)
 //
-//   rows (hist_wave_int_rows): block (f, chunk) takes feature f and one
-//     chunk of rows, adds (g, h, count) into a privatized [B][S][3] int32
-//     histogram in shared memory, and stores it to its own slice of the
-//     workspace [chunks][F][B][S][3].  |q| <= 32767, so one cell of one
-//     block takes at most 65,535 rows before an int32 sum could wrap; the
-//     wrapper caps the rows of a chunk there.
-//   epilogue: sums the chunk partials in int64 in chunk order and converts
-//     to f32 once, so the output holds the integer totals, exact below
-//     2^24.  (The Pallas kernel accumulates the same integers in f32:
-//     exact while every cell stays below 2^24; above that the two differ
-//     only by the f32 rounding of the same integer total.)
-//
-// The integer modes keep this design: their int32 shared adds are native
-// and exact.  The accumulator design would need 64-bit reductions for them
-// (an int32 cell can wrap past 65,535 rows) at twice the bytes a cell.
+//   hist_wave_int_rows: one thread a row, features an inner loop, as
+//     hist_wave_float_rows, and a warp's lanes on one cell summed first in
+//     the same way (a 32-lane group sums to at most 2^20 in magnitude).
+//     The accumulator
+//     [F][B][S][4] int64 packs a cell's three sums into one 64-bit word
+//     (21/21/22-bit fields, see add_packed) plus three correction words, so
+//     a group adds all three with one 64-bit atomic (ATOMG.E.ADD.64) where
+//     three 64-bit reductions would take 2.2x as long
+//     (lightgbm_tpu_torch/tools/l2_reduction_rate.cu).  The thread reads
+//     the word's old value back and adds the rare carries of a field that
+//     wraps into the correction words; it issues a run of features'
+//     atomics before it reads any old value, or it would wait on the L2
+//     once per feature.
+//   hist_wave_int_private: int32 histograms in shared memory for a tile of
+//     features (every feature when the whole [F][B][S][3] histogram fits,
+//     S <= 2 at F = 28, B = 256; at least two up to S = 33 there), added
+//     with int32 shared atomics (ATOMS.ADD, single instructions), at most
+//     65,535 rows a block so that no int32 cell can wrap; each block then
+//     adds its nonzero cells into the packed accumulator.  A wave takes it
+//     when a block's rows outnumber a feature's cells: the training waves
+//     past the root hold ~100-400k rows, where one L2 atomic per (row,
+//     feature) is the L2 form's limit.
+//   epilogue: as for the float modes; each sum is field + correction, in
+//     int64, converted to f32 once.
 //
 // Layouts (``stride`` = lanes per slot): packed (2) puts slot s's g, h in
 // lanes 2s, 2s+1 of one [F, B, 128] output and its count in lane s of a
@@ -83,14 +97,12 @@
 // so no multiply-add is ever contracted.
 //
 // What bounds it.  The byte bound per launch is the [F, N] u8 bins read
-// once (F*N bytes), the row vectors (16*N bytes, 8*N quantized) and the
-// [F, B, 128] f32 histograms (one or two outputs, plus parent in / sibling
-// out when fused).  The float pass reads each of those once; the L2's
-// reduction rate (one per row in a slot and feature) bounds the L2 form,
-// the per-warp settling of cells (tags, shuffles, __match_any_sync) and
-// its shared-memory adds the private form.  The int
-// pass rereads the row vectors once per feature (from L2) and is limited
-// by its shared atomics, one block per SM at 63 slots.
+// once (F*N bytes), the row vectors (16*N bytes) and the [F, B, 128] f32
+// histograms (one or two outputs, plus parent in / sibling out when
+// fused).  Both row passes read each of those once; the L2's rate for one
+// reduction or atomic per (group, feature) bounds the L2 forms, the
+// settling of cells inside a warp (float) or the shared atomics (int) the
+// shared-memory forms.
 //
 // Preconditions (the wave grower meets them): the ``stride`` lanes of each
 // slot s < S map to one leaf, lanes from stride*S on are unused (-1), no
@@ -105,7 +117,8 @@ namespace {
 constexpr int kLanes = 128;      // channel lanes of an output
 constexpr int kMaxSlots = 64;
 constexpr int kTable = 4096;     // leaf ids with a direct slot lookup
-constexpr int kIntThreads = 512;
+constexpr int kIntThreads = 256;
+constexpr int kIntBlockRows = 65535;   // rows of a shared-form int block
 constexpr int kFloatThreads = 256;
 constexpr int kPrivThreads = 1024;
 constexpr int kPrivCap = 200 * 1024;   // privatized histogram + tags, bytes
@@ -157,15 +170,16 @@ __device__ __forceinline__ int find_slot(int leaf, int S, const int* slot_of,
 // size)) rounds: each round every lane adds the running sum of its next
 // remaining peer, then the lanes of odd rank drop out.  Every lane of the
 // warp calls it; a lane alone in its group passes its own bit.
-__device__ __forceinline__ void sum_peers(unsigned peers, int lane, float& g,
-                                          float& h, float& c) {
+template <typename T>
+__device__ __forceinline__ void sum_peers(unsigned peers, int lane, T& g,
+                                          T& h, T& c) {
   unsigned rank = __popc(peers & ((1u << lane) - 1u));
   unsigned rest = peers & ~((2u << lane) - 1u);   // peers above this lane
   while (__any_sync(kFullWarp, rest != 0)) {
     const int next = __ffs(rest) - 1;              // -1: none left
-    const float tg = __shfl_sync(kFullWarp, g, next & 31);
-    const float th = __shfl_sync(kFullWarp, h, next & 31);
-    const float tc = __shfl_sync(kFullWarp, c, next & 31);
+    const T tg = __shfl_sync(kFullWarp, g, next & 31);
+    const T th = __shfl_sync(kFullWarp, h, next & 31);
+    const T tc = __shfl_sync(kFullWarp, c, next & 31);
     if (next >= 0) {
       g += tg;
       h += th;
@@ -184,8 +198,9 @@ __device__ __forceinline__ void reduce_cell(float* cell, float g, float h,
 // Groups the lanes of the warp by ``key`` (the cell; -1: none) and sums
 // each group's (g, h, c) into its lowest lane, which gets true back.
 // Every lane of the warp calls it.
-__device__ __forceinline__ bool group_sum(int key, int lane, float& g,
-                                          float& h, float& c) {
+template <typename T>
+__device__ __forceinline__ bool group_sum(int key, int lane, T& g, T& h,
+                                          T& c) {
   unsigned peers = __match_any_sync(kFullWarp, key);
   if (key < 0) peers = 1u << lane;
   sum_peers(peers, lane, g, h, c);
@@ -355,81 +370,252 @@ hist_wave_float_private(const uint8_t* __restrict__ bins,
   }
 }
 
+// ---- integer modes: the packed int64 accumulator -----------------------
+//
+// Cell i of ``acc`` is four 64-bit words [W, E0, E1, E2].  W holds three
+// signed fields, g in bits [0, 21), h in [21, 42) and count in [42, 64);
+// the sum k of the cell is field k of W plus E_k.  One 64-bit atomic on W
+// adds all three values of a group; the thread reads W's old value back,
+// and when a field wraps (leaves its range, carrying into the field above
+// or out of the word) it adds the carry's exact correction into E.  Every
+// add is an integer add, so the result is exact and does not depend on
+// the order of the adds, for any number of rows.
+
+constexpr int kField0 = 21;      // bits of g
+constexpr int kField1 = 21;      // bits of h; count takes the other 22
+
+__device__ __forceinline__ long long sext(unsigned long long x, int bits) {
+  return static_cast<long long>(x << (64 - bits)) >> (64 - bits);
+}
+
+// The three signed fields of W.
+__device__ __forceinline__ void unpack(unsigned long long w, long long& d0,
+                                       long long& d1, long long& d2) {
+  d0 = sext(w, kField0);
+  w = (w - static_cast<unsigned long long>(d0)) >> kField0;
+  d1 = sext(w, kField1);
+  w = (w - static_cast<unsigned long long>(d1)) >> kField1;
+  d2 = sext(w, 64 - kField0 - kField1);
+}
+
+// The packed word of (v0, v1, v2): one 64-bit add adds each value to its
+// field (a field's carry runs into the field above).
+__device__ __forceinline__ unsigned long long pack(int v0, int v1, int v2) {
+  return static_cast<unsigned long long>(static_cast<long long>(v0)) +
+         (static_cast<unsigned long long>(static_cast<long long>(v1))
+          << kField0) +
+         (static_cast<unsigned long long>(static_cast<long long>(v2))
+          << (kField0 + kField1));
+}
+
+// After W of ``cell`` went from ``old`` to old + pack(v0, v1, v2) (any int32
+// values): adds the carries of the fields that wrapped into E.  The carry
+// out of field k is (u + half) >> bits for u = the field's old value + its
+// value + the carry into it; it leaves field k c * 2^bits short and adds c
+// to field k+1 (or drops it off the word), which E puts right.
+__device__ __forceinline__ void add_carries(unsigned long long* cell,
+                                            unsigned long long old, int v0,
+                                            int v1, int v2) {
+  constexpr long long kOne1 = 1LL << kField0;
+  constexpr long long kOne2 = 1LL << kField1;
+  constexpr long long kOne3 = 1LL << (64 - kField0 - kField1);
+  long long d0, d1, d2;
+  unpack(old, d0, d1, d2);
+  const long long c1 = (d0 + v0 + kOne1 / 2) >> kField0;
+  const long long c2 = (d1 + v1 + c1 + kOne2 / 2) >> kField1;
+  const long long c3 = (d2 + v2 + c2 + kOne3 / 2) >> (64 - kField0 - kField1);
+  if ((c1 | c2 | c3) == 0) return;
+  const long long e[3] = {c1 * kOne1, c2 * kOne2 - c1, c3 * kOne3 - c2};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (e[k] != 0) {
+      atomicAdd(cell + 1 + k, static_cast<unsigned long long>(e[k]));
+    }
+  }
+}
+
+// Adds (v0, v1, v2) into packed cell ``cell``: one 64-bit atomic on W,
+// whose old value the thread reads back for the carries.
+__device__ __forceinline__ void add_packed(unsigned long long* cell, int v0,
+                                           int v1, int v2) {
+  add_carries(cell, atomicAdd(cell, pack(v0, v1, v2)), v0, v1, v2);
+}
+
+// A row's int16 values as the reference's f32 -> int16 cast gives them:
+// NaN to 0, saturated to [-32768, 32767], truncated toward zero.
+__device__ __forceinline__ int to_int16(float x) {
+  if (x != x) return 0;
+  return static_cast<int>(fminf(fmaxf(x, -32768.0f), 32767.0f));
+}
+
+// Row r's (g, h, count) and slot (-1: none, or all three values are 0).
+__device__ __forceinline__ int int_row(const float* gv, const float* hv,
+                                       const float* cv, const int* leaf,
+                                       int r, int S, const int* slot_of,
+                                       const signed char* table, int& g,
+                                       int& h, int& c) {
+  g = to_int16(__ldcs(gv + r));
+  h = to_int16(__ldcs(hv + r));
+  c = to_int16(__ldcs(cv + r));
+  if ((g | h | c) == 0) return -1;
+  const int id = min(max(__ldcs(leaf + r), -32768), 32767);
+  return find_slot(id, S, slot_of, table);
+}
+
+// The int row pass into the packed accumulator: one thread a row, the
+// row's values and slot found once, features an inner loop; the lanes of a
+// warp on one cell are summed into the group's lowest lane as in the float
+// pass (group_sum), which adds the sums with one 64-bit atomic.  The kRun
+// features' atomics are all issued before any old value is read, so a
+// thread waits once per kRun features for the L2's answers.
 __global__ void __launch_bounds__(kIntThreads)
 hist_wave_int_rows(const uint8_t* __restrict__ bins,
-                   const short4* __restrict__ vecs,
+                   const float* __restrict__ gv, const float* __restrict__ hv,
+                   const float* __restrict__ cv, const int* __restrict__ leaf,
                    const int* __restrict__ slot_leaf, int F, int N, int B,
-                   int S, int stride, int rows_per_chunk,
-                   int* __restrict__ ws) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cells = B * S * 3;
-  int* hist = reinterpret_cast<int*>(smem);                // [B][S][3]
-  int* slot_of = hist + cells;                             // [kMaxSlots]
-  signed char* table =
-      reinterpret_cast<signed char*>(slot_of + kMaxSlots); // [kTable]
-
-  const int f = blockIdx.x;
-  const int chunk = blockIdx.y;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0;
+                   int S, int stride, unsigned long long* __restrict__ acc) {
+  __shared__ int slot_of[kMaxSlots];
+  __shared__ signed char table[kTable];
   load_slots(slot_leaf, S, stride, slot_of, table);
 
-  const int r0 = chunk * rows_per_chunk;
-  const int r1 = min(N, r0 + rows_per_chunk);
-  const uint8_t* col = bins + static_cast<size_t>(f) * N;
+  const int lane = threadIdx.x & 31;
+  const size_t rows = static_cast<size_t>(N);
+  const size_t feature_cells = static_cast<size_t>(B) * S;
+  // a warp's lanes run the same iterations (the warp steps need all 32)
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < N;
+       base += gridDim.x * blockDim.x) {
+    const int r = base + lane;
+    int g = 0, h = 0, c = 0, s = -1;
+    if (r < N) s = int_row(gv, hv, cv, leaf, r, S, slot_of, table, g, h, c);
+    const bool live = s >= 0;
+    if (__ballot_sync(kFullWarp, live) == 0) continue;
+    const uint8_t* col = bins + r;
+    for (int f0 = 0; f0 < F; f0 += kRun) {
+      int b[kRun];
+#pragma unroll
+      for (int u = 0; u < kRun; ++u) {
+        const int f = f0 + u;
+        b[u] = live && f < F ? __ldcs(col + f * rows) : B;
+      }
+      int gs[kRun], hs[kRun], cs[kRun];
+      unsigned long long* cell[kRun];
+      unsigned long long old[kRun];
+#pragma unroll
+      for (int u = 0; u < kRun; ++u) {
+        const int f = f0 + u;
+        cell[u] = nullptr;
+        // the Pallas one-hot has no lane for a bin >= B either
+        const int key = b[u] < B ? b[u] * S + s : -1;   // the cell in f
+        gs[u] = g;
+        hs[u] = h;
+        cs[u] = c;
+        if (f < F && group_sum(key, lane, gs[u], hs[u], cs[u])) {
+          cell[u] = acc + 4 * (f * feature_cells + key);
+          old[u] = atomicAdd(cell[u], pack(gs[u], hs[u], cs[u]));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRun; ++u) {
+        if (cell[u] != nullptr) {
+          add_carries(cell[u], old[u], gs[u], hs[u], cs[u]);
+        }
+      }
+    }
+  }
+}
+
+// The int row pass with the histogram in shared memory: block (chunk,
+// tile) takes the features of one tile ([f0, f0 + ``tile``), every feature
+// when the whole [F][B][S][3] int32 histogram fits) and one chunk of rows
+// (at most kIntBlockRows, so that no cell can wrap: 65,535 x 32,768 <
+// 2^31).  It adds with int32 shared atomics (ATOMS.ADD, native on this
+// card), then adds its nonzero cells into the packed accumulator.  The
+// blocks of one chunk are launched side by side, so they read its row
+// vectors from L2 after the first.
+__global__ void __launch_bounds__(kPrivThreads)
+hist_wave_int_private(const uint8_t* __restrict__ bins,
+                      const float* __restrict__ gv,
+                      const float* __restrict__ hv,
+                      const float* __restrict__ cv,
+                      const int* __restrict__ leaf,
+                      const int* __restrict__ slot_leaf, int F, int N, int B,
+                      int S, int stride, int tile, int rows_per_block,
+                      unsigned long long* __restrict__ acc) {
+  __shared__ int slot_of[kMaxSlots];
+  __shared__ signed char table[kTable];
+  extern __shared__ int ipriv[];             // [tile][B][S][3]
+  const int tiles = (F + tile - 1) / tile;
+  const int f0 = blockIdx.x % tiles * tile;
+  const int nf = min(tile, F - f0);
+  const int feature_cells = B * S;
+  const int cells = nf * feature_cells;
+  for (int i = threadIdx.x; i < 3 * cells; i += blockDim.x) ipriv[i] = 0;
+  load_slots(slot_leaf, S, stride, slot_of, table);
+
+  const size_t rows = static_cast<size_t>(N);
+  const int r0 = blockIdx.x / tiles * rows_per_block;
+  const int r1 = min(N, r0 + rows_per_block);
   for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const short4 v = vecs[r];
-    const int s = find_slot(v.w, S, slot_of, table);
+    int g, h, c;
+    const int s = int_row(gv, hv, cv, leaf, r, S, slot_of, table, g, h, c);
     if (s < 0) continue;
-    const int b = col[r];
-    if (b >= B) continue;   // the Pallas one-hot has no lane for it either
-    int* cell = hist + (b * S + s) * 3;
-    atomicAdd(cell, static_cast<int>(v.x));
-    atomicAdd(cell + 1, static_cast<int>(v.y));
-    atomicAdd(cell + 2, static_cast<int>(v.z));
+    const uint8_t* col = bins + f0 * rows + r;
+    for (int u0 = 0; u0 < nf; u0 += kRun) {
+      int b[kRun];
+#pragma unroll
+      for (int u = 0; u < kRun; ++u) {
+        b[u] = u0 + u < nf ? __ldcs(col + (u0 + u) * rows) : B;
+      }
+#pragma unroll
+      for (int u = 0; u < kRun; ++u) {
+        if (b[u] < B) {
+          int* cell = ipriv + 3 * ((u0 + u) * feature_cells + b[u] * S + s);
+          atomicAdd(cell, g);
+          atomicAdd(cell + 1, h);
+          atomicAdd(cell + 2, c);
+        }
+      }
+    }
   }
   __syncthreads();
-
-  int* out = ws + (static_cast<size_t>(chunk) * F + f) * cells;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) out[i] = hist[i];
+  unsigned long long* out = acc + 4 * static_cast<size_t>(f0) * feature_cells;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int* p = ipriv + 3 * i;
+    if ((p[0] | p[1] | p[2]) != 0) add_packed(out + 4 * i, p[0], p[1], p[2]);
+  }
 }
 
-// Sum of one (bin, slot, k) cell over the chunk partials, in chunk order:
-// f32 for the float accumulator (one chunk), int64 converted to f32 once
-// for the int workspace.
-__device__ __forceinline__ float chunk_sum(const float* ws, size_t at,
-                                           size_t chunk_stride, int chunks) {
-  float acc = 0.0f;
-  for (int k = 0; k < chunks; ++k) acc += ws[k * chunk_stride + at];
-  return acc;
+// Sum k of accumulator cell ``cell``: the f32 accumulator's [F][B][S][4]
+// cells, or the packed int64 one's (field k of W plus E_k, converted to
+// f32 once).
+__device__ __forceinline__ float cell_sum(const float* acc, size_t cell,
+                                          int k) {
+  return acc[4 * cell + k];
 }
 
-__device__ __forceinline__ float chunk_sum(const int* ws, size_t at,
-                                           size_t chunk_stride, int chunks) {
-  long long acc = 0;
-  for (int k = 0; k < chunks; ++k) acc += ws[k * chunk_stride + at];
-  return __ll2float_rn(acc);
+__device__ __forceinline__ float cell_sum(const unsigned long long* acc,
+                                          size_t cell, int k) {
+  long long d[3];
+  unpack(acc[4 * cell], d[0], d[1], d[2]);
+  return __ll2float_rn(d[k] + static_cast<long long>(acc[4 * cell + 1 + k]));
 }
 
-// ``width``: values per (bin, slot) cell of ``ws`` (3 int, 4 float).
+// Reads the accumulator once and writes the output layout and, when
+// fused, sibling = parent - child.
 template <typename Acc>
-__global__ void hist_wave_epilogue(const Acc* ws, int F, int B, int S,
-                                   int stride, int width, int chunks,
-                                   const float* par0, const float* par1,
-                                   float* out0, float* out1, float* sib0,
-                                   float* sib1) {
+__global__ void hist_wave_epilogue(const Acc* acc, int F, int B, int S,
+                                   int stride, const float* par0,
+                                   const float* par1, float* out0,
+                                   float* out1, float* sib0, float* sib1) {
   const int total = F * B * kLanes;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int c = idx % kLanes;
-  const int fb = idx / kLanes;                 // f * B + b
-  const size_t chunk_stride = static_cast<size_t>(F) * B * S * width;
-  const size_t cell = static_cast<size_t>(fb) * S * width;
+  const size_t cell = static_cast<size_t>(idx / kLanes) * S;  // (f, b, 0)
   if (stride == 2) {
     const int s = c >> 1;
-    const float gh = s < S ? chunk_sum(ws, cell + s * width + (c & 1),
-                                       chunk_stride, chunks) : 0.0f;
-    const float ct = c < S ? chunk_sum(ws, cell + c * width + 2,
-                                       chunk_stride, chunks) : 0.0f;
+    const float gh = s < S ? cell_sum(acc, cell + s, c & 1) : 0.0f;
+    const float ct = c < S ? cell_sum(acc, cell + c, 2) : 0.0f;
     out0[idx] = gh;
     out1[idx] = ct;
     if (sib0 != nullptr) {
@@ -438,15 +624,14 @@ __global__ void hist_wave_epilogue(const Acc* ws, int F, int B, int S,
     }
   } else {
     const int s = c / 3;
-    const float v = s < S ? chunk_sum(ws, cell + s * width + c % 3,
-                                      chunk_stride, chunks) : 0.0f;
+    const float v = s < S ? cell_sum(acc, cell + s, c % 3) : 0.0f;
     out0[idx] = v;
     if (sib0 != nullptr) sib0[idx] = par0[idx] - v;
   }
 }
 
-// Blocks of a float row-pass kernel the card holds at once with ``smem``
-// bytes of dynamic shared memory.
+// Blocks of a row-pass kernel the card holds at once with ``smem`` bytes
+// of dynamic shared memory.
 template <typename Kernel>
 int resident_blocks(Kernel kernel, int threads, int smem) {
   static int sms = 0;
@@ -498,65 +683,110 @@ int launch_float_rows(const uint8_t* bins, const float4* vecs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The int row pass.  The shared-memory form takes a tile of features
+// whose int32 histograms fit kPrivCap together: every feature for a small
+// wave, at least two (or the only one), so that no block reads the row
+// vectors for a single feature of several.  Its blocks are tiles x chunks,
+// the chunks as many as fill the card (more if a chunk would pass
+// kIntBlockRows rows).  It is taken when each block gets at least as many
+// rows as a feature has cells: its flush (an atomic per nonzero cell of a
+// block) then costs no more than the L2 form's atomic per (row, feature).
+// Every other wave takes the L2 form.
+int launch_int_rows(const uint8_t* bins, const float* gv, const float* hv,
+                    const float* cv, const int* leaf, const int* slot_leaf,
+                    int F, int N, int B, int S, int stride,
+                    unsigned long long* acc, cudaStream_t st) {
+  const long long feature_bytes = 3LL * sizeof(int) * B * S;
+  const int tile = static_cast<int>(min(static_cast<long long>(F),
+                                        kPrivCap / feature_bytes));
+  if (tile >= min(F, 2)) {
+    const int smem = static_cast<int>(tile * feature_bytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        hist_wave_int_private, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long n = N;
+    const long long tiles = (F + tile - 1) / tile;
+    const long long resident =
+        resident_blocks(hist_wave_int_private, kPrivThreads, smem);
+    const long long chunks = max(
+        min((n + kPrivThreads - 1) / kPrivThreads,
+            max((resident + tiles - 1) / tiles, 1LL)),
+        (n + kIntBlockRows - 1) / kIntBlockRows);
+    const long long rows_per_block = (n + chunks - 1) / chunks;
+    if (rows_per_block >= static_cast<long long>(B) * S) {
+      hist_wave_int_private<<<static_cast<unsigned>(tiles * chunks),
+                              kPrivThreads, smem, st>>>(
+          bins, gv, hv, cv, leaf, slot_leaf, F, N, B, S, stride, tile,
+          static_cast<int>(rows_per_block), acc);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  static int resident = 0;
+  if (resident == 0) {
+    resident = resident_blocks(hist_wave_int_rows, kIntThreads, 0);
+  }
+  const int grid = min((N + kIntThreads - 1) / kIntThreads, max(resident, 1));
+  hist_wave_int_rows<<<grid, kIntThreads, 0, st>>>(
+      bins, gv, hv, cv, leaf, slot_leaf, F, N, B, S, stride, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Acc>
-int launch_epilogue(const Acc* ws, int F, int B, int S, int stride,
-                    int width, int chunks, const float* par0,
-                    const float* par1, float* out0, float* out1, float* sib0,
-                    float* sib1, cudaStream_t st) {
+int launch_epilogue(const Acc* acc, int F, int B, int S, int stride,
+                    const float* par0, const float* par1, float* out0,
+                    float* out1, float* sib0, float* sib1, cudaStream_t st) {
   const int total = F * B * kLanes;
   if (total > 0) {
     hist_wave_epilogue<Acc><<<(total + 255) / 256, 256, 0, st>>>(
-        ws, F, B, S, stride, width, chunks, par0, par1, out0, out1, sib0,
-        sib1);
+        acc, F, B, S, stride, par0, par1, out0, out1, sib0, sib1);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int lgbm_hist_wave_smem_bytes(int B, int S) {
-  return B * S * 3 * 4 + kMaxSlots * static_cast<int>(sizeof(int)) + kTable;
-}
-
-// Launches the row pass and the epilogue on ``stream``.  Float modes:
-// ``vecs`` is [N, 4] f32, ``ws`` the f32 accumulator [F, B, S, 4], zeroed,
-// and ``chunks`` unused.  Int modes: ``vecs`` is [N, 4] int16, ``ws`` the
-// int32 workspace [chunks, F, B, S, 3] of ``chunks`` row chunks per
-// feature.  ``*1`` pointers are null in the triple layout,
-// ``par*``/``sib*`` for the unfused call.  Returns cudaGetLastError()
-// after the launches (0 = ok).
-extern "C" int lgbm_hist_wave(const uint8_t* bins, const void* vecs,
+// Float modes: launches the row pass and the epilogue on ``stream``.
+// ``vecs`` is [N, 4] f32 (g, h, count, leaf id), ``acc`` the f32
+// accumulator [F, B, S, 4], zeroed.  ``*1`` pointers are null in the
+// triple layout, ``par*``/``sib*`` for the unfused call.  Returns
+// cudaGetLastError() after the launches (0 = ok).
+extern "C" int lgbm_hist_wave(const uint8_t* bins, const float* vecs,
                               const int* slot_leaf, int F, int N, int B,
-                              int S, int stride, int mode, int chunks,
-                              void* ws, const float* par0, const float* par1,
+                              int S, int stride, int mode, float* acc,
+                              const float* par0, const float* par1,
                               float* out0, float* out1, float* sib0,
                               float* sib1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool rows = F > 0 && N > 0 && S > 0;
-  if (mode == kInt16 || mode == kInt8) {
-    int* acc = static_cast<int*>(ws);
-    const int smem = lgbm_hist_wave_smem_bytes(B, S);
-    cudaError_t err = cudaFuncSetAttribute(
-        hist_wave_int_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (rows) {
-      hist_wave_int_rows<<<dim3(F, chunks), kIntThreads, smem, st>>>(
-          bins, static_cast<const short4*>(vecs), slot_leaf, F, N, B, S,
-          stride, (N + chunks - 1) / chunks, acc);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    return launch_epilogue<int>(acc, F, B, S, stride, 3, rows ? chunks : 0,
-                                par0, par1, out0, out1, sib0, sib1, st);
-  }
-  float* acc = static_cast<float*>(ws);
-  if (rows) {
-    const int err = launch_float_rows(bins, static_cast<const float4*>(vecs),
-                                      slot_leaf, F, N, B, S, stride, mode,
-                                      acc, st);
+  if (F > 0 && N > 0 && S > 0) {
+    const int err = launch_float_rows(
+        bins, reinterpret_cast<const float4*>(vecs), slot_leaf, F, N, B, S,
+        stride, mode, acc, st);
     if (err != 0) return err;
   }
-  return launch_epilogue<float>(acc, F, B, S, stride, 4, rows ? 1 : 0, par0,
-                                par1, out0, out1, sib0, sib1, st);
+  return launch_epilogue<float>(acc, F, B, S, stride, par0, par1, out0, out1,
+                                sib0, sib1, st);
+}
+
+// Int modes (int16, int8): the same for f32 g, h and count weights [N]
+// (integer-valued; cast as the reference casts to int16), leaf ids [N]
+// int32 and ``acc`` the packed accumulator [F, B, S, 4] int64, zeroed.
+extern "C" int lgbm_hist_wave_int(const uint8_t* bins, const float* gv,
+                                  const float* hv, const float* cv,
+                                  const int* leaf, const int* slot_leaf,
+                                  int F, int N, int B, int S, int stride,
+                                  void* acc, const float* par0,
+                                  const float* par1, float* out0,
+                                  float* out1, float* sib0, float* sib1,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* packed = static_cast<unsigned long long*>(acc);
+  if (F > 0 && N > 0 && S > 0) {
+    const int err = launch_int_rows(bins, gv, hv, cv, leaf, slot_leaf, F, N,
+                                    B, S, stride, packed, st);
+    if (err != 0) return err;
+  }
+  return launch_epilogue<unsigned long long>(packed, F, B, S, stride, par0,
+                                             par1, out0, out1, sib0, sib1,
+                                             st);
 }

@@ -27,8 +27,8 @@ NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (argument types, result type)
 _SIGNATURES = {
-    "lgbm_hist_wave": ([_P] * 3 + [_I] * 7 + [_P] * 8, _I),
-    "lgbm_hist_wave_smem_bytes": ([_I] * 2, _I),
+    "lgbm_hist_wave": ([_P] * 3 + [_I] * 6 + [_P] * 8, _I),
+    "lgbm_hist_wave_int": ([_P] * 6 + [_I] * 5 + [_P] * 8, _I),
     "lgbm_hist_channels": ([_P] * 2 + [_I] * 6 + [_P] * 3, _I),
     "lgbm_hist_channels_smem_bytes": ([_I], _I),
 }

@@ -8,24 +8,33 @@ PyTorch version (counterpart of lightgbm_tpu/ops/pallas_hist.py
 >= B add nothing.  Nothing on the training path calls it, as in the JAX
 package.
 
-On Hopper (``csrc/hist_channels.cu``) the function is bound by bytes (the
-4*N*C byte read of gh dominates); the kernel keeps one [B][128] f32
-histogram per block in shared memory, one warp per row adding its 128
-channels with conflict-free shared atomics, and reduces the block
-partials in a second launch.  Its adds run in an order that changes from
-run to run: sums agree with ``hist_channels_plain`` to f32 rounding.
+On Hopper (``csrc/hist_channels.cu``) a block takes work items of (row
+chunk, 32 channels, 4 features) and keeps the item's [4][B][32] f32
+histogram in shared memory, where every cell has one owning thread that
+adds with plain loads and stores (no atomics); rows are staged in tiles
+and added four at a time, rows of one bin summed in registers first.  Each
+item writes its chunk's slice of a workspace, and a second launch sums the
+chunks in order.  The order of every sum is fixed by the inputs and the
+launch geometry (``geometry``), so two launches on the same inputs are
+bit-equal; sums agree with ``hist_channels_plain`` to f32 rounding.
 
 ``hist_channels`` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import build as _build
 
-GROUP = 128                  # channels of one kernel block
-_ROWS_PER_CHUNK = 4096
+GROUP = 128                  # C must be a multiple of this
+_ITEM_FEATURES = 4           # features of a work item (kFeat in the source)
+_ITEM_CHANNELS = 32          # channels of a work item (kCh)
+_MIN_CHUNK_ROWS = 4096
+_SMEM_PER_SM = 228 * 1024    # shared memory of an H100 SM
+_THREADS_PER_SM = 2048       # ... and its threads; a block has 1,024
 
 
 def hist_channels_plain(bins_fm, gh, B: int):
@@ -40,12 +49,21 @@ def hist_channels_plain(bins_fm, gh, B: int):
     return out[:, :B].contiguous()
 
 
-def _groups(dev, F: int, CG: int, smem: int, chunks: int) -> int:
-    """Blocks per (feature, channel group): one round over the SMs at the
-    occupancy the shared histogram allows, at most one per row chunk."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = max(1, (227 * 1024) // max(smem, 1))
-    return max(1, min(chunks, sms * per_sm // max(F * CG, 1)))
+def geometry(sms: int, smem: int, F: int, N: int, C: int):
+    """The kernel's launch: (row chunks, blocks).  The work items are
+    (row chunk, 32 channels, 4 features); the blocks are as many as the
+    card holds at once (``sms`` SMs, ``smem`` bytes of shared memory and
+    1,024 threads a block), or fewer when there are fewer items.  The
+    chunks are the fewest that make the items a whole number of rounds
+    over those blocks, and no more than one per ``_MIN_CHUNK_ROWS``
+    rows."""
+    per_sm = max(1, min(_THREADS_PER_SM // 1024,
+                        _SMEM_PER_SM // (smem + 1024)))
+    resident = sms * per_sm
+    combos = -(-F // _ITEM_FEATURES) * (C // _ITEM_CHANNELS)
+    chunks = resident // math.gcd(resident, max(combos, 1))
+    chunks = max(1, min(chunks, -(-N // _MIN_CHUNK_ROWS)))
+    return chunks, max(1, min(chunks * combos, resident))
 
 
 def hist_channels(bins_fm, gh, B: int):
@@ -72,15 +90,15 @@ def hist_channels(bins_fm, gh, B: int):
     if not (1 <= B <= 256):
         raise ValueError(f"hist_channels: B must be in [1, 256], got {B}")
     lib = _build.load()
-    smem = lib.lgbm_hist_channels_smem_bytes(B)
-    chunks = -(-N // _ROWS_PER_CHUNK)
-    groups = _groups(dev, F, C // GROUP, smem, chunks) if N else 1
-    ws = torch.empty(groups * F * B * C if N else 0, dtype=torch.float32,
-                     device=dev)
+    chunks, grid = geometry(
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        lib.lgbm_hist_channels_smem_bytes(B), F, N, C)
+    # every chunk's slice is written whole (zeros for an empty chunk)
+    ws = torch.empty(chunks * F * B * C, dtype=torch.float32, device=dev)
     out = torch.empty((F, B, C), dtype=torch.float32, device=dev)
     _build.check_launch("hist_channels", lib.lgbm_hist_channels(
-        bins_fm.data_ptr(), gh.data_ptr(), F, N, B, C, groups,
-        _ROWS_PER_CHUNK, ws.data_ptr(), out.data_ptr(),
+        bins_fm.data_ptr(), gh.data_ptr(), F, N, B, C, chunks, grid,
+        ws.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
     hist_channels.launches += 1
     return out

@@ -20,31 +20,31 @@ kernel's MXU passes do: ``highest`` keeps f32, ``bf16`` rounds once,
 (16 mantissa bits).  The packed count goes through bf16 in every mode
 (exact for 0/1); the triple count lane is rounded like g and h.  The
 quantized modes ``int16``/``int8`` take integer-valued g/h
-(``ops/quant.stochastic_round`` output): the row vectors travel as [N, 4]
-int16, the sums are exact integers and the outputs hold them in f32
-("integer units"; the wave grower dequantizes at split-scan time).
+(``ops/quant.stochastic_round`` output), cast to int16 as the reference's
+cast does (``_int_stream``); the sums are exact integers and the outputs
+hold them in f32 ("integer units"; the wave grower dequantizes at
+split-scan time).
 
 On Hopper (``csrc/hist_wave.cu``) the function's byte bound is the
-``F*N`` bin read, the row-vector read (16 bytes a row, 8 quantized) and
-the [F, B, 128] histogram traffic per launch.  The two mode families
-have two designs:
+``F*N`` bin read, the row-vector read (16 bytes a row) and the [F, B, 128]
+histogram traffic per launch.  Every mode takes one pass over the rows:
+one thread a row, the row's values and slot found once, features in an
+inner loop, the lanes of a warp that hit the same cell summed first.  The
+sums go into an accumulator [F, B, S, 4] in device memory (L2-resident,
+zeroed here with each launch), or, in a wave whose whole histogram fits in
+shared memory (at 28 features x 256 bins one or two slots: the root wave
+and the next two), into a per-block copy there that is added into the
+accumulator once; an epilogue writes the layout and the sibling.
 
-* float modes: one thread a row, features in an inner loop, the lanes of
-  a warp that hit the same cell summed first; the sums go into an f32
-  accumulator [F, B, S, 4] in device memory (L2-resident, zeroed here
-  with each launch) with one 16-byte vector reduction each, or, in a wave
-  whose whole histogram fits in shared memory (at 28 features x 256 bins
-  one or two slots: the root wave and the next two), into a per-block
-  copy there that one warp a feature writes without atomics and that is
-  reduced into the accumulator once; an epilogue writes the layout and
-  the sibling.  The L2's reduction rate bounds the first, the warp's
-  settling of shared cells the second;
-* int modes: per-block int32 histograms in shared memory (native integer
-  atomics, exact), written to a workspace of row-chunk partials that the
-  epilogue sums in int64.  They keep this design: their int32 shared
-  adds are single instructions, where the accumulator would need 64-bit
-  reductions.  The float modes left it: f32 shared adds are
-  compare-and-swap loops.
+* float modes: an f32 accumulator; one 16-byte vector reduction a group;
+  the shared-memory copy is written by one warp a feature without atomics
+  (f32 shared atomics are compare-and-swap loops on Hopper);
+* int modes: a packed int64 accumulator, each cell's three sums in one
+  64-bit word that one atomic adds (with corrections for the fields that
+  wrap), so the sums are exact at any number of rows; the shared-memory
+  copy is int32 with native shared atomics, at most 65,535 rows a block,
+  and also takes larger waves in tiles of two features or more (up to 33
+  slots at 28 x 256) when a block's rows outnumber a feature's cells.
 
 The source's header says more.  The float reductions add in an order
 that changes from run to run, so the kernel's g/h sums agree with
@@ -70,7 +70,6 @@ P_MAX_PACKED = C_MAX // 2 - 1    # 63 leaves per wave
 P_MAX_TRIPLE = C_MAX // 3        # 42 leaves per wave
 _MODES = {"highest": 0, "2xbf16": 1, "bf16": 2, "int16": 3, "int8": 4}
 _INT16_MIN, _INT16_MAX = -32768, 32767
-_INT_ROWS_PER_CHUNK = 65535      # int32 cell sums of |q| <= 32767 cannot wrap
 
 
 def wave_capacity_max(packed: bool) -> int:
@@ -178,17 +177,6 @@ def _check(name, t, dtype, shape=None, device=None):
         raise ValueError(f"hist_wave: {name} must be contiguous")
 
 
-def _int_chunks(dev, F: int, N: int, smem: int) -> int:
-    """Int modes' row chunks per feature: enough blocks for two rounds over
-    the SMs at the occupancy the shared-memory size allows, >= 4096 rows
-    each and at most ``_INT_ROWS_PER_CHUNK``."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = max(1, min(4, (227 * 1024) // max(smem, 1)))
-    want = -(-2 * sms * per_sm // max(F, 1))
-    chunks = max(1, min(want, -(-N // 4096)))
-    return max(chunks, -(-N // _INT_ROWS_PER_CHUNK))
-
-
 def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
               highest="bf16", packed: bool = True, parent=None,
               num_slots: int = None):
@@ -196,7 +184,7 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
     plain version for CPU tensors.  Same arguments and results as
     ``hist_wave_plain``; ``num_slots`` (default: the layout's capacity)
     tells the kernel how many leading slots are in use, which sizes its
-    accumulator (float modes) or shared memory (int modes).
+    accumulator.
 
     Kernel preconditions (the wave grower meets them): the lanes of each
     slot s < ``num_slots`` map to one leaf, lanes past them are -1, no
@@ -233,22 +221,19 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
             _check(f"parent[{i}]", pars[i], torch.float32, hist_shape, dev)
 
     lib = _build.load()
-    rows = N > 0 and F > 0 and S > 0
     if quant:
-        vecs = _int_stream(gv, hv, cv, leaf_id)
-        # int32 partials [chunks, F, B, S, 3], each chunk written whole
-        chunks = (_int_chunks(dev, F, N, lib.lgbm_hist_wave_smem_bytes(B, S))
-                  if rows else 1)
-        ws = torch.empty(chunks * F * B * S * 3 if rows else 0,
-                         dtype=torch.int32, device=dev)
+        # the kernel casts g, h and the count weights to int16 as
+        # _int_stream does; leaf ids saturate the same way
+        leaf = (leaf_id if leaf_id.dtype == torch.int32 else
+                leaf_id.clamp(_INT16_MIN, _INT16_MAX).int())
+        # the packed int64 accumulator [F, B, S, 4] (csrc/hist_wave.cu)
+        acc = torch.zeros(F * B * S * 4, dtype=torch.int64, device=dev)
     else:
         # leaf ids ride the f32 vector stream like the Pallas kernel's
         # (exact below 2^24)
         vecs = torch.stack([gv, hv, cv, leaf_id.float()], 1)
         # the f32 accumulator [F, B, S, 4] the row pass reduces into
-        chunks = 1                   # unused: the kernel sizes its grid
-        ws = torch.zeros(F * B * S * 4 if rows else 0, dtype=torch.float32,
-                         device=dev)
+        acc = torch.zeros(F * B * S * 4, dtype=torch.float32, device=dev)
     outs = [torch.empty(hist_shape, dtype=torch.float32, device=dev)
             for _ in range(n_out)] + [None] * (2 - n_out)
     sibs = [None, None]
@@ -259,11 +244,18 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _build.check_launch("hist_wave", lib.lgbm_hist_wave(
-        ptr(bins_fm), ptr(vecs), ptr(slot_leaf), F, N, B, S,
-        2 if packed else 3, _MODES[mode], chunks, ptr(ws), ptr(pars[0]),
-        ptr(pars[1]), ptr(outs[0]), ptr(outs[1]), ptr(sibs[0]),
-        ptr(sibs[1]), torch.cuda.current_stream(dev).cuda_stream))
+    tail = (ptr(acc), ptr(pars[0]), ptr(pars[1]), ptr(outs[0]),
+            ptr(outs[1]), ptr(sibs[0]), ptr(sibs[1]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    stride = 2 if packed else 3
+    if quant:
+        err = lib.lgbm_hist_wave_int(ptr(bins_fm), ptr(gv), ptr(hv), ptr(cv),
+                                     ptr(leaf), ptr(slot_leaf), F, N, B, S,
+                                     stride, *tail)
+    else:
+        err = lib.lgbm_hist_wave(ptr(bins_fm), ptr(vecs), ptr(slot_leaf), F,
+                                 N, B, S, stride, _MODES[mode], *tail)
+    _build.check_launch("hist_wave", err)
     hist_wave.launches += 1
     hist_wave.layout_launches["packed" if packed else "triple"] += 1
     child = tuple(outs) if packed else outs[0]

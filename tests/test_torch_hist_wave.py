@@ -6,8 +6,9 @@ version.
 Tolerance: counts exact; float-mode g/h at rtol=1e-5, atol=1e-5 — both
 sides round g/h the same way and accumulate in f32, only the summation
 order differs (as tests/test_wave.py holds the Pallas kernel to its XLA
-oracle).  The int16/int8 modes are array-equal: integer sums, every cell
-below 2^24."""
+oracle).  The int16/int8 modes are array-equal: integer sums (the
+Pallas kernel's f32 sums are exact while every cell stays below 2^24, as
+here; the card's kernel sums in int64 at any size)."""
 import numpy as np
 import pytest
 import torch
@@ -488,3 +489,81 @@ def test_triple_kernel_matches_plain_on_card(mode, fused):
     for g, w in zip(_flat(got), _flat(want)):
         assert torch.equal(g[..., 2::3], w[..., 2::3])      # counts
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+def _int_card_equal(arrs, B, mode, packed, parent, S):
+    """One int kernel launch on the card, ``torch.equal`` to the plain
+    version on the same inputs."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrs]
+    par = None
+    if parent is not None:
+        par = (tuple(torch.from_numpy(p).cuda() for p in parent) if packed
+               else torch.from_numpy(parent).cuda())
+    before = hw.hist_wave.launches
+    got = hw.hist_wave(*t, B, highest=mode, packed=packed, parent=par,
+                       num_slots=S)
+    assert hw.hist_wave.launches == before + 1
+    want = hw.hist_wave_plain(*t, B, highest=mode, packed=packed, parent=par)
+    _assert_equal(tuple(x.cpu() for x in _flat(got)),
+                  tuple(x.cpu() for x in _flat(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("many_slots", [False, True])
+@pytest.mark.parametrize("mode", list(QUANT))
+def test_quantized_kernel_equals_plain_on_card_skewed_bins(mode, many_slots,
+                                                          packed, fused):
+    """int16/int8 on skewed bins (many lanes of a warp on one cell), at one
+    slot (the shared-memory form) and at the layout's most slots (the L2
+    form): bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    S = hw.wave_capacity_max(packed) if many_slots else 1
+    arrs, parent = _quant_inputs(mode, N=50_000, F=7, B=64, leaves=2 * S,
+                                 seed=50 + 2 * packed + fused, packed=packed,
+                                 n_slots=S)
+    arrs = (_skew(arrs[0], seed=51),) + arrs[1:]
+    _int_card_equal(arrs, 64, mode, packed, parent if fused else None, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("S", [1, 63])
+def test_quantized_kernel_cell_past_two_to_the_31_on_card(S, packed):
+    """70,000 rows of g = 32,767, h = -32,768 in one slot and one bin of
+    every feature: each cell's g and h totals pass 2^31 in magnitude (an
+    int32 sum would wrap), in the shared-memory form (one slot) and the L2
+    form (the layout's most slots at 256 bins, every row in the first).
+    Bit for bit, fused, against the plain version's int64 sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    S = min(S, hw.wave_capacity_max(packed))
+    N, F, B = 70_000, 3, 256
+    bins = np.full((F, N), 7, np.uint8)
+    gv = np.full(N, 32767.0, np.float32)
+    hv = np.full(N, -32768.0, np.float32)
+    cv = np.ones(N, np.float32)
+    leaf = np.full(N, 5, np.int32)
+    pend = np.concatenate([[5], 100 + np.arange(S - 1)]).astype(np.int32)
+    rng = np.random.default_rng(60)
+    par = [rng.integers(-10 ** 6, 10 ** 6, size=(F, B, 128)).astype(np.float32)
+           for _ in range(2 if packed else 1)]
+    assert N * 32767 > 2 ** 31
+    _int_card_equal((bins, gv, hv, cv, leaf, _slots(pend, packed)), B,
+                    "int16", packed, tuple(par) if packed else par[0], S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 33, 34])
+def test_quantized_kernel_at_the_shared_memory_boundary_on_card(S):
+    """At 28 features x 256 bins the int32 histograms of every feature fit
+    a block's shared memory at S = 2, those of two features up to S = 33
+    (the shared-memory form in feature tiles) and of one only at S = 34
+    (the L2 form): all bit for bit, fused, packed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    arrs, parent = _quant_inputs("int16", N=200_000, F=28, B=256,
+                                 leaves=2 * S, seed=70 + S, n_slots=S)
+    _int_card_equal(arrs, 256, "int16", True, parent, S)
