@@ -30,12 +30,14 @@ Phases, in order; any failure raises and the script exits nonzero:
 3. small-input reference: 3 rounds on 20,000 rows trained on the card and
    on the CPU (plain kernels) must agree, in 2xbf16 and in int16 with
    bagging;
-4. main path: ``lightgbm_tpu_torch.train`` on the 1,000,000 x 28
-   HIGGS-shaped data (the headline configuration of bench.py, generated
-   from seed 0), 5 rounds, 255 leaves; K1 must have launched at least
-   once per wave; train logloss must fall every round and AUC exceed 0.7;
-   one more iteration under torch.profiler gives the device's busy time by
-   kernel and its idle share;
+4. main path: the 1,000,000 x 28 HIGGS-shaped data (the headline
+   configuration of bench.py, generated from seed 0) is binned through the
+   native g++ library, which must have loaded, and once more through the
+   numpy path, which must give the same bytes (both timed); then
+   ``lightgbm_tpu_torch.train`` on it, 5 rounds, 255 leaves; K1 must have
+   launched at least once per wave; train logloss must fall every round
+   and AUC exceed 0.7; one more iteration under torch.profiler gives the
+   device's busy time by kernel and its idle share;
 5. quantized main path (bench.py's BENCH_QUANT=int16 leg): the same data
    and Dataset, ``tpu_hist_dtype=int16``, 5 rounds; K1 at least once per
    wave, logloss falling every round, final train AUC within 1e-3 of
@@ -47,7 +49,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    whose per-feature sums must be the totals;
 7. int8 with ``bagging_fraction=0.8, bagging_freq=1``, 5 rounds: K1 at
    least once per wave, final train AUC within 1e-2 of phase 4's;
-8. predict 10,000 rows and write the model text of phase 4's booster.
+8. predict: phase 4's booster (5 trees, 255 leaves) predicts all
+   1,000,000 rows, which takes the device forest walk (5,000,000 rows x
+   trees, above the 2,000,000 threshold; its call count must rise), held
+   against the host walk on the first 20,000 rows at atol 1e-4 on raw
+   scores; then ``Booster(model_str=...)`` of its model text on the card
+   through the model-derived bin space at atol 1e-6; leaf indices equal
+   to the host walk's; prediction early stop (freq 1, margin 1.5) within
+   1e-6 of the host's.  Times by CUDA events (the whole call and the
+   forest walk alone), rows/s, and the card's kernel launches and copies
+   in one call (torch.profiler);
+9. CLI: a 200,000 x 28 HIGGS-shaped TSV (label in column 0) trains 5
+   trees of 255 leaves with ``python -m lightgbm_tpu_torch task=train`` on
+   the card and predicts with ``task=predict``, both as subprocesses that
+   must exit 0; the output must equal ``Booster(model_file=...).predict``
+   at 1e-10.
 
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
@@ -586,6 +602,161 @@ def channels_path(hw, hc, gb, kind, card):
     return counts
 
 
+def native_binning(lt, X, y, card):
+    """Bin the main path's matrix through the native library (which must
+    have loaded) and through the numpy path; equal bytes.  Returns the
+    native Dataset."""
+    from lightgbm_tpu_torch import native
+    if native.lib() is None:
+        raise AssertionError("the native binning library did not load "
+                             "(g++ -O3 -fopenmp)")
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y).construct()
+    native_s = time.perf_counter() - t0
+    lib = native.lib
+    native.lib = lambda: None           # the numpy fallback, same matrix
+    try:
+        t0 = time.perf_counter()
+        plain = lt.Dataset(X, label=y).construct()
+        numpy_s = time.perf_counter() - t0
+    finally:
+        native.lib = lib
+    if plain._handle.X_bin.tobytes() != ds._handle.X_bin.tobytes():
+        raise AssertionError("native and numpy binning disagree")
+    print(f"binning {MAIN_ROWS:,} x 28 (host): native path {native_s:.2f} s, "
+          f"numpy path {numpy_s:.2f} s, X_bin equal; the main path uses the "
+          f"native path ({native.lib()._name}) [{card}]", flush=True)
+    return ds
+
+
+def timed(fn):
+    """(result, ms) of one call, by CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def device_ops(fn) -> dict:
+    """Kernel launches and copies on the card in one call of ``fn``
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {"kernels": 0, "copies": 0}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+        if dev_us > 0 and ev.key and not ev.key.startswith(
+                ("aten::", "ProfilerStep", "cudaDeviceSynchronize")):
+            ops["copies" if ev.key.startswith("Memcpy") else "kernels"] += \
+                ev.count
+    return ops
+
+
+PREDICT_CHECK_ROWS = 20_000
+EARLY_STOP = {"pred_early_stop": True, "pred_early_stop_freq": 1,
+              "pred_early_stop_margin": 1.5}
+
+
+def predict_phase(lt, bst, X, kind, card):
+    """Phase 4's booster, then a booster loaded from its model text, predict
+    every row on the card through the stacked forest; held against the host
+    walk on the first rows."""
+    from lightgbm_tpu_torch.core import forest
+    n = PREDICT_CHECK_ROWS
+    host = {"raw": bst.predict(X[:n], raw_score=True),
+            "leaf": bst.predict(X[:n], pred_leaf=True),
+            "es": bst.predict(X[:n], raw_score=True, **EARLY_STOP)}
+    loaded = lt.Booster(model_str=bst.model_to_string())
+    for name, b, tol in (("trained", bst, 1e-4), ("loaded", loaded, 1e-6)):
+        before = dict(forest.calls)
+        raw, raw_ms = timed(lambda: b.predict(X, raw_score=True))
+        leaf, leaf_ms = timed(lambda: b.predict(X, pred_leaf=True))
+        es, es_ms = timed(lambda: b.predict(X, raw_score=True, **EARLY_STOP))
+        ran = {k: forest.calls[k] - before[k] for k in before}
+        if ran != {"predict": 2, "leaf": 1}:
+            raise AssertionError(f"{name}: device forest calls {ran}, "
+                                 "expected 2 predict and 1 leaf")
+        err = float(np.abs(raw[:n] - host["raw"]).max())
+        es_err = float(np.abs(es[:n] - host["es"]).max())
+        leaf_ok = np.array_equal(leaf[:n], host["leaf"])
+        g = b._gbdt
+        space, meta, walk = g._forest_device(0, g.current_iteration())
+        bins = g._device_bins(X, space)
+        scan = forest.forest_predict_fn(meta, 1)
+        scan_ms = cuda_ms(lambda: scan(walk, bins), reps=5)
+        ops = device_ops(lambda: b.predict(X, raw_score=True))
+        scan_ops = device_ops(lambda: scan(walk, bins))
+        rows = X.shape[0]
+        print(f"predict ({name}, {rows:,} rows x {g.num_trees} trees of "
+              f"depth {walk.depth.tolist()}): raw {raw_ms:.2f} ms "
+              f"({rows / raw_ms * 1e3:,.0f} rows/s), leaf {leaf_ms:.2f} ms, "
+              f"early stop {es_ms:.2f} ms; forest walk alone {scan_ms:.3f} ms "
+              f"({rows / scan_ms * 1e3:,.0f} rows/s); card ops per predict "
+              f"call {ops}, per walk {scan_ops}; max |raw - host| {err:.3g} "
+              f"(tol {tol:g}), early stop {es_err:.3g} (tol 1e-6), leaves "
+              f"equal {leaf_ok} [{kind}, {card}]", flush=True)
+        if not (err <= tol and es_err <= 1e-6 and leaf_ok
+                and np.all(np.isfinite(raw))):
+            raise AssertionError(f"{name}: device predict disagrees with "
+                                 "the host walk")
+
+
+def cli_phase(lt, kind, card, rows=200_000):
+    """``python -m lightgbm_tpu_torch`` task=train then task=predict on a
+    TSV, each a subprocess on the card; the output equals
+    ``Booster(model_file=...).predict`` on the file's rows."""
+    import tempfile
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.text_loader import load_text
+    X, y = higgs_like(rows, seed=2)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "higgs.tsv")
+        model = os.path.join(d, "model.txt")
+        out = os.path.join(d, "pred.txt")
+        np.savetxt(data, np.column_stack([y, X]), delimiter="\t", fmt="%.9g")
+        walls = {}
+        for task, args in (
+                ("train", [f"data={data}", "objective=binary", "num_trees=5",
+                           "num_leaves=255", "max_bin=255",
+                           "min_data_in_leaf=100", f"output_model={model}"]),
+                ("predict", [f"data={data}", f"input_model={model}",
+                             f"output_result={out}"])):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "lightgbm_tpu_torch", f"task={task}",
+                 "verbosity=-1", *args], cwd=d, env=env, capture_output=True,
+                text=True, timeout=600)
+            walls[task] = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"CLI task={task} exited "
+                                     f"{r.returncode}: {r.stderr[-2000:]}")
+        Xf, _, _ = load_text(data, Config())
+        want = lt.Booster(model_file=model).predict(Xf)
+        got = np.loadtxt(out)
+        err = float(np.abs(got - want).max())
+        with open(model) as fh:
+            trees = fh.read().count("\nTree=")
+    print(f"CLI ({rows:,} x 28 TSV): task=train {walls['train']:.1f} s wall "
+          f"({trees} trees), task=predict {walls['predict']:.1f} s wall; max "
+          f"|output - Booster(model_file).predict| {err:.3g} (tol 1e-10) "
+          f"[{kind}, {card}]", flush=True)
+    if trees != 5 or err > 1e-10:
+        raise AssertionError("CLI output disagrees with Booster.predict")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -669,11 +840,7 @@ def main() -> int:
     params = {"objective": "binary", "metric": ["binary_logloss", "auc"],
               "num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
               "min_data_in_leaf": 100, "verbose": -1}
-    t0 = time.perf_counter()
-    ds = lt.Dataset(X, label=y)
-    ds.construct()
-    print(f"binning {MAIN_ROWS:,} x 28: {time.perf_counter() - t0:.1f} s "
-          "(host)", flush=True)
+    ds = native_binning(lt, X, y, card)
     bst, counts, loss, auc, iter_ms = train_phase(
         lt, hw, hc, "main path", params, ds, kind, card)
     if not all(b < a for a, b in zip(loss, loss[1:])):
@@ -711,15 +878,14 @@ def main() -> int:
                              f"within 1e-2 of 2xbf16's {auc[-1]}")
 
     # ---- 8. predict and model text ----------------------------------------
-    pred = bst.predict(X[:10_000])
     text = bst.model_to_string()
-    if pred.shape != (10_000,) or not np.all(np.isfinite(pred)) \
-            or not np.all((pred > 0) & (pred < 1)):
-        raise AssertionError("predictions are not finite probabilities")
     if "Tree=4" not in text or "nan" in text.split("end of trees")[0]:
         raise AssertionError("model text is incomplete or not finite")
-    print(f"predict 10,000 rows ok (mean {float(pred.mean()):.4f}); model "
-          f"text {len(text)} chars", flush=True)
+    predict_phase(lt, bst, X, kind, card)
+    del X, y, ds
+
+    # ---- 9. CLI ----------------------------------------------------------
+    cli_phase(lt, kind, card)
 
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);

@@ -1,8 +1,10 @@
 """Dataset and Booster (counterpart of lightgbm_tpu/basic.py; reference:
 python-package/lightgbm/basic.py).  Binning runs on the host; a Booster
-trains on ``device`` ("cuda" unless the caller asks for "cpu")."""
+trains and predicts on ``device`` ("cuda" unless the caller, or the
+``device_type`` parameter, asks for "cpu")."""
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -13,23 +15,19 @@ from .config import Config
 from .io.dataset import BinnedDataset
 from .metric import create_metrics
 from .objective import create_objective
-from .utils.log import LightGBMError
+from .utils.log import LightGBMError, refuse
 
 
 def resolve_device(device) -> torch.device:
-    """The training device; CUDA must be present when it is asked for."""
+    """The device to run on; CUDA must be present when it is asked for."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise LightGBMError("device='cuda' but torch.cuda.is_available() is "
-                            "False; pass device='cpu' to train on the CPU")
+                            "False; pass device='cpu' (device_type=cpu) to "
+                            "run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise LightGBMError(f"unsupported device {device}")
     return device
-
-
-def _refuse(what: str, item: str) -> None:
-    raise LightGBMError(f"{what} is not in the PyTorch port yet (ROADMAP.md "
-                        f"port queue: {item})")
 
 
 class Dataset:
@@ -44,9 +42,9 @@ class Dataset:
         for arg, item in ((weight, "sample weights"), (group, "ranking"),
                           (init_score, "init scores")):
             if arg is not None:
-                _refuse(item, "the rest of queue 1")
+                refuse(item, "the rest of queue 1")
         if categorical_feature not in ("auto", None, [], ()):
-            _refuse("categorical features", "categorical/EFB/mixed width")
+            refuse("categorical features", "categorical/EFB/mixed width")
         self.data = data
         self.label = label
         self.reference = reference
@@ -62,7 +60,7 @@ class Dataset:
         if self.data is None:
             raise LightGBMError("Cannot construct Dataset: raw data was freed")
         if hasattr(self.data, "tocsr"):
-            _refuse("sparse input", "the rest of queue 1")
+            refuse("sparse input", "the rest of queue 1")
         mat = np.asarray(self.data)
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
@@ -85,31 +83,46 @@ class Dataset:
 
 
 class Booster:
-    """Trained model handle; ``update`` runs one boosting iteration
-    (reference: basic.py:1666+)."""
+    """Model handle: trains through ``update`` when built from a Dataset,
+    or predicts from a model file or string (reference: basic.py:1666+)."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None, device="cuda"):
-        if model_file is not None or model_str is not None:
-            _refuse("loading a model", "forest predict and serving")
-        if not isinstance(train_set, Dataset):
-            raise TypeError("Booster needs a training Dataset")
+                 model_str: Optional[str] = None, device=None):
         self.params = dict(params) if params else {}
         self.config = Config.from_params(self.params)
-        self.device = resolve_device(device)
-        train_set.params = {**train_set.params, **self.params}
-        train_set.construct()
-        self.train_set = train_set
-        self.valid_sets: List[Dataset] = []
+        self.device = resolve_device(device or self.config.device_type)
+        self.best_iteration = -1
+        self.best_score: Dict = {}
         self._train_data_name = "training"
-        self._gbdt = GBDT()
-        self._gbdt.init(self.config, train_set._handle,
-                        create_objective(self.config),
-                        create_metrics(self.config), self.device)
+        self.train_set = None
+        self.valid_sets: List[Dataset] = []
+        if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("Training data should be Dataset instance, "
+                                f"met {type(train_set).__name__}")
+            train_set.params = {**train_set.params, **self.params}
+            train_set.construct()
+            self.train_set = train_set
+            self._gbdt = GBDT()
+            self._gbdt.init(self.config, train_set._handle,
+                            create_objective(self.config),
+                            create_metrics(self.config), self.device)
+        elif model_file is not None or model_str is not None:
+            from .io.model_io import load_model_file, load_model_string
+            self._gbdt = (load_model_file(model_file, self.device)
+                          if model_file is not None
+                          else load_model_string(model_str, self.device))
+        else:
+            raise TypeError("Need at least one training dataset or model "
+                            "file or model string to create Booster instance")
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Attach a valid set; trees grown so far are replayed onto it."""
+        if self.train_set is None:
+            raise LightGBMError("Cannot add validation data to a booster "
+                                "without training data")
         if data._handle is None:
             data.reference = self.train_set
             data.construct()
@@ -133,23 +146,92 @@ class Booster:
     def eval_valid(self) -> List:
         return self._gbdt.eval_results(include_train=False)
 
+    def current_iteration(self) -> int:
+        return self._gbdt.current_iteration()
+
+    def num_trees(self) -> int:
+        return self._gbdt.num_trees
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tpi
+
+    def feature_name(self) -> List[str]:
+        if self._gbdt.train_ds is not None:
+            return list(self._gbdt.train_ds.feature_names)
+        return list(self._gbdt.feature_names)
+
+    def num_feature(self) -> int:
+        if self._gbdt.train_ds is not None:
+            return self._gbdt.train_ds.num_total_features
+        return self._gbdt.num_features
+
     def predict(self, data, num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
-        """Predictions by the host tree walk over the raw feature values."""
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, start_iteration: int = 0,
+                **kwargs) -> np.ndarray:
+        """Predictions for a dense matrix: probabilities, raw margins
+        (``raw_score``) or leaf indices (``pred_leaf``).  ``kwargs`` are
+        parameters for this call only, such as ``pred_early_stop``,
+        ``pred_early_stop_freq`` and ``pred_early_stop_margin``.  Without
+        ``num_iteration`` the best iteration of early stopping is used,
+        else every tree."""
+        if pred_contrib:
+            refuse("pred_contrib (TreeSHAP)", "the rest of queue 1: explain")
+        if hasattr(data, "tocsr"):
+            refuse("sparse input", "the rest of queue 1")
         mat = np.asarray(data, dtype=np.float64)
-        if mat.ndim != 2 or mat.shape[1] != self.train_set.num_feature():
+        if mat.ndim != 2 or mat.shape[1] != self.num_feature():
             raise LightGBMError(
                 f"The number of features in data ({mat.shape[-1]}) is not the "
-                f"same as it was in training data "
-                f"({self.train_set.num_feature()})")
-        return self._gbdt.predict(mat, num_iteration or -1, raw_score)
+                f"same as it was in training data ({self.num_feature()})")
+        if num_iteration is None:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else -1)
+        if pred_leaf:
+            return self._gbdt.predict_leaf(mat, num_iteration,
+                                           start_iteration)
+        config = self.config
+        if kwargs:
+            config = copy.copy(config)
+            config.update(kwargs)
+        return self._gbdt.predict(mat, num_iteration, raw_score,
+                                  start_iteration, config=config)
 
-    def model_to_string(self, num_iteration: Optional[int] = None) -> str:
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> str:
         from .io.model_io import model_to_string
-        return model_to_string(self._gbdt, num_iteration or -1)
+        if num_iteration is None:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else -1)
+        return model_to_string(self._gbdt, num_iteration, start_iteration)
 
-    def save_model(self, filename: str,
-                   num_iteration: Optional[int] = None) -> "Booster":
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
         with open(filename, "w") as fh:
-            fh.write(self.model_to_string(num_iteration))
+            fh.write(self.model_to_string(num_iteration, start_iteration))
+        return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict[str, Any]:
+        """The model as a nested dict, the reference's JSON structure
+        (reference: GBDT::DumpModel, gbdt_model_text.cpp:20-85)."""
+        from .io.model_json import dump_model
+        if num_iteration is None:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else -1)
+        return dump_model(self._gbdt, num_iteration, start_iteration)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        return self._gbdt.feature_importance(
+            importance_type,
+            num_iteration=-1 if iteration is None else int(iteration))
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change parameters that act from now on: the prediction knobs
+        (``pred_early_stop*``) and, while training, ``learning_rate``."""
+        self.params.update(params)
+        self.config.update(params)
+        if self._gbdt.train_ds is not None:
+            self._gbdt.shrinkage_rate = float(self.config.learning_rate)
         return self

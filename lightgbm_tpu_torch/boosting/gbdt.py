@@ -8,49 +8,229 @@ scores — all on the training device.  Bagging masks are drawn on the host
 from numpy's generator seeded with ``bagging_seed``, as in the reference,
 so both packages draw the same rows.  The trees are kept as host ``Tree``
 objects for prediction and model text (reference: GBDT::TrainOneIter,
-gbdt.cpp:368-449).
+gbdt.cpp:368-449); ``PredictorBase`` predicts from them, on the host or
+through the stacked forest on the device.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.grower import go_left_bins
+from ..core.forest import forest_leaf_fn, forest_predict_fn, stack_forest
 from ..core.meta import SplitConfig, build_device_meta
+from ..core.predict import predict_leaf_bins
 from ..core.tree import Tree, tree_depth
 from ..core.wave_grower import build_wave_grow_fn
 from ..utils import log
+from ..utils.timetag import sync, timetag
 
 K_EPSILON = 1e-15
 
 
-def predict_leaf_bins(arrs, bins_rm, meta):
-    """Leaf index of every row of a row-major binned matrix [N, F] for one
-    device tree (counterpart of lightgbm_tpu/core/predict.py
-    ``predict_leaf_bins``): a bin-space walk, one level per step."""
-    host = {k: arrs._asdict()[k].cpu().numpy()
-            for k in ("left_child", "right_child", "num_leaves")}
-    node = torch.zeros(bins_rm.shape[0], dtype=torch.int64,
-                       device=bins_rm.device)
-    left, right = arrs.left_child.long(), arrs.right_child.long()
-    for _ in range(tree_depth(host["left_child"], host["right_child"],
-                              int(host["num_leaves"]))):
-        nd = node.clamp(min=0)
-        f = arrs.split_feature.long()[nd]
-        col = torch.gather(bins_rm, 1, f[:, None])[:, 0].int()
-        go = go_left_bins(col, arrs.threshold_bin[nd], arrs.default_left[nd],
-                          meta.missing_types[f], meta.num_bins[f],
-                          meta.default_bins[f])
-        node = torch.where(node >= 0, torch.where(go, left[nd], right[nd]),
-                           node)
-    return ~node
+class PredictorBase:
+    """Prediction surface shared by the trainer (``GBDT``) and boosters
+    loaded from model text (``io.model_io.LoadedGBDT``); counterpart of
+    lightgbm_tpu/boosting/gbdt.py ``PredictorBase``.  Subclasses provide
+    ``models``, ``num_tpi``, ``objective``, ``config``, ``train_ds`` and
+    ``device``.
+
+    Inputs of ``_DEVICE_PREDICT_MIN_WORK`` rows x trees or more are binned
+    on the host and walked on ``device`` through the stacked forest
+    (``core/forest.py``), in the training bin space when a dataset is
+    attached and otherwise in a bin space rebuilt from the model's own
+    thresholds (``serve/packing.py``); smaller inputs walk the value-space
+    trees on the host, as the JAX package routes them."""
+
+    # device prediction pays off above this many rows x trees; below it
+    # host numpy wins on binning and launch overhead
+    _DEVICE_PREDICT_MIN_WORK = 2_000_000
+
+    def _iter_window(self, num_iteration: Optional[int],
+                     start_iteration: int = 0) -> Tuple[int, int]:
+        """(start, stop) boosting iterations."""
+        n_iters = len(self.models) // self.num_tpi
+        stop = n_iters if num_iteration is None or num_iteration <= 0 \
+            else min(start_iteration + num_iteration, n_iters)
+        return start_iteration, stop
+
+    def _use_device(self, n_rows: int, start: int, stop: int) -> bool:
+        """The JAX package's routing: enough work, and a bin space to walk
+        in (the training one, or a model with a declared feature space)."""
+        return (n_rows * max(stop - start, 0) * self.num_tpi
+                >= self._DEVICE_PREDICT_MIN_WORK and stop > start
+                and (self.train_ds is not None or self.num_features > 0))
+
+    def predict_raw(self, X: np.ndarray, num_iteration: Optional[int] = None,
+                    start_iteration: int = 0,
+                    early_stop: Optional[dict] = None) -> np.ndarray:
+        """Raw margins [N, K]."""
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        K = self.num_tpi
+        start, stop = self._iter_window(num_iteration, start_iteration)
+        if self._use_device(X.shape[0], start, stop):
+            return self._predict_raw_device(X, start, stop, early_stop)
+        out = np.zeros((X.shape[0], K))
+        active = None
+        if early_stop is not None:
+            active = np.ones(X.shape[0], dtype=bool)
+        for i, it in enumerate(range(start, stop)):
+            Xa = X if active is None else X[active]
+            for k in range(K):
+                if active is None:
+                    out[:, k] += self.models[it * K + k].predict(X)
+                else:
+                    out[active, k] += self.models[it * K + k].predict(Xa)
+            if active is not None and \
+                    (i + 1) % early_stop["round_period"] == 0:
+                if early_stop["kind"] == "binary":
+                    margin = 2.0 * np.abs(out[:, 0])
+                else:
+                    top2 = np.sort(out, axis=1)[:, -2:]
+                    margin = top2[:, 1] - top2[:, 0]
+                active &= margin < early_stop["margin_threshold"]
+                if not active.any():
+                    break
+        return out
+
+    def _early_stop_spec(self, config) -> Optional[dict]:
+        """Margin-based prediction early stop (reference:
+        CreatePredictionEarlyStopInstance, prediction_early_stop.cpp:54-88):
+        None unless ``pred_early_stop`` is set and the model classifies
+        (margins mean nothing for regression)."""
+        if config is None or not config.pred_early_stop:
+            return None
+        if self.num_tpi > 1:
+            kind = "multiclass"
+        elif self.objective is not None and self.objective.name == "binary":
+            kind = "binary"
+        else:
+            return None
+        return {"kind": kind,
+                "round_period": int(config.pred_early_stop_freq) or 1,
+                "margin_threshold": float(config.pred_early_stop_margin)}
+
+    def predict(self, X, num_iteration=None, raw_score=False,
+                start_iteration: int = 0, config=None) -> np.ndarray:
+        """Predictions; ``config`` (default ``self.config``) supplies the
+        prediction early-stop parameters."""
+        raw = self.predict_raw(X, num_iteration, start_iteration,
+                               early_stop=self._early_stop_spec(
+                                   config if config is not None
+                                   else self.config))
+        if not raw_score and self.objective is not None:
+            return np.asarray(self.objective.convert_output(
+                raw if self.num_tpi > 1 else raw[:, 0]))
+        return raw if self.num_tpi > 1 else raw[:, 0]
+
+    def predict_leaf(self, X, num_iteration=None,
+                     start_iteration: int = 0) -> np.ndarray:
+        """Leaf index of every row in every tree of the window, [N, T]."""
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        K = self.num_tpi
+        start, stop = self._iter_window(num_iteration, start_iteration)
+        if self._use_device(X.shape[0], start, stop):
+            return self._predict_leaf_device(X, start, stop)
+        cols = [self.models[it * K + k].predict_leaf(X)
+                for it in range(start, stop) for k in range(K)]
+        return np.stack(cols, axis=1) if cols else np.zeros((X.shape[0], 0))
+
+    # ------------------------------------------------------------------
+    # Device prediction: the training bin space when a dataset is
+    # attached, else one rebuilt from the model (serve/packing.py).
+    # ------------------------------------------------------------------
+    def _forest_device(self, start: int, stop: int):
+        """(space, meta, forest) of the window, cached per window: the
+        model-derived bin space (None for the training one), the meta the
+        walk reads, and the stacked forest on ``device``."""
+        key = (start, stop, len(self.models))
+        if getattr(self, "_forest_key", None) != key:
+            from ..serve.packing import ServeBinSpace
+            K = self.num_tpi
+            trees = self.models[start * K:stop * K]
+            space = (None if self.train_ds is not None
+                     else ServeBinSpace(trees, self.num_features, self.device))
+            arrays_np = (self._tree_arrays_np if space is None
+                         else space.tree_arrays_np)
+            forest = stack_forest(
+                [arrays_np(t) for t in trees],
+                np.asarray([k for _ in range(start, stop) for k in range(K)],
+                           np.int32), self.device,
+                min_words=1 if space is None else space.min_words)
+            self._forest_cache = (space, self.meta if space is None
+                                  else space.meta, forest)
+            self._forest_key = key
+        return self._forest_cache
+
+    def _device_bins(self, X: np.ndarray, space) -> torch.Tensor:
+        with timetag("predict (bin input)"):
+            bins = (self._bin_for_predict(X) if space is None
+                    else space.bin_matrix(X))
+            return torch.from_numpy(bins).to(self.device)
+
+    def _bin_for_predict(self, X: np.ndarray) -> np.ndarray:
+        """Bin raw rows with the training mappers: uint8 [N, F_used], the
+        bytes ``X_bin`` would hold for them."""
+        from ..io.dataset import BinnedDataset
+        return BinnedDataset.from_matrix(X, self.config,
+                                         reference=self.train_ds).X_bin
+
+    def _predict_raw_device(self, X: np.ndarray, start: int, stop: int,
+                            early_stop: Optional[dict] = None) -> np.ndarray:
+        """Walk the whole window on the device at once (the replacement of
+        the reference's per-row Predictor, predictor.hpp:28-271)."""
+        space, meta, forest = self._forest_device(start, stop)
+        bins = self._device_bins(X, space)
+        with timetag("predict (forest scan)"):
+            out = sync(forest_predict_fn(meta, self.num_tpi, early_stop)(
+                forest, bins))
+        return out.cpu().numpy().astype(np.float64)
+
+    def _predict_leaf_device(self, X: np.ndarray, start: int,
+                             stop: int) -> np.ndarray:
+        """Leaf indices of the whole window, walked on the device."""
+        space, meta, forest = self._forest_device(start, stop)
+        bins = self._device_bins(X, space)
+        with timetag("predict (leaf scan)"):
+            out = sync(forest_leaf_fn(meta)(forest, bins))
+        return np.ascontiguousarray(out.cpu().numpy().T)
+
+    # ------------------------------------------------------------------
+    @property
+    def num_trees(self) -> int:
+        return len(self.models)
+
+    def current_iteration(self) -> int:
+        return len(self.models) // self.num_tpi
+
+    def feature_importance(self, importance_type: str = "split",
+                           start_iteration: int = 0,
+                           num_iteration: int = -1) -> np.ndarray:
+        """Split counts or gains per original feature (reference:
+        GBDT::FeatureImportance, gbdt.cpp:573-600)."""
+        n = (self.train_ds.num_total_features if self.train_ds is not None
+             else max(self.num_features, 1))
+        imp = np.zeros(n)
+        K = self.num_tpi
+        n_iter = len(self.models) // K
+        stop = n_iter if num_iteration <= 0 else min(num_iteration, n_iter)
+        for tree in self.models[start_iteration * K:stop * K]:
+            nn = max(tree.num_leaves - 1, 0)
+            f = tree.split_feature[:nn]
+            if importance_type == "split":
+                np.add.at(imp, f, 1.0)
+            else:
+                np.add.at(imp, f, np.maximum(tree.split_gain[:nn], 0.0))
+        return imp
 
 
-class GBDT:
+class GBDT(PredictorBase):
     """Trainer state: the forest, the scores and the grower."""
+
+    num_tpi = 1    # trees per iteration: binary only in the port
+    num_class = 1
 
     def __init__(self):
         self.models: List[Tree] = []
@@ -63,6 +243,11 @@ class GBDT:
         self.valid_metrics: List[list] = []
         self._valid_scores: List[torch.Tensor] = []
         self._valid_bins: List[torch.Tensor] = []
+        # what the scores were built from, for replaying them onto a valid
+        # set attached later: the constants added, and each tree's shrunk
+        # f32 leaf values as added (None for a constant tree)
+        self._constants: List[float] = []
+        self._leaf_f32: List[Optional[torch.Tensor]] = []
         self.wave_stats: List[Tuple[int, int]] = []  # per tree: (K1
         #                                             launches, rows)
         self.iter_seconds: List[float] = []  # host clock per grown tree,
@@ -99,21 +284,36 @@ class GBDT:
         self.class_need_train = objective.class_need_train(0)
 
     def add_valid(self, valid_ds, name: str) -> None:
-        if self.models:
-            log.fatal("valid sets must be attached before the first "
-                      "iteration in the PyTorch port (replaying trees onto a "
-                      "late valid set comes with forest predict, ROADMAP.md "
-                      "port queue)")
+        """Attach a valid set binned with the training mappers; the trees
+        grown so far are replayed onto it in the order training added them,
+        so its scores equal those of a set attached before the first
+        iteration."""
         ms = []
         for proto in self.metrics:
             m = type(proto)(self.config)
             m.init(valid_ds.metadata, valid_ds.num_data)
             ms.append(m)
+        bins = torch.as_tensor(valid_ds.X_bin).to(self.device)
+        score = torch.zeros(valid_ds.num_data, dtype=torch.float32,
+                            device=self.device)
+        for c in self._constants:
+            score = score + c
+        grown = [i for i, lv in enumerate(self._leaf_f32) if lv is not None]
+        if grown:
+            forest = stack_forest(
+                [self._tree_arrays_np(self.models[i]) for i in grown],
+                np.zeros(len(grown), np.int32), self.device)
+            leaves = forest_leaf_fn(self.meta)(forest, bins)
+            for row, i in enumerate(grown):
+                score = score + self._leaf_f32[i][leaves[row]]
         self.valid_names.append(name)
         self.valid_metrics.append(ms)
-        self._valid_scores.append(torch.zeros(
-            valid_ds.num_data, dtype=torch.float32, device=self.device))
-        self._valid_bins.append(torch.as_tensor(valid_ds.X_bin).to(self.device))
+        self._valid_scores.append(score)
+        self._valid_bins.append(bins)
+
+    @property
+    def objective_string(self) -> str:
+        return self.objective.to_model_string()
 
     def _boost_from_average(self) -> float:
         """(reference: gbdt.cpp:344-367)."""
@@ -128,6 +328,7 @@ class GBDT:
         return 0.0
 
     def _add_constant(self, value: float) -> None:
+        self._constants.append(value)
         self._train_score = self._train_score + value
         self._valid_scores = [s + value for s in self._valid_scores]
 
@@ -193,6 +394,7 @@ class GBDT:
                 if abs(output) > K_EPSILON:
                     self._add_constant(output)
                 self.models.append(Tree.constant(output))
+                self._leaf_f32.append(None)
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             return True
@@ -200,13 +402,15 @@ class GBDT:
         arrs = arrs._replace(leaf_value=arrs.leaf_value * lr,
                              internal_value=arrs.internal_value * lr)
         self._train_score = self._train_score + arrs.leaf_value[leaf_id.long()]
-        for i, vb in enumerate(self._valid_bins):
-            leaf = predict_leaf_bins(arrs, vb, self.meta)
-            self._valid_scores[i] = self._valid_scores[i] + arrs.leaf_value[leaf]
         tree = Tree.from_device(arrs, self.train_ds, shrinkage=lr)
+        depth = tree_depth(tree.left_child, tree.right_child, tree.num_leaves)
+        for i, vb in enumerate(self._valid_bins):
+            leaf = predict_leaf_bins(arrs, vb, self.meta, depth)
+            self._valid_scores[i] = self._valid_scores[i] + arrs.leaf_value[leaf]
         if abs(init_score) > K_EPSILON:
             tree.leaf_value = tree.leaf_value + init_score
         self.models.append(tree)
+        self._leaf_f32.append(arrs.leaf_value)
         self.wave_stats.append(stats)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -215,30 +419,43 @@ class GBDT:
         return False
 
     # ------------------------------------------------------------------
-    def predict_raw(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
-        """Raw margins by the host tree walk."""
-        X = np.ascontiguousarray(X, dtype=np.float64)
-        stop = (len(self.models) if num_iteration is None or num_iteration <= 0
-                else min(num_iteration, len(self.models)))
-        out = np.zeros(X.shape[0])
-        for tree in self.models[:stop]:
-            out += tree.predict(X)
-        return out
+    def _tree_bin_space(self, tree: Tree):
+        """A value-space host ``Tree`` back in the training bin space:
+        (inner features, threshold bins, default-left, left, right).  A
+        node on a feature that is trivial (constant) in this dataset
+        becomes a one-way split on inner feature 0: both children are the
+        side the constant value takes in value space."""
+        nn = max(tree.num_leaves - 1, 0)
+        ds = self.train_ds
+        inner = ds.used_feature_map[tree.split_feature[:nn]].astype(np.int32)
+        thr_bin = np.zeros(nn, np.int32)
+        dl = np.array([tree.default_left(i) for i in range(nn)], bool)
+        left = tree.left_child[:nn].astype(np.int32).copy()
+        right = tree.right_child[:nn].astype(np.int32).copy()
+        for i in range(nn):
+            if inner[i] < 0:
+                const = ds.bin_mappers[int(tree.split_feature[i])].min_val
+                go_left = bool(tree._decide(np.asarray([const]),
+                                            np.asarray([i]))[0])
+                inner[i] = 0
+                left[i] = right[i] = (tree.left_child[i] if go_left
+                                      else tree.right_child[i])
+                continue
+            # value_to_bin inverts bin_to_value exactly: bounds ascend
+            thr_bin[i] = ds.inner_to_mapper(int(inner[i])).value_to_bin(
+                float(tree.threshold[i]))
+        return inner, thr_bin, dl, left, right
 
-    def predict(self, X, num_iteration: int = -1, raw_score: bool = False):
-        raw = self.predict_raw(X, num_iteration)
-        return raw if raw_score else self.objective.convert_output(raw)
-
-    def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
-        """Split counts per original feature (reference:
-        GBDT::FeatureImportance, gbdt.cpp:573-600)."""
-        imp = np.zeros(self.train_ds.num_total_features)
-        stop = (len(self.models) if num_iteration <= 0
-                else min(num_iteration, len(self.models)))
-        for tree in self.models[:stop]:
-            np.add.at(imp, tree.split_feature[:max(tree.num_leaves - 1, 0)],
-                      1.0)
-        return imp
+    def _tree_arrays_np(self, tree: Tree) -> dict:
+        """Bin-space numpy arrays of one host tree, unpadded: the unit
+        ``core.forest.stack_forest`` batches."""
+        nl = tree.num_leaves
+        inner, thr_bin, dl, left, right = self._tree_bin_space(tree)
+        return dict(split_feature=inner, threshold_bin=thr_bin,
+                    default_left=dl, left_child=left, right_child=right,
+                    leaf_value=tree.leaf_value[:nl].astype(np.float32),
+                    num_leaves=np.int32(nl),
+                    cat_bitset=np.zeros((len(inner), 0), np.uint32))
 
     def eval_results(self, include_train: bool = True) -> List[Tuple]:
         """All (data_name, metric_name, value, higher_better) entries

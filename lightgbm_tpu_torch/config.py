@@ -73,6 +73,9 @@ _ALIASES: Dict[str, str] = {
     "save_period": "snapshot_freq",
     "model_input": "input_model", "model_in": "input_model",
     "model_file": "input_model",
+    "predict_result": "output_result", "prediction_result": "output_result",
+    "predict_name": "output_result", "prediction_name": "output_result",
+    "pred_name": "output_result", "name_pred": "output_result",
     "init_score_filename": "initscore_filename", "init_score_file": "initscore_filename",
     "init_score": "initscore_filename", "input_init_score": "initscore_filename",
     "is_pre_partition": "pre_partition",
@@ -88,6 +91,11 @@ _ALIASES: Dict[str, str] = {
     "ignore_feature": "ignore_column", "blacklist": "ignore_column",
     "cat_feature": "categorical_feature", "categorical_column": "categorical_feature",
     "cat_column": "categorical_feature",
+    "is_predict_raw_score": "predict_raw_score", "predict_rawscore": "predict_raw_score",
+    "raw_score": "predict_raw_score",
+    "is_predict_leaf_index": "predict_leaf_index", "leaf_index": "predict_leaf_index",
+    "is_predict_contrib": "predict_contrib", "contrib": "predict_contrib",
+    "convert_model_file": "convert_model",
     "num_classes": "num_class",
     "unbalance": "is_unbalance", "unbalanced_sets": "is_unbalance",
     "metrics": "metric", "metric_types": "metric",
@@ -124,8 +132,6 @@ _REFUSED: Dict[str, tuple] = {
     "boosting": ("gbdt", "GOSS; DART and RF: the rest of queue 1"),
     "feature_fraction_bynode": (1.0, _SERIAL),
     "forcedsplits_filename": ("", _SERIAL),
-    "forcedbins_filename": ("", "native binning"),
-    "max_bin_by_feature": ([], "native binning"),
     "cegb_penalty_split": (0.0, _SERIAL),
     "cegb_penalty_feature_lazy": ([], _SERIAL),
     "cegb_penalty_feature_coupled": ([], _SERIAL),
@@ -147,6 +153,9 @@ def parse_objective_alias(name: str) -> str:
 class Config:
     """Typed parameter set; field names match the reference's."""
     # ---- Core ----
+    task: str = "train"                 # train, predict (the CLI, app.py)
+    data: str = ""
+    valid: List[str] = field(default_factory=list)
     objective: str = "regression"
     boosting: str = "gbdt"
     num_iterations: int = 100
@@ -154,6 +163,7 @@ class Config:
     num_leaves: int = 31
     tree_learner: str = "serial"
     seed: int = 0
+    device_type: str = "cuda"           # cuda (alias gpu) or cpu
 
     # ---- Learning control ----
     max_depth: int = -1
@@ -179,6 +189,8 @@ class Config:
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
     cegb_penalty_feature_coupled: List[float] = field(default_factory=list)
+    early_stopping_round: int = 0
+    first_metric_only: bool = False
     verbosity: int = 1
 
     # ---- IO ----
@@ -186,10 +198,31 @@ class Config:
     min_data_in_bin: int = 3
     bin_construct_sample_cnt: int = 200000
     data_random_seed: int = 1
+    output_model: str = "LightGBM_model.txt"
+    snapshot_freq: int = -1
+    input_model: str = ""
+    output_result: str = "LightGBM_predict_result.txt"
+    initscore_filename: str = ""
     enable_bundle: bool = True
     use_missing: bool = True
     zero_as_missing: bool = False
+    two_round: bool = False
+    header: bool = False
+    label_column: str = ""
+    weight_column: str = ""
+    group_column: str = ""
+    ignore_column: str = ""
     categorical_feature: str = ""
+
+    # ---- Predict ----
+    predict_raw_score: bool = False
+    predict_leaf_index: bool = False
+    predict_contrib: bool = False
+    num_iteration_predict: int = -1
+    pred_early_stop: bool = False
+    pred_early_stop_freq: int = 10
+    pred_early_stop_margin: float = 10.0
+    convert_model: str = "gbdt_prediction.cpp"
 
     # ---- Objective ----
     num_class: int = 1
@@ -200,6 +233,8 @@ class Config:
 
     # ---- Metric ----
     metric: List[str] = field(default_factory=list)
+    metric_freq: int = 1
+    is_provide_training_metric: bool = False
 
     # ---- Network ----
     num_machines: int = 1
@@ -272,10 +307,17 @@ class Config:
             log.fatal("feature_fraction should be in (0.0, 1.0]")
         if self.num_leaves < 2:
             log.fatal("num_leaves should be >= 2")
-        if not (1 < self.max_bin <= 255):
-            log.fatal("max_bin should be in (1, 255]: wider bins are not in "
-                      "the PyTorch port yet (ROADMAP.md port queue: "
-                      "categorical/EFB/mixed width)")
+        if not (1 < self.max_bin <= 255) or any(
+                not 1 < int(b) <= 255 for b in self.max_bin_by_feature):
+            log.fatal("max_bin and max_bin_by_feature should be in (1, 255]: "
+                      "wider bins are not in the PyTorch port yet (ROADMAP.md "
+                      "port queue: categorical/EFB/mixed width)")
+        self.device_type = self.device_type.strip().lower()
+        if self.device_type == "gpu":
+            self.device_type = "cuda"
+        if self.device_type not in ("cuda", "cpu"):
+            log.fatal(f"device_type={self.device_type!r}: the PyTorch port "
+                      "runs on cuda (alias gpu) or cpu")
         if not (0.0 <= self.tpu_wave_gain_gate <= 1.0):
             log.fatal("tpu_wave_gain_gate should be in [0.0, 1.0]")
         if self.tpu_wave_capacity < 1:
@@ -334,3 +376,17 @@ def _coerce(fld: dataclasses.Field, value: Any):
     if isinstance(value, (list, tuple)):
         return ",".join(str(x) for x in value)
     return str(value)
+
+
+def read_config_file(path: str) -> Dict[str, str]:
+    """Parse a LightGBM ``train.conf``-style file: one ``key = value`` per
+    line, ``#`` comments (reference: Application::LoadParameters)."""
+    out: Dict[str, str] = {}
+    with open(path, "r") as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line or "=" not in line:
+                continue
+            k, v = line.split("=", 1)
+            out[k.strip()] = v.strip()
+    return out

@@ -16,7 +16,8 @@ import torch
 from .utils import log
 
 _META_FIELDS = ("num_bins", "default_bins", "missing_types", "monotone",
-                "penalties")
+                "penalties", "is_categorical")
+_META_DTYPES = {"penalties": torch.float32, "is_categorical": torch.bool}
 _TREE_INT = ("split_feature", "threshold_bin", "left_child", "right_child",
              "internal_count", "leaf_count", "num_leaves")
 _TREE_FLOAT = ("split_gain", "internal_value", "internal_weight",
@@ -25,7 +26,8 @@ _TREE_FLOAT = ("split_gain", "internal_value", "internal_weight",
 
 def meta_from_numpy(fields: dict, device):
     """``DeviceMeta`` from numpy fields (the reference's ``DeviceMeta``
-    fields work; its EFB and categorical fields must be trivial)."""
+    fields work; its EFB and categorical fields must be trivial, and an
+    absent ``is_categorical`` means none)."""
     from .core.meta import DeviceMeta
     if np.any(np.asarray(fields.get("is_categorical", False))):
         log.fatal("categorical features are not in the PyTorch port yet "
@@ -34,9 +36,11 @@ def meta_from_numpy(fields: dict, device):
             np.asarray(fields.get("feat_offset", 0))):
         log.fatal("EFB bundles are not in the PyTorch port yet (ROADMAP.md "
                   "port queue: categorical/EFB/mixed width)")
+    fields = {"is_categorical": np.zeros(len(fields["num_bins"]), bool),
+              **fields}
     out = {}
     for name in _META_FIELDS:
-        dtype = torch.float32 if name == "penalties" else torch.int32
+        dtype = _META_DTYPES.get(name, torch.int32)
         out[name] = torch.tensor(np.asarray(fields[name])).to(
             device=device, dtype=dtype)
     return DeviceMeta(**out)

@@ -21,6 +21,8 @@ class DeviceMeta(NamedTuple):
     missing_types: torch.Tensor   # int32 — MISSING_{NONE,ZERO,NAN}
     monotone: torch.Tensor        # int32 — -1/0/+1 monotone constraint
     penalties: torch.Tensor       # float32 — per-feature gain penalty
+    is_categorical: torch.Tensor  # bool — category-set splits (loaded
+    #                               models only: the port grows none)
 
 
 @dataclass(frozen=True)
@@ -80,7 +82,8 @@ def meta_arrays(dataset, config=None) -> dict:
             if orig < len(fc):
                 penalties[inner] = float(fc[orig])
     return dict(num_bins=nbins, default_bins=default_bins,
-                missing_types=missing, monotone=monotone, penalties=penalties)
+                missing_types=missing, monotone=monotone, penalties=penalties,
+                is_categorical=np.zeros(F, dtype=bool))
 
 
 def build_device_meta(dataset, config=None, device="cuda"):

@@ -1,10 +1,13 @@
 """Host-side tree model: raw-value prediction and serialization state
-(counterpart of lightgbm_tpu/core/tree.py, numerical nodes).
+(counterpart of lightgbm_tpu/core/tree.py).
 
-The grower emits bin-space ``TreeArrays``; ``Tree.from_device`` converts
-them once to value space with the dataset's bin mappers (reference:
-Dataset::RealThreshold) and the tree then serves numpy prediction and
-model text.
+The grower emits bin-space ``TreeArrays`` of numerical nodes;
+``Tree.from_device`` converts them once to value space with the dataset's
+bin mappers (reference: Dataset::RealThreshold) and the tree then serves
+numpy prediction and model text.  Trees loaded from a model file
+(``io/model_io.py``) may also hold categorical nodes: their category sets
+are value-space bitsets (``cat_boundaries`` / ``cat_threshold``), and the
+host walk decides them as the reference's CategoricalDecision does.
 """
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ from ..io.binning import MISSING_NAN, MISSING_ZERO
 
 K_ZERO_THRESHOLD = 1e-35
 
-# decision_type bit layout (reference: tree.h:19-20, 193-212); bit 0
-# marks categorical nodes, which the port does not grow yet
+# decision_type bit layout (reference: tree.h:19-20, 193-212): bit 0
+# categorical, bit 1 default-left, bits 2-3 the missing type
+_CAT_MASK = 1
 _DEFAULT_LEFT_MASK = 2
 
 
@@ -40,7 +44,9 @@ class Tree:
                  leaf_weight: np.ndarray,
                  split_gain: np.ndarray, internal_value: np.ndarray,
                  internal_count: np.ndarray, internal_weight: np.ndarray,
-                 shrinkage: float = 1.0):
+                 shrinkage: float = 1.0,
+                 cat_boundaries: np.ndarray = None,
+                 cat_threshold: np.ndarray = None):
         self.num_leaves = int(num_leaves)
         self.split_feature = split_feature
         self.threshold = threshold
@@ -56,6 +62,13 @@ class Tree:
         self.internal_count = internal_count
         self.internal_weight = internal_weight
         self.shrinkage = float(shrinkage)
+        # categorical thresholds: bitsets concatenated, node i's set is
+        # words cat_boundaries[c]..cat_boundaries[c + 1] with c =
+        # threshold[i] (reference: tree.h:83-99)
+        self.cat_boundaries = (np.zeros(1, np.int32) if cat_boundaries is None
+                               else cat_boundaries)
+        self.cat_threshold = (np.zeros(0, np.uint32) if cat_threshold is None
+                              else cat_threshold)
 
     @classmethod
     def from_device(cls, arrays, dataset, shrinkage: float = 1.0) -> "Tree":
@@ -108,6 +121,19 @@ class Tree:
                    internal_value=z_f, internal_count=z_i,
                    internal_weight=z_f)
 
+    @property
+    def num_cat(self) -> int:
+        return len(self.cat_boundaries) - 1
+
+    def missing_type(self, node: int) -> int:
+        return (int(self.decision_type[node]) >> 2) & 3
+
+    def is_categorical(self, node: int) -> bool:
+        return bool(self.decision_type[node] & _CAT_MASK)
+
+    def default_left(self, node: int) -> bool:
+        return bool(self.decision_type[node] & _DEFAULT_LEFT_MASK)
+
     def predict_leaf(self, X: np.ndarray) -> np.ndarray:
         """Leaf index per row for raw feature values (reference:
         Tree::GetLeaf + NumericalDecision, tree.h:447-530)."""
@@ -126,7 +152,8 @@ class Tree:
         return ~node
 
     def _decide(self, fval: np.ndarray, nodes: np.ndarray) -> np.ndarray:
-        """Vectorized NumericalDecision (reference: tree.h:221-260)."""
+        """Vectorized NumericalDecision / CategoricalDecision (reference:
+        tree.h:221-303)."""
         dt = self.decision_type[nodes]
         missing = (dt >> 2) & 3
         default_left = (dt & _DEFAULT_LEFT_MASK).astype(bool)
@@ -136,7 +163,30 @@ class Tree:
         is_zero = np.abs(fv) <= K_ZERO_THRESHOLD
         is_missing = (((missing == MISSING_ZERO) & is_zero)
                       | ((missing == MISSING_NAN) & np.isnan(fv)))
-        return np.where(is_missing, default_left, fv <= thr)
+        numerical = np.where(is_missing, default_left, fv <= thr)
+        is_cat = (dt & _CAT_MASK).astype(bool)
+        if not is_cat.any():
+            return numerical
+        # the raw value, not the NaN-zeroed one: CategoricalDecision casts
+        # NaN and negatives to a negative int and sends them right before
+        # any missing-type handling (tree.h:262-265)
+        return np.where(is_cat, self._cat_decide(fval, nodes, is_cat),
+                        numerical)
+
+    def _cat_decide(self, fval: np.ndarray, nodes: np.ndarray,
+                    is_cat: np.ndarray) -> np.ndarray:
+        """FindInBitset over each categorical node's category set
+        (reference: tree.h:265-303, utils/common.h ConstructBitset); a
+        category past the node's words is not in its set."""
+        iv = np.where(np.isnan(fval) | (fval < 0), -1, fval).astype(np.int64)
+        ci = np.where(is_cat, self.threshold[nodes], 0).astype(np.int64)
+        lo = self.cat_boundaries[ci].astype(np.int64)
+        n_words = self.cat_boundaries[ci + 1].astype(np.int64) - lo
+        word = iv // 32
+        inside = is_cat & (iv >= 0) & (word < n_words)
+        bits = np.zeros(len(fval), np.int64)
+        bits[inside] = self.cat_threshold[(lo + word)[inside]]
+        return inside & (((bits >> (iv % 32)) & 1) == 1)
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         """Raw (margin) predictions for a dense float matrix."""

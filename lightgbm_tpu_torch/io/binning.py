@@ -1,20 +1,22 @@
 """Feature binning: value -> bin mapping (counterpart of
-lightgbm_tpu/io/binning.py, numeric features, numpy path).
+lightgbm_tpu/io/binning.py, numeric features).
 
 The algorithm is the reference's ``BinMapper`` (reference:
 include/LightGBM/bin.h:65-222, src/io/bin.cpp:78-529): greedy near-equal-
 count bin boundaries over a value sample, zero isolated in its own bin,
-and the three missing modes {None, Zero, NaN}.  The port keeps the JAX
-package's numpy path and produces byte-identical bins; the g++ fast path
-(``lightgbm_tpu/native``) and categorical mapping are not ported yet.
+user-forced bounds, and the three missing modes {None, Zero, NaN}.  The
+g++ fast path (``native/``) runs where the JAX package takes its own, and
+the numpy path stays as its fallback; both produce the JAX package's bins
+byte for byte.  Categorical mapping is not ported yet.
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import native as _native
 from ..utils import log
 
 # Values in (-kZeroThreshold, kZeroThreshold] are "zero"
@@ -44,6 +46,9 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray, max_bin: in
     (reference: GreedyFindBin, bin.cpp:78-155).  Returns ascending upper
     bounds; the last is +inf.  The loop runs over Python lists: the same
     arithmetic as the reference package's numpy-scalar loop, faster."""
+    if _native.lib() is not None:
+        return _native.greedy_find_bin(distinct_values, counts, max_bin,
+                                       total_cnt, min_data_in_bin)
     n = len(distinct_values)
     if n == 0:
         return [math.inf]
@@ -132,6 +137,63 @@ def find_bin_with_zero_as_one_bin(distinct_values: np.ndarray, counts: np.ndarra
     return bounds
 
 
+def find_bin_with_predefined_bounds(distinct_values: np.ndarray,
+                                    counts: np.ndarray, max_bin: int,
+                                    total_cnt: int, min_data_in_bin: int,
+                                    forced_bounds: Sequence[float]
+                                    ) -> List[float]:
+    """Forced-bounds variant: the user's bounds are fixed, the remaining
+    bin budget is spread across the gaps in proportion to their sample
+    mass (reference: FindBinWithPredefinedBin, bin.cpp:157-254)."""
+    neg = distinct_values <= -K_ZERO_THRESHOLD
+    pos = distinct_values > K_ZERO_THRESHOLD
+    n_left = int(neg.sum())
+    has_right = bool(pos.any())
+
+    bounds: List[float] = []
+    if max_bin == 2:
+        bounds.append(K_ZERO_THRESHOLD if n_left == 0 else -K_ZERO_THRESHOLD)
+    elif max_bin >= 3:
+        if n_left > 0:
+            bounds.append(-K_ZERO_THRESHOLD)
+        if has_right:
+            bounds.append(K_ZERO_THRESHOLD)
+    bounds.append(math.inf)
+
+    max_to_insert = max_bin - len(bounds)
+    inserted = 0
+    for b in forced_bounds:
+        if inserted >= max_to_insert:
+            break
+        if abs(b) > K_ZERO_THRESHOLD:
+            bounds.append(float(b))
+            inserted += 1
+    bounds.sort()
+
+    free_bins = max_bin - len(bounds)
+    to_add: List[float] = []
+    value_ind = 0
+    n = len(distinct_values)
+    for i, ub in enumerate(bounds):
+        cnt_in_bin = 0
+        bin_start = value_ind
+        while value_ind < n and distinct_values[value_ind] < ub:
+            cnt_in_bin += int(counts[value_ind])
+            value_ind += 1
+        bins_remaining = max_bin - len(bounds) - len(to_add)
+        num_sub_bins = int(round(cnt_in_bin * free_bins / max(total_cnt, 1)))
+        num_sub_bins = min(num_sub_bins, bins_remaining) + 1
+        if i == len(bounds) - 1:
+            num_sub_bins = bins_remaining + 1
+        sub = greedy_find_bin(distinct_values[bin_start:value_ind],
+                              counts[bin_start:value_ind],
+                              num_sub_bins, cnt_in_bin, min_data_in_bin)
+        to_add.extend(sub[:-1])  # the last bound is inf
+    bounds.extend(to_add)
+    bounds.sort()
+    return bounds
+
+
 def _distinct_with_zero(values: np.ndarray, zero_cnt: int):
     """Sorted distinct values + counts, with the implicit zeros inserted at
     their ordered position (reference: BinMapper::FindBin, bin.cpp:353-389).
@@ -145,6 +207,8 @@ def _distinct_with_zero(values: np.ndarray, zero_cnt: int):
     first positive group (even with a zero count, as the loop does), or
     at either end when all values share one sign and zeros exist."""
     values = np.sort(values.astype(np.float64), kind="stable")
+    if _native.lib() is not None:
+        return _native.distinct_with_zero(values, zero_cnt)
     n = len(values)
     if n == 0:
         return np.array([0.0]), np.array([zero_cnt], dtype=np.int64)
@@ -186,9 +250,11 @@ class BinMapper:
     def find_bin(self, values: np.ndarray, total_sample_cnt: int, max_bin: int,
                  min_data_in_bin: int = 3, min_split_data: int = 20,
                  use_missing: bool = True,
-                 zero_as_missing: bool = False) -> None:
+                 zero_as_missing: bool = False,
+                 forced_bounds: Optional[Sequence[float]] = None) -> None:
         """Build the mapping from a value sample. ``values`` excludes zeros;
-        ``total_sample_cnt - len(values)`` are implicit zeros
+        ``total_sample_cnt - len(values)`` are implicit zeros;
+        ``forced_bounds`` are the user's bounds for this feature
         (reference: BinMapper::FindBin, bin.cpp:325)."""
         values = np.asarray(values, dtype=np.float64)
         nan_mask = np.isnan(values)
@@ -212,8 +278,13 @@ class BinMapper:
             eff_max_bin, eff_total = max_bin - 1, total_sample_cnt - na_cnt
         else:
             eff_max_bin, eff_total = max_bin, total_sample_cnt
-        bounds = find_bin_with_zero_as_one_bin(
-            distinct, counts, eff_max_bin, eff_total, min_data_in_bin)
+        if forced_bounds:
+            bounds = find_bin_with_predefined_bounds(
+                distinct, counts, eff_max_bin, eff_total, min_data_in_bin,
+                list(forced_bounds))
+        else:
+            bounds = find_bin_with_zero_as_one_bin(
+                distinct, counts, eff_max_bin, eff_total, min_data_in_bin)
         if self.missing_type == MISSING_ZERO and len(bounds) == 2:
             self.missing_type = MISSING_NONE
         if self.missing_type == MISSING_NAN:
@@ -262,6 +333,11 @@ class BinMapper:
         scalar = np.isscalar(value)
         v = np.atleast_1d(np.asarray(value, dtype=np.float64))
         n_search = self.num_bin - (1 if self.missing_type == MISSING_NAN else 0)
+        if _native.lib() is not None and v.ndim == 1 and len(v) > 1024:
+            res = _native.binarize_numerical(
+                v, self.bin_upper_bound, n_search - 1, self.missing_type,
+                self.num_bin)
+            return int(res[0]) if scalar else res
         nan = np.isnan(v)
         vv = np.where(nan, 0.0, v)
         # first bin i with value <= bin_upper_bound[i]; bounds ascend and
@@ -272,6 +348,41 @@ class BinMapper:
             out = np.where(nan, self.num_bin - 1, out)
         res = out.astype(np.int32)
         return int(res[0]) if scalar else res
+
+    @classmethod
+    def from_thresholds(cls, thresholds, missing_type: int = MISSING_NONE
+                        ) -> "BinMapper":
+        """A numerical mapper built from a forest's split thresholds instead
+        of a data sample (serve/packing.py).
+
+        Traversal only needs every node's decision reproduced: with the
+        sorted distinct thresholds as bin upper bounds, ``value_to_bin(v)
+        <= value_to_bin(thr)`` holds exactly when ``v <= thr`` for every
+        threshold of the set, so bin-space compares equal the host's
+        value-space ones.  Under MISSING_ZERO the zero value gets its own
+        bin (bounds at +-kZeroThreshold, reference: meta.h:53) so only
+        "zero" rows take the default-left route; under MISSING_NAN the
+        trailing NaN bin is appended like ``find_bin``'s."""
+        m = cls()
+        vals = np.unique(np.asarray(thresholds, dtype=np.float64))
+        vals = vals[np.isfinite(vals)]
+        if missing_type == MISSING_ZERO:
+            vals = np.unique(np.concatenate(
+                [vals, [-K_ZERO_THRESHOLD, K_ZERO_THRESHOLD]]))
+        bounds = list(vals) + [math.inf]
+        if missing_type == MISSING_NAN:
+            bounds.append(math.nan)
+        m.bin_upper_bound = np.asarray(bounds, dtype=np.float64)
+        m.num_bin = len(bounds)
+        m.missing_type = int(missing_type)
+        m.bin_type = BIN_NUMERICAL
+        m.is_trivial = False
+        if len(vals):
+            m.min_val, m.max_val = float(vals[0]), float(vals[-1])
+        m.default_bin = int(m.value_to_bin(0.0))
+        m.most_freq_bin = m.default_bin
+        m.sparse_rate = 0.0
+        return m
 
     @classmethod
     def from_dict(cls, d: dict) -> "BinMapper":

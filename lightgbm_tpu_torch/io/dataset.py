@@ -3,18 +3,23 @@ numeric matrices only.
 
 ``X_bin[num_data, num_features]`` uint8 holds the bin of every used
 (non-trivial) feature; it is built on the host exactly as the reference
-package builds it — same row sample, same bin mappers, same bytes.
+package builds it — same row sample, same bin mappers (``max_bin_by_feature``
+and forced bins included), same bytes, through the native binning loop
+where it loads.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import json
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import native as _native
 from ..config import Config
 from ..utils import log
 from ..utils.random import Random
-from .binning import BinMapper
+from ..utils.timetag import timetag
+from .binning import MISSING_NAN, BinMapper
 
 # EFB considers features whose default-bin share reaches this rate
 # (lightgbm_tpu/io/bundling.py find_groups sparse_threshold)
@@ -107,19 +112,31 @@ class BinnedDataset:
         ds.metadata = Metadata(n)
         ds.feature_names = (list(feature_names) if feature_names
                             else [f"Column_{i}" for i in range(p)])
+        forced = _load_forced_bins(config.forcedbins_filename, p,
+                                   config.max_bin)
         # min-data filter threshold scaled to the bin-finding sample
         # (reference: dataset_loader.cpp:599 filter_cnt)
         filter_cnt = int(config.min_data_in_leaf * sample.shape[0] / n)
-        for j in range(p):
-            col = sample[:, j]
-            # drop "zero" values (|v| <= kZeroThreshold); NaN compares
-            # False, so NaNs stay for the missing-type decision
-            non_zero = col[~((col > -1e-35) & (col <= 1e-35))]
-            mapper = BinMapper()
-            mapper.find_bin(non_zero, sample.shape[0], config.max_bin,
-                            config.min_data_in_bin, filter_cnt,
-                            config.use_missing, config.zero_as_missing)
-            ds.bin_mappers.append(mapper)
+        mbf = [int(v) for v in (config.max_bin_by_feature or [])]
+        if mbf:
+            # reference: dataset_loader.cpp:438-441
+            log.check(len(mbf) == p, "max_bin_by_feature should be the "
+                      "same size as feature number")
+            log.check(min(mbf) > 1,
+                      "max_bin_by_feature values should be greater than 1")
+        with timetag("bin finding"):
+            for j in range(p):
+                col = sample[:, j]
+                # drop "zero" values (|v| <= kZeroThreshold); NaN compares
+                # False, so NaNs stay for the missing-type decision
+                non_zero = col[~((col > -1e-35) & (col <= 1e-35))]
+                mapper = BinMapper()
+                mapper.find_bin(non_zero, sample.shape[0],
+                                mbf[j] if mbf else config.max_bin,
+                                config.min_data_in_bin, filter_cnt,
+                                config.use_missing, config.zero_as_missing,
+                                forced.get(j))
+                ds.bin_mappers.append(mapper)
         ds._finalize_features()
         if config.enable_bundle:
             ds._refuse_bundling(sample)
@@ -156,7 +173,41 @@ class BinnedDataset:
                       "enable_bundle=false")
 
     def _binarize(self, data: np.ndarray) -> None:
-        X = np.empty((self.num_data, self.num_features), dtype=np.uint8)
-        for inner, j in enumerate(self.real_feature_idx):
-            X[:, inner] = self.bin_mappers[int(j)].value_to_bin(data[:, int(j)])
+        """Bin every row into ``X_bin`` (reference: dataset.py
+        ``_binarize_chunk``).  With the native library each used column is
+        binned in place, strided, straight into its uint8 column of
+        ``X_bin`` (the reference copies the columns feature-major first;
+        the bytes are the same, without the f64 copy); otherwise
+        ``value_to_bin`` column by column."""
+        used = self.real_feature_idx
+        X = np.empty((self.num_data, len(used)), dtype=np.uint8)
+        fast = _native.lib() is not None
+        with timetag("binarize"):
+            for inner, j in enumerate(used):
+                m = self.bin_mappers[int(j)]
+                if fast:
+                    ns = m.num_bin - (1 if m.missing_type == MISSING_NAN
+                                      else 0)
+                    _native.binarize_numerical_u8(
+                        data[:, int(j)], m.bin_upper_bound, ns - 1,
+                        m.missing_type, m.num_bin, X[:, inner])
+                else:
+                    X[:, inner] = m.value_to_bin(data[:, int(j)])
         self.X_bin = X
+
+
+def _load_forced_bins(path: str, num_features: int,
+                      max_bin: int) -> Dict[int, List[float]]:
+    """Forced bin bounds from JSON: ``[{"feature": i, "bin_upper_bound":
+    [...]}]`` (reference: DatasetLoader::GetForcedBins,
+    dataset_loader.cpp:1246)."""
+    if not path:
+        return {}
+    with open(path) as fh:
+        entries = json.load(fh)
+    out: Dict[int, List[float]] = {}
+    for e in entries:
+        j = int(e["feature"])
+        if 0 <= j < num_features:
+            out[j] = sorted(float(x) for x in e["bin_upper_bound"])[:max_bin]
+    return out

@@ -34,6 +34,10 @@ class Objective:
     def class_need_train(self, class_id: int) -> bool:
         return True
 
+    def to_model_string(self) -> str:
+        """The model text's ``objective=`` value."""
+        return self.name
+
     def convert_output(self, raw: np.ndarray) -> np.ndarray:
         """Raw margin -> user-space prediction."""
         return raw

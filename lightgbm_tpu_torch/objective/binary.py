@@ -67,5 +67,8 @@ class BinaryLogloss(Objective):
     def class_need_train(self, class_id: int) -> bool:
         return self.need_train
 
+    def to_model_string(self) -> str:
+        return f"binary sigmoid:{self.sigmoid:g}"
+
     def convert_output(self, raw):
         return 1.0 / (1.0 + np.exp(-self.sigmoid * np.asarray(raw)))

@@ -33,6 +33,11 @@ def set_verbosity(verbosity: int) -> None:
         _level = DEBUG
 
 
+def verbosity() -> int:
+    """The current level as a ``verbosity`` value (-1, 0, 1 or 2)."""
+    return _level
+
+
 class LightGBMError(Exception):
     """Raised on fatal errors (the rebuild's analog of Log::Fatal)."""
 
@@ -59,6 +64,13 @@ def fatal(msg: str, *args) -> None:
 def _emit(tag: str, msg: str) -> None:
     sys.stderr.write(f"[LightGBM-Torch] [{tag}] {msg}\n")
     sys.stderr.flush()
+
+
+def refuse(what: str, item: str) -> None:
+    """Raise for something the port does not do yet, naming the ROADMAP.md
+    port-queue item that brings it."""
+    fatal(f"{what} is not in the PyTorch port yet (ROADMAP.md port queue: "
+          f"{item})")
 
 
 def check(cond: bool, msg: str = "check failed") -> None:

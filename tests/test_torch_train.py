@@ -137,7 +137,7 @@ def test_convert_round_trips(trained):
     {"boosting": "goss"},
     {"boosting": "dart"}, {"tree_learner": "data"},
     {"feature_fraction_bynode": 0.5}, {"tpu_wave_overlap": True},
-    {"max_bin_by_feature": [15] * 10},
+    {"tpu_batched_split_apply": False},
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"}, {"cegb_penalty_split": 0.1},
     {"categorical_feature": "0"}, {"forcedsplits_filename": "f.json"}])
