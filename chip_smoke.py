@@ -21,8 +21,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      main shape on skewed bins (half the features take 2 bins, the rest
      put 90% of their rows in one): packed at 63 leaves and at 1 (a root
      wave), triple at 42.  Float modes: counts exact and g/h within the
-     f32 bound below; int modes: ``torch.equal``.  Then int16 fused at the
-     main shape on the same skewed bins: packed at 63 leaves and at 1;
+     f32 bound below, and a second launch on the same inputs bit-equal to
+     the first (the fixed-point sums); int modes: ``torch.equal``.  Then
+     int16 fused at the main shape on the same skewed bins: packed at 63
+     leaves and at 1; then the layouts of this slice's paths: packed
+     unfused at the bundled phase's 34 physical columns, triple unfused at
+     the mixed phase's narrow group, packed fused on GOSS-sparse rows
+     (30% of the rows carry weight);
    - K2 (``ops/hist_channels.hist_channels``) at 1,000,000 x 28 x 256 with
      C=128, on uniform and on skewed bins (90% of every feature's rows in
      one bin), and at 3,001 x 5 x 64 with C=256, within the f32 bound, and
@@ -36,8 +41,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    numpy path, which must give the same bytes (both timed); then
    ``lightgbm_tpu_torch.train`` on it, 5 rounds, 255 leaves; K1 must have
    launched at least once per wave; train logloss must fall every round
-   and AUC exceed 0.7; one more iteration under torch.profiler gives the
-   device's busy time by kernel and its idle share;
+   and AUC exceed 0.7; the same training once more must print the same
+   model digest (K1's float sums are repeatable); one more iteration
+   under torch.profiler gives the device's busy time by kernel and its
+   idle share;
 5. quantized main path (bench.py's BENCH_QUANT=int16 leg): the same data
    and Dataset, ``tpu_hist_dtype=int16``, 5 rounds; K1 at least once per
    wave, logloss falling every round, final train AUC within 1e-3 of
@@ -48,7 +55,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``hist_channels_fm`` builds the root histogram of the same inputs,
    whose per-feature sums must be the totals;
 7. int8 with ``bagging_fraction=0.8, bagging_freq=1``, 5 rounds: K1 at
-   least once per wave, final train AUC within 1e-2 of phase 4's;
+   least once per wave, final train AUC within 1e-2 of phase 4's; then
+   GOSS on the same Dataset (``boosting=goss``, top_rate 0.2, other_rate
+   0.1, learning_rate 0.1), 14 rounds so that iterations 10-13 sample:
+   s/iter unsampled and sampled, the kept share of each sampled
+   iteration (0.30 within 6 binomial standard deviations), the sample
+   mask on the card, logloss falling every round;
 8. predict: phase 4's booster (5 trees, 255 leaves) predicts all
    1,000,000 rows, which takes the device forest walk (5,000,000 rows x
    trees, above the 2,000,000 threshold; its call count must rise), held
@@ -63,11 +75,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    trees of 255 leaves with ``python -m lightgbm_tpu_torch task=train`` on
    the card and predicts with ``task=predict``, both as subprocesses that
    must exit 0; the output must equal ``Booster(model_file=...).predict``
-   at 1e-10.
+   at 1e-10;
+10. categorical + EFB: 1,000,000 rows of the headline columns, 4
+   Zipf-skewed categorical columns (8, 32, 100, 250 categories) and 32
+   mutually exclusive sparse count columns (each row non-zero in one), 5
+   rounds of 255 leaves with those 4 declared categorical: at most 36
+   physical columns, K1's unfused packed layout launched, train AUC >
+   0.7, the profiled iteration, device predict of the 1,000,000 rows
+   within 1e-4 of the host walk on the first 20,000 with equal leaves;
+11. mixed width: the same data and one 1,000-category column with
+   ``max_bin_by_feature`` 1023 (255 elsewhere), 5 rounds, trained twice:
+   both the narrow (K1, triple) and the wide (side-pass) group non-empty,
+   K1's triple layout and the side-pass launched, equal model digests;
+   the side-pass's time per wave by CUDA events.
 
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
-its launches in all and by layout.  Each training phase prints a digest
+its launches in all, by layout and by sibling form (fused or not).  Each training phase prints a digest
 of its model text (equal digests, equal trees).  Prints a
 ``{"kernels": [...]}`` line (``launches`` from each kernel's path,
 ``training_path_launches`` over the three training phases,
@@ -218,14 +242,15 @@ def flat(x):
 
 
 def wave_inputs(N, F, B, leaves, fused, mode, packed, seed, leaf_hi=None,
-                skew=False):
+                skew=False, keep=None):
     """Random K1 inputs as the wave grower forms them: bins over [0, B),
     g/h/count vectors (stochastic-rounded integers under a bag mask in the
     int modes), leaf ids over 2*leaves ids drawn from [0, leaf_hi) of which
     the first half are pending, the layout's slot map and, fused, a parent
     histogram in that layout.  ``skew``: the first half of the features
     take two bins (0 and B-1), the rest put 90% of their rows in one bin
-    and spread the others over [0, B)."""
+    and spread the others over [0, B).  ``keep``: the share of rows that
+    carry weight, the rest masked out as GOSS masks them (float modes)."""
     import torch
     from lightgbm_tpu_torch.ops.quant import QUANT_MODES, QUANT_QMAX
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -250,6 +275,9 @@ def wave_inputs(N, F, B, leaves, fused, mode, packed, seed, leaf_hi=None,
         cv = torch.ones(N, device=dev)
         gv = torch.randn(N, generator=g, device=dev)
         hv = torch.rand(N, generator=g, device=dev) * 0.25
+        if keep is not None:
+            cv = (torch.rand(N, generator=g, device=dev) < keep).float()
+            gv, hv = gv * cv * 8.0, hv * cv * 8.0
     ids = torch.randperm(leaf_hi or 2 * leaves, generator=g,
                          device=dev)[:2 * leaves]
     leaf = ids[torch.randint(0, 2 * leaves, (N,), generator=g, device=dev)]
@@ -269,14 +297,15 @@ def wave_inputs(N, F, B, leaves, fused, mode, packed, seed, leaf_hi=None,
 
 
 def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
-                 leaf_hi=None, skew=False):
-    """K1 against its plain version on one shape; returns the numbers of
-    the kernels line."""
+                 leaf_hi=None, skew=False, keep=None):
+    """K1 against its plain version on one shape, and in the float modes a
+    second launch bit-equal to the first; returns the numbers of the
+    kernels line."""
     import torch
     from lightgbm_tpu_torch.ops.quant import QUANT_MODES
     quant = mode in QUANT_MODES
     bins, gv, hv, cv, leaf, slot, parent = wave_inputs(
-        N, F, B, leaves, fused, mode, packed, seed, leaf_hi, skew)
+        N, F, B, leaves, fused, mode, packed, seed, leaf_hi, skew, keep)
     args = (bins, gv, hv, cv, leaf, slot, B)
     kw = dict(highest=mode, packed=packed, parent=parent)
     got = flat(hw.hist_wave(*args, **kw, num_slots=leaves))
@@ -284,8 +313,14 @@ def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
     torch.cuda.synchronize()
     tag = (f"K1 {mode} {'packed' if packed else 'triple'} "
            f"{'fused' if fused else 'unfused'} N={N} F={F} B={B}"
-           f"{f' S={leaves} skewed bins' if skew else ''}")
+           f"{f' S={leaves} skewed bins' if skew else ''}"
+           f"{f' {keep:.0%} rows kept' if keep else ''}")
     max_err = 0.0
+    if not quant:
+        again = flat(hw.hist_wave(*args, **kw, num_slots=leaves))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: two launches on the same inputs "
+                                 "differ")
     if quant:
         for g_t, w_t in zip(got, want):
             if not torch.equal(g_t, w_t):
@@ -466,32 +501,43 @@ def profile_iteration(bst, iter_ms, kind, card):
 
 
 def reset_counts(hw, hc):
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count to 0, and the side-pass's calls."""
+    from lightgbm_tpu_torch.core.histogram import hist_wave_side
     hw.hist_wave.launches = 0
     hw.hist_wave.layout_launches.update(packed=0, triple=0)
+    hw.hist_wave.sibling_launches.update(fused=0, unfused=0)
     hc.hist_channels.launches = 0
+    hist_wave_side.calls = 0
 
 
 def read_counts(hw, hc) -> dict:
-    """Every kernel's launch count: K1 in all, K1 by layout, K2."""
+    """Every kernel's launch count: K1 in all, by layout and by sibling
+    form, K2; and the side-pass's calls."""
+    from lightgbm_tpu_torch.core.histogram import hist_wave_side
     return {"k1": hw.hist_wave.launches,
             "k1_packed": hw.hist_wave.layout_launches["packed"],
             "k1_triple": hw.hist_wave.layout_launches["triple"],
-            "k2": hc.hist_channels.launches}
+            "k1_fused": hw.hist_wave.sibling_launches["fused"],
+            "k1_unfused": hw.hist_wave.sibling_launches["unfused"],
+            "k2": hc.hist_channels.launches,
+            "side_pass": hist_wave_side.calls}
 
 
-def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5):
+def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
+                callbacks=None, layout="k1_packed"):
     """One training phase on the card with every launch count set to 0
-    just before and read just after; checks one packed K1 launch or more
-    per wave.  Returns (booster, counts, logloss, AUC, median ms/iter)."""
+    just before and read just after; checks one K1 launch of ``layout``
+    or more per wave.  Returns (booster, counts, logloss, AUC, median
+    ms/iter)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     reset_counts(hw, hc)
     ev = {}
     bst = lt.train(params, ds, num_boost_round=rounds, valid_sets=[ds],
-                   valid_names=["train"], evals_result=ev, device=DEV)
+                   valid_names=["train"], evals_result=ev, device=DEV,
+                   callbacks=callbacks)
     counts = read_counts(hw, hc)
-    launches = counts["k1_packed"]
+    launches = counts[layout]
     gb = bst._gbdt
     waves = [w for w, _ in gb.wave_stats]
     rows = [r for _, r in gb.wave_stats]
@@ -513,6 +559,187 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5):
     print(f"{name}: train logloss {loss}, auc {auc}; model digest "
           f"{model_digest(bst)}", flush=True)
     return bst, counts, loss, auc, float(np.median(per_iter)) * 1e3
+
+
+def goss_phase(lt, hw, hc, params, ds, kind, card):
+    """GOSS on the main path's Dataset, 14 rounds: iterations 10-13 sample
+    (learning_rate 0.1).  The kept share of each sampled iteration is read
+    from the sample mask, which must lie on the card; it must be within 6
+    binomial standard deviations of (top_k + other_k) / N.  Returns the
+    phase's counts."""
+    import torch
+    N = ds.num_data()
+    top_k, other_k = int(N * 0.2), int(N * 0.1)
+    shares, devices = [], set()
+
+    def record(env):
+        mask = env.model._gbdt._bag_mask
+        devices.add(mask.device.type)
+        shares.append(float(mask.mean()))
+    rounds = 14
+    bst, counts, loss, _, _ = train_phase(
+        lt, hw, hc, "GOSS path", {**params, "boosting": "goss",
+                                  "top_rate": 0.2, "other_rate": 0.1},
+        ds, kind, card, rounds=rounds, callbacks=[record])
+    gb = bst._gbdt
+    unsampled, sampled = gb.iter_seconds[1:10], gb.iter_seconds[10:]
+    p = other_k / (N - top_k)
+    lim = 6 * math.sqrt((N - top_k) * p * (1 - p)) / N
+    want = (top_k + other_k) / N
+    print(f"GOSS path: s/iter unsampled (iterations 1-9) {unsampled} (median "
+          f"{float(np.median(unsampled)):.4f}), sampled (10-13) {sampled} "
+          f"(median {float(np.median(sampled)):.4f}); kept share per "
+          f"iteration {shares}; expected {want:.4f} +- {lim:.4f}; sample mask "
+          f"on {sorted(devices)} [{kind}, {card}]", flush=True)
+    if devices != {DEV}:
+        raise AssertionError(f"GOSS sample mask on {devices}, not {DEV}")
+    if any(s != 1.0 for s in shares[:10]) or not all(
+            abs(s - want) <= lim for s in shares[10:]):
+        raise AssertionError(f"GOSS kept shares {shares}")
+    if not all(b < a for a, b in zip(loss, loss[1:])):
+        raise AssertionError(f"GOSS train logloss did not fall: {loss}")
+    return counts
+
+
+CAT_CARDINALITY = (8, 32, 100, 250)
+SPARSE_BLOCK = 32
+
+
+def cat_efb_data(rows: int, seed: int = 0, wide: bool = False):
+    """The headline 28 columns, 4 Zipf-skewed categorical columns
+    (CAT_CARDINALITY categories, p(k) ~ 1/(k+1)^1.1) and a block of
+    SPARSE_BLOCK mutually exclusive count columns (each row non-zero,
+    1-7, in exactly one, chosen uniformly); with ``wide`` one more
+    categorical of 1,000 uniform categories.  The label depends on all
+    of them.  Returns (X, y, categorical column indices)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, 28))
+    w = rng.normal(size=8)
+    logit = X[:, :8] @ w + 0.5 * X[:, 0] * X[:, 1]
+    cols, cats = [X], []
+    for k in CAT_CARDINALITY:
+        p = 1.0 / np.arange(1, k + 1) ** 1.1
+        c = rng.choice(k, size=rows, p=p / p.sum())
+        logit += rng.normal(size=k)[c] * 0.8
+        cats.append(len(cats) + 28)
+        cols.append(c[:, None].astype(np.float64))
+    which = rng.integers(0, SPARSE_BLOCK, size=rows)
+    val = rng.integers(1, 8, size=rows)
+    sparse = np.zeros((rows, SPARSE_BLOCK))
+    sparse[np.arange(rows), which] = val
+    logit += 0.3 * (which % 3 - 1) * val / 4.0
+    cols.append(sparse)
+    if wide:
+        c = rng.integers(0, 1000, size=rows)
+        logit += rng.normal(size=1000)[c] * 0.5
+        cats.append(28 + len(CAT_CARDINALITY) + SPARSE_BLOCK)
+        cols.append(c[:, None].astype(np.float64))
+    y = (logit + rng.logistic(size=rows) > 0).astype(np.float64)
+    return np.column_stack(cols), y, cats
+
+
+def cat_efb_phase(lt, hw, hc, params, kind, card):
+    """Categorical features and EFB bundles at 1,000,000 rows: the
+    bundled wave (K1 unfused on physical columns), categorical splits,
+    the profiled iteration, and device prediction against the host walk.
+    Returns the phase's counts."""
+    from lightgbm_tpu_torch.core import forest
+    X, y, cats = cat_efb_data(MAIN_ROWS)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, categorical_feature=cats).construct()
+    bin_s = time.perf_counter() - t0
+    h = ds._handle
+    print(f"categorical + EFB data ({MAIN_ROWS:,} x {X.shape[1]}): binned in "
+          f"{bin_s:.2f} s; {h.num_features} features in "
+          f"{h.num_phys_features} physical columns, bundles "
+          f"{[g for g in h.bundle.groups if len(g) > 1]} [{card}]",
+          flush=True)
+    if h.bundle is None or h.num_phys_features > 28 + 4 + 4:
+        raise AssertionError(f"EFB gave {h.num_phys_features} physical "
+                             "columns, expected at most 36")
+    bst, counts, loss, auc, iter_ms = train_phase(
+        lt, hw, hc, "categorical + EFB path", params, ds, kind, card,
+        layout="k1_unfused")
+    if counts["k1_fused"] or counts["k1_triple"]:
+        raise AssertionError(f"bundled path launched {counts}")
+    n_cat = sum(t.num_cat for t in bst._gbdt.models)
+    print(f"categorical + EFB path: {n_cat} category-set nodes in "
+          f"{len(bst._gbdt.models)} trees [{kind}, {card}]", flush=True)
+    if n_cat == 0 or auc[-1] <= 0.7:
+        raise AssertionError(f"categorical splits {n_cat}, AUC {auc[-1]}")
+    profile_iteration(bst, iter_ms, kind, card)
+    n = PREDICT_CHECK_ROWS
+    host = bst.predict(X[:n], raw_score=True)
+    host_leaf = bst.predict(X[:n], pred_leaf=True)
+    before = dict(forest.calls)
+    raw, raw_ms = timed(lambda: bst.predict(X, raw_score=True))
+    leaf = bst.predict(X, pred_leaf=True)
+    ran = {k: forest.calls[k] - before[k] for k in before}
+    err = float(np.abs(raw[:n] - host).max())
+    leaf_ok = np.array_equal(leaf[:n], host_leaf)
+    print(f"categorical + EFB predict ({MAIN_ROWS:,} rows, "
+          f"{bst._gbdt.num_trees} trees): {raw_ms:.2f} ms, device forest "
+          f"calls {ran}; max |raw - host| {err:.3g} (tol 1e-4), leaves equal "
+          f"{leaf_ok} [{kind}, {card}]", flush=True)
+    if ran != {"predict": 1, "leaf": 1} or err > 1e-4 or not leaf_ok:
+        raise AssertionError("categorical + EFB device predict disagrees "
+                             "with the host walk")
+    return counts
+
+
+def mixed_phase(lt, hw, hc, params, kind, card):
+    """The categorical + EFB data with one 1,000-category column of up to
+    1,023 bins: K1's triple layout on the narrow group, the side-pass on
+    the wide one; trained twice on one Dataset, equal digests.  Returns
+    the first run's counts and the side-pass's per-wave times."""
+    import torch
+    from lightgbm_tpu_torch.core.histogram import hist_wave_side
+    X, y, cats = cat_efb_data(MAIN_ROWS, seed=1, wide=True)
+    mbf = [255] * X.shape[1]
+    mbf[cats[-1]] = 1023
+    mparams = {**params, "max_bin_by_feature": mbf}
+    ds = lt.Dataset(X, label=y, categorical_feature=cats,
+                    params=mparams).construct()
+    runs = []
+    for i in range(2):
+        bst, counts, _, _, _ = train_phase(
+            lt, hw, hc, f"mixed-width path (run {i + 1})", mparams, ds,
+            kind, card, layout="k1_triple")
+        runs.append((bst, counts, model_digest(bst)))
+    gb = runs[0][0]._gbdt
+    mixed = gb._wave_mixed
+    if mixed is None or not (len(mixed.narrow_idx) and len(mixed.wide_idx)):
+        raise AssertionError(f"mixed-width split {mixed}")
+    counts = runs[0][1]
+    if counts["k1_packed"] or counts["side_pass"] < counts["k1_triple"]:
+        raise AssertionError(f"mixed path launched {counts}")
+    # the side-pass at the root wave's shape and at a 42-slot wave
+    wide = gb._bins_fm[1].t().contiguous()
+    g = torch.randn(MAIN_ROWS, device=DEV)
+    ones = torch.ones(MAIN_ROWS, device=DEV)
+    slot = torch.full((128,), -1, dtype=torch.int32, device=DEV)
+    slot[:3] = 0
+    leaf0 = torch.zeros(MAIN_ROWS, dtype=torch.int32, device=DEV)
+    root_ms = cuda_ms(lambda: hist_wave_side(wide, g, ones, ones, leaf0,
+                                             slot, gb.B_phys, lanes=3),
+                      reps=5)
+    n42 = MAIN_ROWS // 4
+    leaf = torch.randint(0, 84, (n42,), device=DEV, dtype=torch.int32)
+    slot42 = torch.full((128,), -1, dtype=torch.int32, device=DEV)
+    slot42[:126] = torch.arange(42, device=DEV,
+                                dtype=torch.int32).repeat_interleave(3)
+    ms42 = cuda_ms(lambda: hist_wave_side(wide[:n42], g[:n42], ones[:n42],
+                                          ones[:n42], leaf, slot42, gb.B_phys,
+                                          lanes=126), reps=5)
+    print(f"mixed-width path: {len(mixed.narrow_idx)} narrow columns on K1 "
+          f"(B_narrow {mixed.B_narrow}, triple), {len(mixed.wide_idx)} wide "
+          f"on the side-pass (B_phys {gb.B_phys}); side-pass per wave "
+          f"{root_ms:.3f} ms at the root ({MAIN_ROWS:,} rows, 1 slot), "
+          f"{ms42:.3f} ms at {n42:,} rows x 42 slots; digests "
+          f"{runs[0][2]} / {runs[1][2]} [{kind}, {card}]", flush=True)
+    if runs[0][2] != runs[1][2]:
+        raise AssertionError("the mixed-width digests differ between runs")
+    return counts
 
 
 def model_digest(bst) -> str:
@@ -808,14 +1035,22 @@ def main() -> int:
         ("k1_skew_one_slot", M, 1, True, "2xbf16", True, None, True),
         ("k1_int16_skew", M, 63, True, "int16", True, None, True),
         ("k1_int16_skew_one_slot", M, 1, True, "int16", True, None, True),
+        # this slice's paths: the bundled columns (unfused), the mixed
+        # width's narrow group (triple, unfused), GOSS-sparse rows
+        ("k1_bundled", (MAIN_ROWS, 34, 256), 63, False, "2xbf16", True,
+         None, False, None),
+        ("k1_triple_narrow", (MAIN_ROWS, 34, 256), 42, False, "2xbf16",
+         False, None, False, None),
+        ("k1_goss", M, 63, True, "2xbf16", True, None, False, 0.3),
     ]
     res = {}
-    for i, (key, (N, F, B), leaves, fused, mode, packed, hi, *skew) in \
+    for i, (key, (N, F, B), leaves, fused, mode, packed, hi, *extra) in \
             enumerate(k1_cases):
         n0 = hw.hist_wave.launches
+        skew, keep = (list(extra) + [False, None])[:2]
         tag, res[key] = check_kernel(hw, N, F, B, leaves, fused, mode, i,
                                      packed=packed, leaf_hi=hi,
-                                     skew=bool(skew))
+                                     skew=bool(skew), keep=keep)
         res[key].update(tag=tag, check_launches=hw.hist_wave.launches - n0)
     for i, (key, (N, F, B), C, *skew) in enumerate((
             ("k2", M, 128), ("k2_ragged", R, 256),
@@ -847,6 +1082,14 @@ def main() -> int:
         raise AssertionError(f"train logloss did not fall: {loss}")
     if auc[-1] <= 0.7:
         raise AssertionError(f"train AUC {auc[-1]} <= 0.7")
+    digest = model_digest(bst)
+    again = train_phase(lt, hw, hc, "main path (repeat)", params, ds, kind,
+                        card)[0]
+    print(f"main path repeat: model digests {digest} / {model_digest(again)}"
+          f" [{kind}, {card}]", flush=True)
+    if model_digest(again) != digest:
+        raise AssertionError("two 2xbf16 trainings on one Dataset differ")
+    del again
     _, k1_f_ms, _ = profile_iteration(bst, iter_ms, kind, card)
 
     # ---- 5. quantized main path (int16) ----------------------------------
@@ -876,6 +1119,7 @@ def main() -> int:
     if abs(auc8[-1] - auc[-1]) > 1e-2:
         raise AssertionError(f"int8 bagged train AUC {auc8[-1]} is not "
                              f"within 1e-2 of 2xbf16's {auc[-1]}")
+    counts_goss = goss_phase(lt, hw, hc, params, ds, kind, card)
 
     # ---- 8. predict and model text ----------------------------------------
     text = bst.model_to_string()
@@ -886,6 +1130,10 @@ def main() -> int:
 
     # ---- 9. CLI ----------------------------------------------------------
     cli_phase(lt, kind, card)
+
+    # ---- 10. categorical + EFB; 11. mixed width ---------------------------
+    counts_cat = cat_efb_phase(lt, hw, hc, params, kind, card)
+    counts_mixed = mixed_phase(lt, hw, hc, params, kind, card)
 
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);
@@ -929,6 +1177,13 @@ def main() -> int:
                                            "k1_triple_skew"],
               training_path_launches=on_trainer("k1_triple"),
               skewed=skewed("k1_triple_skew")),
+        entry("hist_wave unfused packed (K1, EFB bundles)", "k1_bundled",
+              k1_src, k1_at, counts_cat["k1_unfused"], ["k1_bundled"]),
+        entry("hist_wave triple unfused (K1, mixed width)",
+              "k1_triple_narrow", k1_src, k1_at, counts_mixed["k1_triple"],
+              ["k1_triple_narrow"]),
+        entry("hist_wave packed fused (K1, GOSS)", "k1_goss", k1_src, k1_at,
+              counts_goss["k1_packed"], ["k1_goss"]),
         entry("hist_channels (K2)", "k2",
               "lightgbm_tpu_torch/csrc/hist_channels.cu",
               "lightgbm_tpu/ops/pallas_hist.py:199", counts_k2["k2"],

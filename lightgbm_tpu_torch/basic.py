@@ -10,12 +10,24 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .boosting.gbdt import GBDT
+from .boosting import create_boosting
 from .config import Config
 from .io.dataset import BinnedDataset
 from .metric import create_metrics
 from .objective import create_objective
 from .utils.log import LightGBMError, refuse
+
+
+def parse_categorical_spec(spec: str) -> list:
+    """A ``categorical_feature`` string (``0,1,3`` or ``name:a,b``) as
+    indices and names (reference package: app.py
+    ``_resolve_cli_categoricals``)."""
+    cats = []
+    for tok in str(spec or "").replace("name:", "").split(","):
+        tok = tok.strip()
+        if tok:
+            cats.append(int(tok) if tok.isdigit() else tok)
+    return cats
 
 
 def resolve_device(device) -> torch.device:
@@ -32,7 +44,9 @@ def resolve_device(device) -> torch.device:
 
 class Dataset:
     """Training/validation data with lazy binning (reference:
-    basic.py:712-1664): dense numeric matrices and labels."""
+    basic.py:712-1664): dense matrices, labels, and categorical columns
+    by index or name (``categorical_feature``, or the parameter of that
+    name)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -43,8 +57,7 @@ class Dataset:
                           (init_score, "init scores")):
             if arg is not None:
                 refuse(item, "the rest of queue 1")
-        if categorical_feature not in ("auto", None, [], ()):
-            refuse("categorical features", "categorical/EFB/mixed width")
+        self.categorical_feature = categorical_feature
         self.data = data
         self.label = label
         self.reference = reference
@@ -67,13 +80,35 @@ class Dataset:
         ref = (self.reference.construct()._handle
                if self.reference is not None else None)
         self._handle = BinnedDataset.from_matrix(
-            mat, Config.from_params(self.params), feature_names=names,
-            reference=ref)
+            mat, Config.from_params(self.params),
+            categorical_features=self._resolve_categorical(
+                names or [f"Column_{i}" for i in range(mat.shape[1])]),
+            feature_names=names, reference=ref)
         if self.label is not None:
             self._handle.metadata.set_label(self.label)
         if self.free_raw_data:
             self.data = None
         return self
+
+    def _resolve_categorical(self, names: List[str]) -> List[int]:
+        """Column indices of the categorical features (reference package:
+        basic.py ``_resolve_categorical``): the argument, else the
+        ``categorical_feature`` parameter; entries are indices or names,
+        and a string is a comma-separated spec (``name:`` prefix
+        allowed)."""
+        cats = self.categorical_feature
+        if cats == "auto" or cats is None:
+            cats = self.params.get("categorical_feature", [])
+        if isinstance(cats, str):
+            cats = parse_categorical_spec(cats)
+        out = []
+        for c in cats or []:
+            if isinstance(c, str):
+                if c in names:
+                    out.append(names.index(c))
+            else:
+                out.append(int(c))
+        return sorted(set(out))
 
     def num_data(self) -> int:
         return self.construct()._handle.num_data
@@ -105,7 +140,7 @@ class Booster:
             train_set.params = {**train_set.params, **self.params}
             train_set.construct()
             self.train_set = train_set
-            self._gbdt = GBDT()
+            self._gbdt = create_boosting(self.config)
             self._gbdt.init(self.config, train_set._handle,
                             create_objective(self.config),
                             create_metrics(self.config), self.device)

@@ -20,10 +20,13 @@ import numpy as np
 import torch
 
 from ..core.forest import forest_leaf_fn, forest_predict_fn, stack_forest
-from ..core.meta import SplitConfig, build_device_meta
+from ..core.meta import (SplitConfig, _padded_bin_width, build_device_meta,
+                         padded_phys_width)
 from ..core.predict import predict_leaf_bins
+from ..core.splitter import bitset_words
 from ..core.tree import Tree, tree_depth
-from ..core.wave_grower import build_wave_grow_fn
+from ..core.wave_grower import MixedWidth, build_wave_grow_fn
+from ..io.binning import BIN_CATEGORICAL
 from ..utils import log
 from ..utils.timetag import sync, timetag
 
@@ -104,7 +107,8 @@ class PredictorBase:
             return None
         if self.num_tpi > 1:
             kind = "multiclass"
-        elif self.objective is not None and self.objective.name == "binary":
+        elif self.objective is not None and self.objective.name in (
+                "binary", "cross_entropy", "cross_entropy_lambda"):
             kind = "binary"
         else:
             return None
@@ -116,6 +120,8 @@ class PredictorBase:
                 start_iteration: int = 0, config=None) -> np.ndarray:
         """Predictions; ``config`` (default ``self.config``) supplies the
         prediction early-stop parameters."""
+        if not raw_score and getattr(self, "objective_error", None):
+            log.fatal(self.objective_error)
         raw = self.predict_raw(X, num_iteration, start_iteration,
                                early_stop=self._early_stop_spec(
                                    config if config is not None
@@ -158,7 +164,8 @@ class PredictorBase:
                 [arrays_np(t) for t in trees],
                 np.asarray([k for _ in range(start, stop) for k in range(K)],
                            np.int32), self.device,
-                min_words=1 if space is None else space.min_words)
+                min_words=(bitset_words(self.B) + 1 if space is None
+                           else space.min_words))
             self._forest_cache = (space, self.meta if space is None
                                   else space.meta, forest)
             self._forest_key = key
@@ -171,11 +178,29 @@ class PredictorBase:
             return torch.from_numpy(bins).to(self.device)
 
     def _bin_for_predict(self, X: np.ndarray) -> np.ndarray:
-        """Bin raw rows with the training mappers: uint8 [N, F_used], the
-        bytes ``X_bin`` would hold for them."""
-        from ..io.dataset import BinnedDataset
-        return BinnedDataset.from_matrix(X, self.config,
-                                         reference=self.train_ds).X_bin
+        """Bin raw rows with the training mappers, per used feature
+        (reference package: gbdt.py ``_bin_for_predict``).  Numerical
+        features take the training mappers verbatim; categorical ones the
+        strict predict mapping, which sends NaN, negative and unseen
+        categories to a sentinel bin one word past the trees' bitsets, so
+        they route right.  For an unbundled uint8 dataset without
+        categorical features the bytes are those ``X_bin`` would hold;
+        otherwise int32 (the walk gathers no uint16)."""
+        ds = self.train_ds
+        mappers = [ds.inner_to_mapper(i) for i in range(ds.num_features)]
+        if ds.bundle is None and ds.X_bin.dtype == np.uint8 and not any(
+                m.bin_type == BIN_CATEGORICAL for m in mappers):
+            from ..io.dataset import BinnedDataset
+            return BinnedDataset.from_matrix(X, self.config,
+                                             reference=ds).X_bin
+        out = np.empty((X.shape[0], ds.num_features), np.int32)
+        sentinel = bitset_words(self.B) * 32
+        for inner, m in enumerate(mappers):
+            col = X[:, int(ds.real_feature_idx[inner])]
+            out[:, inner] = (m.value_to_bin_predict(col, sentinel)
+                             if m.bin_type == BIN_CATEGORICAL
+                             else m.value_to_bin(col))
+        return out
 
     def _predict_raw_device(self, X: np.ndarray, start: int, stop: int,
                             early_stop: Optional[dict] = None) -> np.ndarray:
@@ -265,16 +290,13 @@ class GBDT(PredictorBase):
         for m in self.metrics:
             m.init(train_ds.metadata, N)
         self.meta, self.B = build_device_meta(train_ds, config, self.device)
+        self.B_phys = padded_phys_width(train_ds)
+        self._bundled = train_ds.bundle is not None
+        self._has_cat = any(
+            train_ds.inner_to_mapper(i).bin_type == BIN_CATEGORICAL
+            for i in range(train_ds.num_features))
         self.split_cfg = SplitConfig.from_config(config)
-        self._bins_fm = torch.as_tensor(
-            np.ascontiguousarray(train_ds.X_bin.T)).to(self.device)
-        self._grow = build_wave_grow_fn(
-            self.meta, self.split_cfg, self.B,
-            wave_capacity=int(config.tpu_wave_capacity),
-            highest=config.hist_mode(),
-            gain_gate=float(config.tpu_wave_gain_gate),
-            fused_sibling=bool(config.tpu_fused_sibling),
-            quant_seed=int(config.seed))
+        self._init_grower(config, train_ds)
         self._train_score = torch.zeros(N, dtype=torch.float32,
                                         device=self.device)
         self._bag_mask = torch.ones(N, dtype=torch.float32, device=self.device)
@@ -282,6 +304,59 @@ class GBDT(PredictorBase):
         self._rng = np.random.default_rng(config.bagging_seed)
         self._feat_rng = np.random.default_rng(config.feature_fraction_seed)
         self.class_need_train = objective.class_need_train(0)
+
+    def _init_grower(self, config, train_ds) -> None:
+        """The wave grower and its device bins (reference package: gbdt.py
+        ``_init_grower``'s wave branch).  Physical columns of more than
+        256 bins make the dataset mixed-width: the narrow ones go to K1 as
+        uint8, the wide ones to the side-pass as int32.  Quantized modes
+        with bundles or mixed widths fall back to 2xbf16, as in the
+        reference."""
+        X = train_ds.X_bin
+        mixed = None
+        if X.dtype != np.uint8 or self.B_phys > 256:
+            phys_bins = np.asarray(train_ds.phys_max_bins())
+            wide = phys_bins > 256
+            if not (~wide).any():
+                log.refuse("a dataset whose every column has more than 256 "
+                           "bins", "the rest of queue 1: the serial grower")
+            mixed = MixedWidth(
+                narrow_idx=np.flatnonzero(~wide).astype(np.int32),
+                wide_idx=np.flatnonzero(wide).astype(np.int32),
+                B_narrow=_padded_bin_width(int(phys_bins[~wide].max())))
+        self._wave_mixed = mixed
+        hist_mode = config.hist_mode()
+        if (mixed is not None or self._bundled) \
+                and hist_mode in ("int16", "int8"):
+            log.info("tpu_hist_dtype=%s needs the pure-kernel un-bundled "
+                     "wave path; falling back to 2xbf16", hist_mode)
+            hist_mode = "2xbf16"
+        self.hist_mode = hist_mode
+        if mixed is None:
+            self._bins_fm = torch.as_tensor(
+                np.ascontiguousarray(X.T)).to(self.device)
+        else:
+            xbt = X.T
+            self._bins_fm = (
+                torch.as_tensor(np.ascontiguousarray(
+                    xbt[mixed.narrow_idx]).astype(np.uint8)).to(self.device),
+                torch.as_tensor(np.ascontiguousarray(
+                    xbt[mixed.wide_idx]).astype(np.int32)).to(self.device))
+        self._grow = build_wave_grow_fn(
+            self.meta, self.split_cfg, self.B,
+            wave_capacity=int(config.tpu_wave_capacity),
+            highest=hist_mode,
+            gain_gate=float(config.tpu_wave_gain_gate),
+            fused_sibling=bool(config.tpu_fused_sibling),
+            quant_seed=int(config.seed), B_phys=self.B_phys,
+            bundled=self._bundled, mixed=mixed)
+
+    def _device_phys_bins(self, X_bin: np.ndarray) -> torch.Tensor:
+        """A binned matrix of this dataset's layout on the device, row
+        major: uint8 as it is, wider bins as int32."""
+        if X_bin.dtype != np.uint8:
+            X_bin = X_bin.astype(np.int32)
+        return torch.as_tensor(np.ascontiguousarray(X_bin)).to(self.device)
 
     def add_valid(self, valid_ds, name: str) -> None:
         """Attach a valid set binned with the training mappers; the trees
@@ -293,7 +368,7 @@ class GBDT(PredictorBase):
             m = type(proto)(self.config)
             m.init(valid_ds.metadata, valid_ds.num_data)
             ms.append(m)
-        bins = torch.as_tensor(valid_ds.X_bin).to(self.device)
+        bins = self._device_phys_bins(valid_ds.X_bin)
         score = torch.zeros(valid_ds.num_data, dtype=torch.float32,
                             device=self.device)
         for c in self._constants:
@@ -303,7 +378,8 @@ class GBDT(PredictorBase):
             forest = stack_forest(
                 [self._tree_arrays_np(self.models[i]) for i in grown],
                 np.zeros(len(grown), np.int32), self.device)
-            leaves = forest_leaf_fn(self.meta)(forest, bins)
+            leaves = forest_leaf_fn(self.meta, phys=self._bundled)(forest,
+                                                                   bins)
             for row, i in enumerate(grown):
                 score = score + self._leaf_f32[i][leaves[row]]
         self.valid_names.append(name)
@@ -361,6 +437,13 @@ class GBDT(PredictorBase):
         self._bag_mask = torch.as_tensor(mask.astype(np.float32)).to(
             self.device)
 
+    def _sample(self, it: int, g, h):
+        """The rows iteration ``it`` grows on: refreshes the sample mask
+        and returns (g, h) as the grower takes them (GOSS amplifies
+        some)."""
+        self._bagging(it)
+        return g, h
+
     def _feature_mask(self):
         F = self.train_ds.num_features
         frac = float(self.config.feature_fraction)
@@ -378,7 +461,7 @@ class GBDT(PredictorBase):
         t0 = time.perf_counter()
         init_score = self._boost_from_average()
         g, h = self.objective.get_gradients(self._train_score)
-        self._bagging(self.iter_)
+        g, h = self._sample(self.iter_, g, h)
         feature_mask = self._feature_mask()
         nl = 1
         if self.class_need_train and self.train_ds.num_features > 0:
@@ -405,7 +488,9 @@ class GBDT(PredictorBase):
         tree = Tree.from_device(arrs, self.train_ds, shrinkage=lr)
         depth = tree_depth(tree.left_child, tree.right_child, tree.num_leaves)
         for i, vb in enumerate(self._valid_bins):
-            leaf = predict_leaf_bins(arrs, vb, self.meta, depth)
+            leaf = predict_leaf_bins(arrs, vb, self.meta, depth,
+                                     has_cat=self._has_cat,
+                                     phys=self._bundled)
             self._valid_scores[i] = self._valid_scores[i] + arrs.leaf_value[leaf]
         if abs(init_score) > K_EPSILON:
             tree.leaf_value = tree.leaf_value + init_score
@@ -420,16 +505,20 @@ class GBDT(PredictorBase):
 
     # ------------------------------------------------------------------
     def _tree_bin_space(self, tree: Tree):
-        """A value-space host ``Tree`` back in the training bin space:
-        (inner features, threshold bins, default-left, left, right).  A
-        node on a feature that is trivial (constant) in this dataset
-        becomes a one-way split on inner feature 0: both children are the
-        side the constant value takes in value space."""
+        """A value-space host ``Tree`` back in the training bin space
+        (reference package: gbdt.py ``_tree_bin_space``): (inner features,
+        threshold bins, default-left, bitsets, left, right).  Thresholds go
+        through ``value_to_bin`` (the inverse of ``bin_to_value``: bounds
+        ascend) and category sets through ``categorical_2_bin``.  A node on
+        a feature that is trivial (constant) in this dataset becomes a
+        one-way split on inner feature 0: both children are the side the
+        constant value takes in value space."""
         nn = max(tree.num_leaves - 1, 0)
         ds = self.train_ds
         inner = ds.used_feature_map[tree.split_feature[:nn]].astype(np.int32)
         thr_bin = np.zeros(nn, np.int32)
         dl = np.array([tree.default_left(i) for i in range(nn)], bool)
+        cat_bits = np.zeros((nn, bitset_words(self.B)), np.uint32)
         left = tree.left_child[:nn].astype(np.int32).copy()
         right = tree.right_child[:nn].astype(np.int32).copy()
         for i in range(nn):
@@ -441,21 +530,29 @@ class GBDT(PredictorBase):
                 left[i] = right[i] = (tree.left_child[i] if go_left
                                       else tree.right_child[i])
                 continue
-            # value_to_bin inverts bin_to_value exactly: bounds ascend
-            thr_bin[i] = ds.inner_to_mapper(int(inner[i])).value_to_bin(
-                float(tree.threshold[i]))
-        return inner, thr_bin, dl, left, right
+            mapper = ds.inner_to_mapper(int(inner[i]))
+            if not tree.is_categorical(i):
+                thr_bin[i] = mapper.value_to_bin(float(tree.threshold[i]))
+                continue
+            ci = int(tree.threshold[i])
+            lo, hi = int(tree.cat_boundaries[ci]), \
+                int(tree.cat_boundaries[ci + 1])
+            for cat, b in mapper.categorical_2_bin.items():
+                word = cat // 32
+                if cat >= 0 and word < hi - lo and \
+                        (int(tree.cat_threshold[lo + word]) >> (cat % 32)) & 1:
+                    cat_bits[i, b // 32] |= np.uint32(1 << (b % 32))
+        return inner, thr_bin, dl, cat_bits, left, right
 
     def _tree_arrays_np(self, tree: Tree) -> dict:
         """Bin-space numpy arrays of one host tree, unpadded: the unit
         ``core.forest.stack_forest`` batches."""
         nl = tree.num_leaves
-        inner, thr_bin, dl, left, right = self._tree_bin_space(tree)
+        inner, thr_bin, dl, cat_bits, left, right = self._tree_bin_space(tree)
         return dict(split_feature=inner, threshold_bin=thr_bin,
                     default_left=dl, left_child=left, right_child=right,
                     leaf_value=tree.leaf_value[:nl].astype(np.float32),
-                    num_leaves=np.int32(nl),
-                    cat_bitset=np.zeros((len(inner), 0), np.uint32))
+                    num_leaves=np.int32(nl), cat_bitset=cat_bits)
 
     def eval_results(self, include_train: bool = True) -> List[Tuple]:
         """All (data_name, metric_name, value, higher_better) entries

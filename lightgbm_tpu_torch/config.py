@@ -129,13 +129,12 @@ _OBJECTIVE_ALIASES = {
 # (the reference default, the ROADMAP.md item that brings it).
 _SERIAL = "the rest of queue 1: the serial grower"
 _REFUSED: Dict[str, tuple] = {
-    "boosting": ("gbdt", "GOSS; DART and RF: the rest of queue 1"),
+
     "feature_fraction_bynode": (1.0, _SERIAL),
     "forcedsplits_filename": ("", _SERIAL),
     "cegb_penalty_split": (0.0, _SERIAL),
     "cegb_penalty_feature_lazy": ([], _SERIAL),
     "cegb_penalty_feature_coupled": ([], _SERIAL),
-    "categorical_feature": ("", "categorical/EFB/mixed width"),
     "num_machines": (1, "the rest of queue 1: parallel and fleet planes"),
     "tpu_wave_overlap": (False, "the rest of queue 1: overlapped waves"),
     "tpu_fused_grad": (True, "the rest of queue 1: unfused gradients"),
@@ -177,6 +176,13 @@ class Config:
     feature_fraction: float = 1.0
     feature_fraction_bynode: float = 1.0
     feature_fraction_seed: int = 2
+    top_rate: float = 0.2               # GOSS: kept share by |g*h|
+    other_rate: float = 0.1             # GOSS: drawn share of the rest
+    min_data_per_group: int = 100       # categorical split search
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
     max_delta_step: float = 0.0
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
@@ -204,6 +210,7 @@ class Config:
     output_result: str = "LightGBM_predict_result.txt"
     initscore_filename: str = ""
     enable_bundle: bool = True
+    max_conflict_rate: float = 0.0
     use_missing: bool = True
     zero_as_missing: bool = False
     two_round: bool = False
@@ -230,6 +237,7 @@ class Config:
     scale_pos_weight: float = 1.0
     sigmoid: float = 1.0
     boost_from_average: bool = True
+    reg_sqrt: bool = False              # read by a loaded model's regression
 
     # ---- Metric ----
     metric: List[str] = field(default_factory=list)
@@ -280,6 +288,10 @@ class Config:
         self.boosting = {"gbrt": "gbdt"}.get(self.boosting, self.boosting)
         self.tree_learner = {"serial_tree_learner": "serial"}.get(
             self.tree_learner, self.tree_learner)
+        if self.boosting not in ("gbdt", "goss"):
+            log.fatal(f"boosting={self.boosting!r} is not in the PyTorch port "
+                      "yet (ROADMAP.md port queue: DART and RF: the rest of "
+                      "queue 1)")
         for name, (default, item) in _REFUSED.items():
             if getattr(self, name) != default:
                 log.fatal(f"{name}={getattr(self, name)!r} is not in the "
@@ -307,11 +319,8 @@ class Config:
             log.fatal("feature_fraction should be in (0.0, 1.0]")
         if self.num_leaves < 2:
             log.fatal("num_leaves should be >= 2")
-        if not (1 < self.max_bin <= 255) or any(
-                not 1 < int(b) <= 255 for b in self.max_bin_by_feature):
-            log.fatal("max_bin and max_bin_by_feature should be in (1, 255]: "
-                      "wider bins are not in the PyTorch port yet (ROADMAP.md "
-                      "port queue: categorical/EFB/mixed width)")
+        if not (1 < self.max_bin <= 65535):
+            log.fatal("max_bin should be in (1, 65535]")
         self.device_type = self.device_type.strip().lower()
         if self.device_type == "gpu":
             self.device_type = "cuda"

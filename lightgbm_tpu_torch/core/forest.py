@@ -88,13 +88,14 @@ def stack_forest(trees_np: list, class_ids: np.ndarray, device,
     )
 
 
-def _leaves(forest: ForestArrays, bins, meta, has_cat: bool):
+def _leaves(forest: ForestArrays, bins, meta, has_cat: bool,
+            phys: bool = False):
     """Leaf indices ``[T, n]`` of the rows of one chunk."""
     return walk_leaves(forest.split_feature, forest.threshold_bin,
                        forest.default_left, forest.left_child,
                        forest.right_child, forest.num_leaves,
                        forest.cat_bitset, bins, meta,
-                       int(forest.depth.max(initial=0)), has_cat)
+                       int(forest.depth.max(initial=0)), has_cat, phys)
 
 
 def _chunks(forest: ForestArrays, bins):
@@ -151,15 +152,16 @@ def forest_predict_fn(meta, K: int, early_stop: Optional[dict] = None):
     return predict
 
 
-def forest_leaf_fn(meta):
+def forest_leaf_fn(meta, phys: bool = False):
     """Build ``leaves(forest, bins) -> [T, N] int64``, the device analog
     of per-tree ``Tree.predict_leaf`` (reference: the Predictor's
-    leaf-index mode, src/application/predictor.hpp:110-125)."""
+    leaf-index mode, src/application/predictor.hpp:110-125); ``phys``
+    reads a bundled dataset's physical columns."""
     has_cat = bool(meta.is_categorical.any())
 
     def leaves(forest: ForestArrays, bins):
         calls["leaf"] += 1
-        return torch.cat([_leaves(forest, chunk, meta, has_cat)
+        return torch.cat([_leaves(forest, chunk, meta, has_cat, phys)
                           for chunk in _chunks(forest, bins)], dim=1)
 
     return leaves

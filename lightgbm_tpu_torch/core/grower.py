@@ -5,15 +5,15 @@ The reference's dynamic tree (reference: include/LightGBM/tree.h:360-445)
 is a fixed-capacity structure of arrays: internal nodes 0..L-2 in split
 order, children < 0 encoding leaves as ``~leaf_index``; the left child
 keeps its parent's leaf index, the right child takes the next free one.
-The serial grower (``build_grow_fn``) is not ported yet; the EFB column
-decode and the categorical branch of the node decision have no use in a
-numerical, unbundled slice.
+A categorical node keeps its left-going bin set as a bitset.  The serial
+grower (``build_grow_fn``) is not ported yet.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from .splitter import split_decision
 
@@ -34,10 +34,13 @@ class TreeArrays(NamedTuple):
     leaf_count: object       # i32 [L]
     leaf_weight: object      # f32 [L] sum_hessian
     num_leaves: object       # i32 scalar
+    cat_bitset: object       # i32 [L-1, W] left-going bin set of a
+    #                          categorical node (uint32 words' bits)
 
 
-def _empty_tree(L: int) -> TreeArrays:
-    """A one-leaf tree of capacity ``L`` as numpy arrays."""
+def _empty_tree(L: int, W: int = 1) -> TreeArrays:
+    """A one-leaf tree of capacity ``L`` (bitsets of ``W`` words) as numpy
+    arrays."""
     n = max(L - 1, 1)
     return TreeArrays(
         split_feature=np.full((n,), -1, np.int32),
@@ -53,12 +56,21 @@ def _empty_tree(L: int) -> TreeArrays:
         leaf_count=np.zeros((L,), np.int32),
         leaf_weight=np.zeros((L,), np.float32),
         num_leaves=np.int32(1),
+        cat_bitset=np.zeros((n, W), np.int32),
     )
 
 
+def decode_feature_col(colp, off, num_bin, default_bin):
+    """EFB decode: physical-column bins -> the bins of a feature at bin
+    offset ``off`` (io/bundling.py layout); the identity for a feature
+    alone in its column (offset 0).  All args broadcastable tensors."""
+    inb = (colp >= off) & (colp < off + num_bin)
+    return torch.where(inb, colp - off, default_bin)
+
+
 def go_left_bins(col, threshold, default_left, missing_type, num_bin,
-                 default_bin):
+                 default_bin, is_cat=None, cat_word=None):
     """Bin-space split decision for every row (reference:
     src/io/dense_bin.hpp:152-231 Split).  ``col`` int tensor [N]."""
     return split_decision(col, threshold, default_left, missing_type,
-                          num_bin, default_bin)
+                          num_bin, default_bin, is_cat, cat_word)

@@ -1,20 +1,20 @@
 """Host-side tree model: raw-value prediction and serialization state
 (counterpart of lightgbm_tpu/core/tree.py).
 
-The grower emits bin-space ``TreeArrays`` of numerical nodes;
-``Tree.from_device`` converts them once to value space with the dataset's
-bin mappers (reference: Dataset::RealThreshold) and the tree then serves
-numpy prediction and model text.  Trees loaded from a model file
-(``io/model_io.py``) may also hold categorical nodes: their category sets
-are value-space bitsets (``cat_boundaries`` / ``cat_threshold``), and the
-host walk decides them as the reference's CategoricalDecision does.
+The grower emits bin-space ``TreeArrays``; ``Tree.from_device`` converts
+them once to value space with the dataset's bin mappers (reference:
+Dataset::RealThreshold) and the tree then serves numpy prediction and
+model text.  Categorical nodes hold value-space category bitsets
+(``cat_boundaries`` / ``cat_threshold``), translated from the grower's
+bin-space bitsets, and the host walk decides them as the reference's
+CategoricalDecision does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..io.binning import MISSING_NAN, MISSING_ZERO
+from ..io.binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
 
 K_ZERO_THRESHOLD = 1e-35
 
@@ -73,23 +73,44 @@ class Tree:
     @classmethod
     def from_device(cls, arrays, dataset, shrinkage: float = 1.0) -> "Tree":
         """Convert bin-space ``TreeArrays`` (torch tensors or numpy) to a
-        value-space tree; ``dataset`` supplies the bin mappers."""
+        value-space tree; ``dataset`` supplies the bin mappers.  A
+        categorical node's bin set becomes the set of its categories (the
+        NaN pseudo-category -1 dropped: value-space prediction sends
+        missing values right, as CategoricalDecision does), stored as the
+        reference's value-space bitset (reference package: tree.py
+        ``Tree.from_device``)."""
         nl = int(_np(arrays.num_leaves))
         nn = max(nl - 1, 0)
         split_feature_inner = _np(arrays.split_feature)[:nn]
         threshold_bin = _np(arrays.threshold_bin)[:nn]
         default_left = _np(arrays.default_left)[:nn]
+        bin_bitsets = _np(arrays.cat_bitset)[:nn].astype(np.int64) & 0xFFFFFFFF
         threshold = np.zeros(nn, dtype=np.float64)
         decision_type = np.zeros(nn, dtype=np.int32)
         split_feature = np.zeros(nn, dtype=np.int32)
+        cat_boundaries = [0]
+        cat_threshold = []
         for i in range(nn):
             inner = int(split_feature_inner[i])
             mapper = dataset.inner_to_mapper(inner)
             split_feature[i] = int(dataset.real_feature_idx[inner])
             dt = mapper.missing_type << 2
-            if default_left[i]:
-                dt |= _DEFAULT_LEFT_MASK
-            threshold[i] = mapper.bin_to_value(int(threshold_bin[i]))
+            if mapper.bin_type == BIN_CATEGORICAL:
+                dt |= _CAT_MASK
+                words = bin_bitsets[i]
+                cats = [c for b, c in enumerate(mapper.bin_2_categorical)
+                        if (int(words[b // 32]) >> (b % 32)) & 1 and c >= 0]
+                n_words = (max(cats) // 32 + 1) if cats else 1
+                vw = [0] * n_words
+                for c in cats:
+                    vw[c // 32] |= 1 << (c % 32)
+                threshold[i] = len(cat_boundaries) - 1   # the set's index
+                cat_threshold.extend(vw)
+                cat_boundaries.append(cat_boundaries[-1] + n_words)
+            else:
+                if default_left[i]:
+                    dt |= _DEFAULT_LEFT_MASK
+                threshold[i] = mapper.bin_to_value(int(threshold_bin[i]))
             decision_type[i] = dt
         return cls(
             num_leaves=nl,
@@ -107,6 +128,8 @@ class Tree:
             internal_count=_np(arrays.internal_count)[:nn].astype(np.int32),
             internal_weight=_np(arrays.internal_weight)[:nn].astype(np.float64),
             shrinkage=shrinkage,
+            cat_boundaries=np.asarray(cat_boundaries, dtype=np.int32),
+            cat_threshold=np.asarray(cat_threshold, dtype=np.uint32),
         )
 
     @classmethod

@@ -1,7 +1,7 @@
 """Wave-scheduled leaf-wise tree growth (counterpart of
 lightgbm_tpu/core/wave_grower.py: packed or triple layout, fused or
 unfused sibling, float or quantized histograms, eager schedule, batched
-split apply).
+split apply, EFB bundles, mixed-width columns, categorical splits).
 
 Growth alternates two phases until no ready leaf has positive gain and
 nothing is pending:
@@ -24,15 +24,29 @@ work stays on the device: the partition, the row compaction, K1 and the
 split scan.  Each wave copies the children's split results to the host
 once.
 
+Bundles (``bundled``): K1 histograms the physical columns (``B_phys``
+bins), ``expand_bundled`` maps them to features and ``fix_default_bins``
+rebuilds each member's default bin from the leaf totals, so the sibling
+is a separate subtraction (no fused sibling).  Mixed width (``mixed``):
+columns of up to 256 bins stay on K1 in the triple layout, the wider ones
+take the side-pass ``core/histogram.py hist_wave_side``, and the two are
+merged into one physical histogram before the split scan; ``bins_fm`` is
+then the pair (uint8 narrow [Fn, N], int32 wide [Fw, N]).  Categorical
+features split on bin sets, kept per node as bitsets.
+
 Quantized modes (``int16``/``int8``): per tree, g and h are scaled by
 ``s = max|x| / QMAX`` over the bag-masked rows and stochastic-rounded to
 integers (``ops/quant.py``).  Histograms stay in integer units through
 K1, the sibling subtraction and the per-leaf store; they are dequantized
 only at split-scan time, ``hist * [s_g, s_h, 1]``, as in the reference
 (an in-kernel dequant would let a compiler fuse ``parent - child*s``
-and break the bit-identity of the fused and unfused siblings).
+and break the bit-identity of the fused and unfused siblings).  They
+need the pure-kernel, unbundled path (the trainer falls back to 2xbf16
+otherwise, as the reference does).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,55 +55,105 @@ from ..convert import tree_arrays_from_numpy
 from ..ops.hist_wave import C_MAX, resolve_mode, hist_wave, \
     wave_capacity_max
 from ..ops.quant import QUANT_MODES, QUANT_QMAX, SEED_H_XOR, stochastic_round
-from .grower import _empty_tree, go_left_bins
-from .histogram import hist_subtract
+from .grower import _empty_tree, decode_feature_col, go_left_bins
+from .histogram import (expand_bundled, fix_default_bins, hist_subtract,
+                        hist_wave_side)
 from .meta import DeviceMeta, SplitConfig
-from .splitter import best_split, leaf_output
+from .splitter import best_split, bitset_words, leaf_output
 
 NEG_INF = np.float32(-np.inf)
 
 
+class MixedWidth(NamedTuple):
+    """The physical-column split of the mixed-width wave path (reference
+    package: wave_grower.py ``MixedWidth``): K1 takes at most 256 bins a
+    column, so the columns wider than that take the side-pass.
+    narrow_idx / wide_idx: int32 physical-column indices; B_narrow: the
+    narrow group's padded bin width (<= 256)."""
+    narrow_idx: np.ndarray
+    wide_idx: np.ndarray
+    B_narrow: int
+
+
 def effective_pipeline(wave_capacity: int, packed: bool = True,
-                       fused_sibling: bool = True):
+                       fused_sibling: bool = True, mixed: bool = False,
+                       bundled: bool = False):
     """The (packed, capacity, fused) triple ``build_wave_grow_fn`` runs —
-    the reference's gate with the mixed-width, bundled and data-parallel
-    cases (not in the port yet) always off: capacity 63 packed, 42
-    triple."""
-    packed = bool(packed)
+    the reference's gate (its data-parallel case is not in the port):
+    packed is off under ``mixed`` (the side-pass speaks the triple layout),
+    fusion needs an unmixed, unbundled wave (bundles rebuild default bins
+    before the subtraction).  Capacity 63 packed, 42 triple."""
+    packed = bool(packed) and not mixed
+    fused = bool(fused_sibling) and not mixed and not bundled
     return packed, max(1, min(int(wave_capacity),
-                              wave_capacity_max(packed))), \
-        bool(fused_sibling)
+                              wave_capacity_max(packed))), fused
 
 
-def build_split_apply_fn(meta_np: dict, L: int):
+def _mixed_positions(mixed: MixedWidth):
+    """(position in its group, is wide) of every physical column."""
+    Fn, Fw = len(mixed.narrow_idx), len(mixed.wide_idx)
+    pos = np.zeros(Fn + Fw, np.int64)
+    pos[mixed.narrow_idx] = np.arange(Fn)
+    pos[mixed.wide_idx] = np.arange(Fw)
+    is_wide = np.zeros(Fn + Fw, bool)
+    is_wide[mixed.wide_idx] = True
+    return pos, is_wide
+
+
+def build_split_apply_fn(meta_np: dict, L: int, bundled: bool = False,
+                         mixed: MixedWidth = None):
     """One-pass wave-split application: ``apply(leaf_id, bins_rm, splits)
     -> leaf_id`` re-partitions all N rows for every split the phase
     committed.  Each row looks up its leaf's pending split in a slot table,
-    reads its own bin from the row-major bins, and routes itself through
-    the shared split decision.  ``splits``: list of committed (leaf, new,
-    feature, threshold, default_left) on the host."""
+    reads its own bin from the row-major bins (the physical column of a
+    bundled feature, decoded; the narrow or the wide group under
+    ``mixed``, whose ``bins_rm`` is the (narrow, wide) pair), and routes
+    itself through the shared split decision (category bitsets included).
+    ``splits``: list of committed (leaf, new, feature, threshold,
+    default_left, bitset words) on the host."""
+    if mixed is not None:
+        pos, is_wide = _mixed_positions(mixed)
+
     def apply(leaf_id, bins_rm, splits):
         n = len(splits)
         if n == 0:
             return leaf_id
         dev = leaf_id.device
-        leaf, new, f, t, dl = (np.asarray(c) for c in zip(*splits))
+        leaf, new, f, t, dl = (np.asarray(c) for c in list(zip(*splits))[:5])
+        words = np.stack([sp[5] for sp in splits])              # [n, W]
         # leaf -> slot table; rows whose leaf has no pending split map to
         # the pad slot n
         tbl = np.full(L + 2, n, np.int64)
         tbl[leaf] = np.arange(n)
 
         def slot_arr(a, fill):
-            return torch.as_tensor(np.append(a, fill)).to(dev)
-        f_s = slot_arr(f.astype(np.int64), 0)
+            return torch.as_tensor(np.append(a, fill)).to(dev)[srow]
         srow = torch.as_tensor(tbl).to(dev)[leaf_id.clamp(0, L + 1).long()]
-        col = torch.gather(bins_rm, 1, f_s[srow][:, None])[:, 0].int()
-        go = go_left_bins(col, slot_arr(t.astype(np.int32), 0)[srow],
-                          slot_arr(dl.astype(bool), False)[srow],
-                          slot_arr(meta_np["missing_types"][f], 0)[srow],
-                          slot_arr(meta_np["num_bins"][f], 0)[srow],
-                          slot_arr(meta_np["default_bins"][f], 0)[srow])
-        new_row = slot_arr(new.astype(np.int32), 0)[srow]
+        phys = (meta_np["feat2phys"][f] if bundled else f).astype(np.int64)
+        if mixed is None:
+            col = torch.gather(bins_rm, 1, slot_arr(phys, 0)[:, None])
+        else:
+            rm_n, rm_w = bins_rm
+            p = slot_arr(pos[phys], 0)[:, None]
+            coln = torch.gather(rm_n, 1, p.clamp(max=rm_n.shape[1] - 1))
+            colw = torch.gather(rm_w, 1, p.clamp(max=rm_w.shape[1] - 1))
+            col = torch.where(slot_arr(is_wide[phys], False)[:, None],
+                              colw.long(), coln.long())
+        col = col[:, 0].long()
+        nb = slot_arr(meta_np["num_bins"][f], 0)
+        db = slot_arr(meta_np["default_bins"][f], 0)
+        if bundled:
+            col = decode_feature_col(
+                col, slot_arr(meta_np["feat_offset"][f], 0), nb, db)
+        W = words.shape[1]
+        flat = torch.as_tensor(np.concatenate(
+            [words, np.zeros((1, W), np.int32)]).reshape(-1)).to(dev)
+        word = flat[srow * W + torch.clamp(col // 32, max=W - 1)]
+        go = go_left_bins(col, slot_arr(t.astype(np.int32), 0),
+                          slot_arr(dl.astype(bool), False),
+                          slot_arr(meta_np["missing_types"][f], 0), nb, db,
+                          slot_arr(meta_np["is_categorical"][f], False), word)
+        new_row = slot_arr(new.astype(np.int32), 0)
         return torch.where((srow < n) & ~go, new_row, leaf_id)
 
     return apply
@@ -98,7 +162,7 @@ def build_split_apply_fn(meta_np: dict, L: int):
 class _LeafState:
     """The [L+1]-sized per-leaf state of one tree (slot L is scratch)."""
 
-    def __init__(self, L: int, P: int):
+    def __init__(self, L: int, P: int, W: int):
         f32 = lambda v=0.0: np.full(L + 1, v, np.float32)   # noqa: E731
         i32 = lambda v=0: np.full(L + 1, v, np.int32)       # noqa: E731
         self.g, self.h, self.c = f32(), f32(), f32()
@@ -111,12 +175,13 @@ class _LeafState:
         self.best_dl = np.zeros(L + 1, bool)
         self.best_lg, self.best_lh, self.best_lc = f32(), f32(), f32()
         self.best_lout, self.best_rout = f32(), f32()
+        self.best_cb = np.zeros((L + 1, W), np.int32)
         self.parent = i32(-1)
         self.is_right = np.zeros(L + 1, bool)
         self.pend_small = np.full(P, -1, np.int32)
         self.pend_large = np.full(P, -1, np.int32)
         self.pend_cnt = 0
-        self.tree = _empty_tree(L)
+        self.tree = _empty_tree(L, W)
 
     def ready_gains(self, L: int):
         return np.where(self.ready[:L], self.best_gain[:L], NEG_INF)
@@ -126,7 +191,8 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                        wave_capacity: int = 63, highest="highest",
                        gain_gate: float = 0.0,
                        fused_sibling: bool = True, packed: bool = True,
-                       quant_seed: int = 0):
+                       quant_seed: int = 0, B_phys: int = None,
+                       bundled: bool = False, mixed: MixedWidth = None):
     """``grow(bins_fm, g, h, sample_mask, feature_mask)`` with K1 on the
     bins' device.  Returns ``(TreeArrays, leaf_id, (waves, rows))``:
     tensors on that device, then the K1 launches taken and the rows they
@@ -140,20 +206,38 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
     ``packed`` picks K1's lane-pair layout (63 leaves a wave) or the
     triple one (42).  In the int16/int8 modes ``quant_seed`` seeds the
     gradients' stochastic rounding (the hessians' seed is ``quant_seed ^
-    0x9E3779B9``)."""
+    0x9E3779B9``).  ``B`` is the features' padded bin width, ``B_phys``
+    the physical columns' (``bundled``: ``bins_fm`` holds EFB columns);
+    with ``mixed`` set ``bins_fm`` is the (narrow, wide) pair."""
     L = cfg.num_leaves
     packed, P, fused = effective_pipeline(wave_capacity, packed,
-                                          fused_sibling)
+                                          fused_sibling, mixed is not None,
+                                          bundled)
     mode = resolve_mode(highest)
     quant = mode in QUANT_MODES
+    if quant and (bundled or mixed is not None):
+        raise ValueError("quantized histogram modes need the pure-kernel "
+                         "unbundled wave path; the trainer falls back to "
+                         "2xbf16")
     if quant and L + 2 >= 32768:
         raise ValueError("quantized K1 carries leaf ids as int16: "
                          "num_leaves must be <= 32000")
+    if mixed is not None and not (len(mixed.narrow_idx)
+                                  and len(mixed.wide_idx)):
+        raise ValueError("mixed needs both narrow and wide columns")
+    B_phys = B if B_phys is None else int(B_phys)
+    B_kern = int(mixed.B_narrow) if mixed is not None else B_phys
     lanes = 2 if packed else 3
+    W = bitset_words(B)
     gain_gate = np.float32(min(max(float(gain_gate), 0.0), 1.0))
-    meta_np = {k: v.detach().cpu().numpy() for k, v in meta._asdict().items()}
+    meta_np = {k: v.detach().cpu().numpy() for k, v in meta._asdict().items()
+               if v is not None}
+    has_cat = bool(meta_np["is_categorical"].any())
     monotone = meta_np["monotone"]
-    apply_splits = build_split_apply_fn(meta_np, L)
+    apply_splits = build_split_apply_fn(meta_np, L, bundled, mixed)
+    if mixed is not None:
+        inv_perm = np.argsort(np.concatenate([mixed.narrow_idx,
+                                              mixed.wide_idx]))
 
     def pick_split(st: _LeafState, phase_max):
         gains = st.ready_gains(L)
@@ -164,12 +248,13 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
 
     def commit(st: _LeafState, leaf: int):
         """Commit ``leaf``'s cached best split into the host state; returns
-        its (leaf, new, feature, threshold, default_left)."""
+        its (leaf, new, feature, threshold, default_left, bitset)."""
         tr = st.tree
         new = int(tr.num_leaves)
         k = new - 1
         f, t, dl = int(st.best_feat[leaf]), int(st.best_thr[leaf]), \
             bool(st.best_dl[leaf])
+        cb = st.best_cb[leaf].copy()
         lg, lh, lc = st.best_lg[leaf], st.best_lh[leaf], st.best_lc[leaf]
         pg, ph, pc = st.g[leaf], st.h[leaf], st.c[leaf]
         rg, rh, rc = pg - lg, ph - lh, pc - lc
@@ -195,6 +280,7 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         tr.internal_weight[k] = ph
         tr.left_child[k] = ~leaf
         tr.right_child[k] = ~new
+        tr.cat_bitset[k] = cb
         st.tree = tr._replace(num_leaves=np.int32(new + 1))
 
         small, large = (leaf, new) if lc < rc else (new, leaf)
@@ -211,11 +297,12 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.pend_small[st.pend_cnt] = small
         st.pend_large[st.pend_cnt] = large
         st.pend_cnt += 1
-        return leaf, new, f, t, dl
+        return leaf, new, f, t, dl, cb
 
     def scan_children(st, hist, cand, feature_mask, scales):
-        """Best splits of one wave's children, copied to the host state;
-        ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit histograms."""
+        """Best splits of one wave's children, copied to the host state in
+        one read; ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit
+        histograms."""
         dev = hist.device
         cand_t = torch.as_tensor(cand, dtype=torch.int64).to(dev)
 
@@ -226,21 +313,27 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             hist_c = hist_c * scales
         bs = best_split(hist_c, col(st.g), col(st.h), col(st.c), meta,
                         cfg, col(st.min_c), col(st.max_c),
-                        feature_mask=feature_mask)
+                        feature_mask=feature_mask, has_cat=has_cat)
         gain = bs.gain
         if cfg.max_depth > 0:
             gain = torch.where(col(st.depth) < cfg.max_depth, gain,
                                torch.full_like(gain, float("-inf")))
-        res = torch.stack([gain, bs.feature.float(), bs.threshold.float(),
-                           bs.default_left.float(), bs.left_g, bs.left_h,
-                           bs.left_c, bs.left_out, bs.right_out]).cpu().numpy()
+        # one f64 block: the f32 results and the int32 bitset words both
+        # convert exactly
+        res = torch.cat([torch.stack(
+            [gain, bs.feature.float(), bs.threshold.float(),
+             bs.default_left.float(), bs.left_g, bs.left_h, bs.left_c,
+             bs.left_out, bs.right_out], 1).double(),
+            bs.cat_bitset.double()], 1).cpu().numpy()
         st.ready[cand] = True
-        st.best_gain[cand] = res[0]
-        st.best_feat[cand] = res[1].astype(np.int32)
-        st.best_thr[cand] = res[2].astype(np.int32)
-        st.best_dl[cand] = res[3] > 0
-        st.best_lg[cand], st.best_lh[cand], st.best_lc[cand] = res[4:7]
-        st.best_lout[cand], st.best_rout[cand] = res[7], res[8]
+        st.best_gain[cand] = res[:, 0]
+        st.best_feat[cand] = res[:, 1].astype(np.int32)
+        st.best_thr[cand] = res[:, 2].astype(np.int32)
+        st.best_dl[cand] = res[:, 3] > 0
+        st.best_lg[cand], st.best_lh[cand], st.best_lc[cand] = \
+            res[:, 4], res[:, 5], res[:, 6]
+        st.best_lout[cand], st.best_rout[cand] = res[:, 7], res[:, 8]
+        st.best_cb[cand] = res[:, 9:].astype(np.int64).astype(np.int32)
 
     def to_leaf_major(h, n, F):
         """K1's channel layout -> per-leaf [n, F, B, 3]."""
@@ -264,6 +357,23 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         par_ct[:, :, :n] = par[..., 2].permute(1, 2, 0)
         return par_gh, par_ct
 
+    def wave_hist(bins_n, wide_rm, gv, hv, cv, leaf, slot_t, n,
+                  kern_parent):
+        """One wave's physical histograms in K1's channel layout: K1 over
+        the (narrow) columns, plus the side-pass over the wide ones under
+        ``mixed``, merged in physical-column order."""
+        hw = hist_wave(bins_n, gv, hv, cv, leaf, slot_t, B_kern,
+                       highest=mode, packed=packed, parent=kern_parent,
+                       num_slots=n)
+        if mixed is None:
+            return hw
+        hw_w = hist_wave_side(wide_rm, gv, hv, cv, leaf, slot_t, B_phys,
+                              lanes=lanes * n)
+        if B_phys > B_kern:
+            hw = torch.nn.functional.pad(hw, (0, 0, 0, B_phys - B_kern))
+        return torch.cat([hw, hw_w], 0)[torch.as_tensor(inv_perm).to(
+            hw.device)]
+
     def wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv, cv, feature_mask,
              scales):
         """One K1 launch over the pending leaves + their children's scans.
@@ -279,6 +389,10 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         par_t = torch.as_tensor(parents, dtype=torch.int64).to(dev)
         F = hist.shape[1]
         kern_parent = to_channels(hist[par_t], n, F) if fused else None
+        if mixed is not None:
+            bins_n, (rm_n, rm_w) = bins_fm[0], bins_rm
+        else:
+            bins_n, rm_n, rm_w = bins_fm, bins_rm, None
 
         # ---- active-row compaction ------------------------------------
         # Only rows in a pending-small leaf that carry weight contribute.
@@ -292,16 +406,28 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         idx = torch.nonzero(active)[:, 0]
         n_rows = int(idx.numel())
         if n_rows == leaf_id.numel():
-            args = (bins_fm, gv, hv, cv, leaf_id)
+            args = (bins_n, rm_w, gv, hv, cv, leaf_id)
         else:
-            args = (bins_rm.index_select(0, idx).t().contiguous(),
+            args = (rm_n.index_select(0, idx).t().contiguous(),
+                    None if rm_w is None else rm_w.index_select(0, idx),
                     gv[idx], hv[idx], cv[idx], leaf_id[idx])
-        hw = hist_wave(*args, slot_t, B, highest=mode, packed=packed,
-                       parent=kern_parent, num_slots=n)
+        hw = wave_hist(*args, slot_t, n, kern_parent)
+        sib = None
         if fused:
-            child, sib = to_leaf_major(hw[0], n, F), to_leaf_major(hw[1], n, F)
-        else:
-            child = to_leaf_major(hw, n, F)
+            hw, hw_sib = hw
+            sib = to_leaf_major(hw_sib, n, F)
+        if bundled:
+            # physical columns -> per-feature histograms; each member's
+            # default bin is rebuilt from the leaf totals below
+            hw = (tuple(expand_bundled(x, meta, B) for x in hw) if packed
+                  else expand_bundled(hw, meta, B))
+        child = to_leaf_major(hw, n, F)
+        if bundled:
+            def leaf_col(a):
+                return torch.as_tensor(a[smalls]).to(dev)
+            child = fix_default_bins(child, leaf_col(st.g), leaf_col(st.h),
+                                     leaf_col(st.c), meta)
+        if sib is None:
             sib = hist_subtract(hist[par_t], child)
         hist[torch.as_tensor(smalls, dtype=torch.int64).to(dev)] = child
         hist[torch.as_tensor(larges, dtype=torch.int64).to(dev)] = sib
@@ -313,8 +439,9 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         return n_rows
 
     def grow(bins_fm, g, h, sample_mask, feature_mask):
-        dev = bins_fm.device
-        F, N = bins_fm.shape
+        dev = g.device
+        N = g.shape[0]
+        F = int(meta.num_bins.shape[0])
         gv = (g * sample_mask).float()
         hv = (h * sample_mask).float()
         cv = sample_mask.float()
@@ -338,16 +465,17 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         sum_g, sum_h, cnt, out0 = torch.cat(
             [root, root_out[None]]).cpu().numpy()
 
-        st = _LeafState(L, P)
+        st = _LeafState(L, P, W)
         st.g[0], st.h[0], st.c[0], st.out[0] = sum_g, sum_h, cnt, out0
         st.pend_small[0] = 0
         st.pend_cnt = 1
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
         hist = torch.zeros((L + 1, F, B, 3), dtype=torch.float32, device=dev)
         # row-major twin of the feature-major bins, once per tree: every
-        # compaction gather reads one contiguous F-byte row, and the split
-        # apply reads each row's bin with one gather
-        bins_rm = bins_fm.t().contiguous()
+        # compaction gather reads one contiguous row, and the split apply
+        # reads each row's bin with one gather
+        bins_rm = (tuple(b.t().contiguous() for b in bins_fm)
+                   if mixed is not None else bins_fm.t().contiguous())
         n_waves = n_rows = 0
         while True:
             ready = st.ready_gains(L)

@@ -8,42 +8,54 @@
 // in one pass over the rows for every mode: f32 sums in the float modes,
 // exact integer sums in the int ones.
 //
-// Float modes (highest, bf16, 2xbf16): one pass over the rows into an f32
-// accumulator [F][B][S][4] of 16-byte cells (g, h, count, 0) in device
-// memory, zeroed by the wrapper (28 x 256 x 63 x 16 B = 7.2 MB at the main
-// shape, resident in the 50 MB L2), then an epilogue.  Every row is
-// loaded, mapped leaf -> slot (a table in shared memory) and rounded once,
-// and features are an inner loop (a warp of consecutive rows reads 32
-// contiguous bytes of bins[f]; kRun loads are issued before their adds).
-// For each feature the lanes of a warp that hit the same cell are grouped
-// with __match_any_sync and summed with shuffles (group_sum), so one lane
-// a group adds: on a feature with few bins, or a wave with one slot, a
-// whole warp would otherwise add into one cell.  The pass has two forms:
+// Float modes (highest, bf16, 2xbf16): one pass over the rows, then an
+// epilogue.  The g and h sums are fixed point, so they do not depend on
+// the order of the adds: each launch takes a power-of-two scale 2^k per
+// channel from max |g| and max |h| of the row stream (``amax``, one small
+// reduction on the device that the wrapper runs; no host read), with k
+// chosen so that N values of up to twice that maximum sum below 2^62.
+// Each rounded value is converted once, v * 2^k rounded to the nearest
+// int64 (exact for every value at or above 2^-k), and the sums are int64
+// adds.  The count channel stays f32: its addends are 0/1 (the wave
+// grower's count weights), whose f32 sums are exact, and so order-free,
+// below 2^24 rows a cell.  The accumulator, zeroed by the wrapper, is
+// [F][B][S][2] int64 (g, h) beside [F][B][S] f32 (count): 28 x 256 x 63 x
+// 20 B = 9 MB at the main shape, resident in the 50 MB L2.  Every row is
+// loaded, mapped leaf -> slot (a table in shared memory), rounded and
+// converted once, and features are an inner loop (a warp of consecutive
+// rows reads 32 contiguous bytes of bins[f]; kRun loads are issued before
+// their adds).  For each feature the lanes of a warp that hit the same
+// cell are grouped with __match_any_sync and summed with shuffles
+// (group_sum), so one lane a group adds: on a feature with few bins, or a
+// wave with one slot, a whole warp would otherwise add into one cell.
+// The pass has two forms:
 //
 //   hist_wave_float_rows: a grid-stride loop, one thread a row; each
-//     group's sum is one L2 vector reduction, atomicAdd(float4*), which
-//     compiles to REDG.E.ADD.F32x4 (the thread does not wait on it).  The
-//     L2 applies a 16-byte reduction at about the rate of a 4-byte one
-//     (lightgbm_tpu_torch/tools/l2_reduction_rate.cu), so one reduction
-//     per (row in a slot, feature) is this form's limit.
-//   hist_wave_float_private: for a wave whose whole [F][B][S][3] histogram
-//     fits in a block's shared memory (kPrivCap: the root and the next
-//     waves, S <= 2 at F = 28, B = 256).  Each block stages 1,024 rows
-//     (rounded values and slot) in shared memory, then warp w takes
-//     features w, w + 32, ...: one warp alone writes a feature's cells, so
-//     it adds with plain loads and stores, no atomics (add_private).  Its
-//     lanes settle who adds into a cell with one round of tags in shared
-//     memory (each lane writes its id to the cell's tag, the lane whose id
-//     stays adds) and group_sum for the lanes left; a warp whose last
-//     grouping merged many lanes (a feature with few bins) groups at once.
-//     __match_any_sync is the costly step on Hopper, and on spread bins
-//     the tag round leaves few lanes for it.  At the end the block reduces
-//     its nonzero cells into the accumulator.  These waves hold most rows
-//     (the root wave holds all of them) and concentrate them on few cells,
-//     where the L2 form is slowest.
+//     group's sum is two 64-bit L2 reductions and one f32 one
+//     (RED.E.ADD.64 x 2, RED.E.ADD.F32; the thread does not wait on
+//     them), so three reductions per (row in a slot, feature) bound this
+//     form (lightgbm_tpu_torch/tools/l2_reduction_rate.cu measures the
+//     L2's rates).
+//   hist_wave_float_private: for a wave whose whole [F][B][S] histogram
+//     (16 + 4 bytes a cell and a one-byte tag) fits in a block's shared
+//     memory (kFloatPrivCap: the root wave, S = 1 at F = 28, B = 256).  Each
+//     block stages 1,024 rows (converted g, h, count and slot) in shared
+//     memory, then warp w takes features w, w + 32, ...: one warp alone
+//     writes a feature's cells, so it adds with plain loads and stores,
+//     no atomics (add_private).  Its lanes settle who adds into a cell
+//     with one round of tags in shared memory (each lane writes its id to
+//     the cell's tag, the lane whose id stays adds) and group_sum for the
+//     lanes left; a warp whose last grouping merged many lanes (a feature
+//     with few bins) groups at once.  Which lane wins a tag depends on
+//     timing, but every add is an integer add (or an exact 0/1 count), so
+//     the sums do not.  At the end the block reduces its nonzero cells
+//     into the accumulator.  The root wave holds every row and
+//     concentrates them on few cells, where the L2 form is slowest.
 //
-//   epilogue (hist_wave_epilogue): reads the accumulator once, writes the
-//     output layout and, when fused, sibling = parent - child.
+//   epilogue (hist_wave_epilogue): reads the accumulator once, converts
+//     each fixed-point sum back through f64 (sum * 2^-k, rounded to f32
+//     once), writes the output layout and, when fused, sibling = parent -
+//     child.  One launch's sums are bit-equal from launch to launch.
 //
 // No float form adds into shared memory with atomics: f32 shared adds are
 // compare-and-swap loops on Hopper (ATOMS.CAST.SPIN), and a [B][S][3]
@@ -91,8 +103,7 @@
 // bf16(x), lo = bf16(x - hi), value hi + lo, exact in f32; bf16: hi;
 // highest: x).  The packed count goes through bf16 in every mode, as the
 // Pallas count pass does; the triple count lane takes the mode's rounding
-// like g and h.  The f32 reductions add in an order that changes from run
-// to run.  Dequantization of the int modes stays out of the kernel (the
+// like g and h.  Dequantization of the int modes stays out of the kernel (the
 // wave grower scales at split-scan time), and the build passes -fmad=false
 // so no multiply-add is ever contracted.
 //
@@ -106,7 +117,8 @@
 //
 // Preconditions (the wave grower meets them): the ``stride`` lanes of each
 // slot s < S map to one leaf, lanes from stride*S on are unused (-1), no
-// leaf appears in two slots, S <= 63 packed / 42 triple and B <= 256.
+// leaf appears in two slots, S <= 63 packed / 42 triple and B <= 256; in
+// the float modes the count weights are 0 or 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,7 +133,10 @@ constexpr int kIntThreads = 256;
 constexpr int kIntBlockRows = 65535;   // rows of a shared-form int block
 constexpr int kFloatThreads = 256;
 constexpr int kPrivThreads = 1024;
-constexpr int kPrivCap = 200 * 1024;   // privatized histogram + tags, bytes
+constexpr int kPrivCap = 200 * 1024;   // int shared-form tile, bytes
+constexpr int kFloatPrivCap = 192 * 1024;  // float private form + tags; its
+                                           // staging takes 24 KB more
+constexpr int kFixedBits = 61;   // N values of up to 2 * amax sum below 2^62
 constexpr int kRun = 4;          // bin loads in flight per thread
 constexpr int kCrowded = 8;      // lanes a grouping merges when crowded
 constexpr unsigned kFullWarp = 0xffffffffu;
@@ -137,6 +152,22 @@ __device__ __forceinline__ float round_mode(float x, int mode) {
   const float hi = bf16_round(x);
   if (mode == kBf16) return hi;
   return hi + bf16_round(x - hi);
+}
+
+// The scale exponent k of a float launch's fixed-point channel: with m <
+// 2^e (frexpf) the rounded values stay below 2^(e+1), so the sum of n of
+// them, times 2^k, stays below 2^62.
+__device__ __forceinline__ int fixed_shift(float m, int n) {
+  int e = 0;
+  frexpf(m, &e);
+  const int lg = n <= 1 ? 0 : 32 - __clz(n - 1);   // ceil(log2 n)
+  return kFixedBits - lg - e;
+}
+
+// A rounded value as a fixed-point integer: v * 2^k to the nearest int64
+// (the multiply by a power of two is exact).
+__device__ __forceinline__ long long to_fixed(float v, int k) {
+  return __float2ll_rn(ldexpf(v, k));
 }
 
 // The slot lookup of a block: slot_of[s] = the leaf of slot s, and
@@ -170,16 +201,16 @@ __device__ __forceinline__ int find_slot(int leaf, int S, const int* slot_of,
 // size)) rounds: each round every lane adds the running sum of its next
 // remaining peer, then the lanes of odd rank drop out.  Every lane of the
 // warp calls it; a lane alone in its group passes its own bit.
-template <typename T>
+template <typename T, typename U>
 __device__ __forceinline__ void sum_peers(unsigned peers, int lane, T& g,
-                                          T& h, T& c) {
+                                          T& h, U& c) {
   unsigned rank = __popc(peers & ((1u << lane) - 1u));
   unsigned rest = peers & ~((2u << lane) - 1u);   // peers above this lane
   while (__any_sync(kFullWarp, rest != 0)) {
     const int next = __ffs(rest) - 1;              // -1: none left
     const T tg = __shfl_sync(kFullWarp, g, next & 31);
     const T th = __shfl_sync(kFullWarp, h, next & 31);
-    const T tc = __shfl_sync(kFullWarp, c, next & 31);
+    const U tc = __shfl_sync(kFullWarp, c, next & 31);
     if (next >= 0) {
       g += tg;
       h += th;
@@ -190,17 +221,23 @@ __device__ __forceinline__ void sum_peers(unsigned peers, int lane, T& g,
   }
 }
 
-__device__ __forceinline__ void reduce_cell(float* cell, float g, float h,
+// Reduces a group's fixed-point (g, h) and f32 count into cell ``cell``
+// of the accumulator: two 64-bit reductions and one f32 one.
+__device__ __forceinline__ void reduce_cell(unsigned long long* acc_gh,
+                                            float* acc_c, size_t cell,
+                                            long long g, long long h,
                                             float c) {
-  atomicAdd(reinterpret_cast<float4*>(cell), make_float4(g, h, c, 0.0f));
+  atomicAdd(acc_gh + 2 * cell, static_cast<unsigned long long>(g));
+  atomicAdd(acc_gh + 2 * cell + 1, static_cast<unsigned long long>(h));
+  atomicAdd(acc_c + cell, c);
 }
 
 // Groups the lanes of the warp by ``key`` (the cell; -1: none) and sums
 // each group's (g, h, c) into its lowest lane, which gets true back.
 // Every lane of the warp calls it.
-template <typename T>
+template <typename T, typename U>
 __device__ __forceinline__ bool group_sum(int key, int lane, T& g, T& h,
-                                          T& c) {
+                                          U& c) {
   unsigned peers = __match_any_sync(kFullWarp, key);
   if (key < 0) peers = 1u << lane;
   sum_peers(peers, lane, g, h, c);
@@ -208,19 +245,20 @@ __device__ __forceinline__ bool group_sum(int key, int lane, T& g, T& h,
 }
 
 // Adds each lane's (g, h, c) into cell ``key`` (-1: none) of ``hist``
-// ([cells][3] f32 in shared memory that this warp alone writes) with
-// plain loads and stores.  Not ``crowded``: first one round of tags, in
+// ([cells][2] int64) and ``cnt`` ([cells] f32), in shared memory that
+// this warp alone writes, with plain loads and stores.  Not ``crowded``: first one round of tags, in
 // which each lane writes its id to tags[key] and the lane whose id stays
 // adds; the lanes left (cells that two or more lanes hit) then group with
 // group_sum.  ``crowded``: every lane groups at once, since a round of
 // tags would settle few.  Sets ``crowded`` when grouping merged more than
 // kCrowded lanes, as it does on a feature with few bins.  Every lane of
 // the warp calls it; the caller orders consecutive calls with __syncwarp.
-__device__ __forceinline__ void add_private(float* hist, uint8_t* tags,
-                                            int key, int lane, float g,
-                                            float h, float c, bool& crowded) {
+__device__ __forceinline__ void add_private(long long* hist, float* cnt,
+                                            uint8_t* tags, int key, int lane,
+                                            long long g, long long h, float c,
+                                            bool& crowded) {
   bool todo = key >= 0;
-  float* cell = hist + 3 * key;
+  long long* cell = hist + 2 * key;
   unsigned left = __ballot_sync(kFullWarp, todo);
   if (!crowded && left != 0) {
     if (todo) tags[key] = static_cast<uint8_t>(lane);
@@ -228,7 +266,7 @@ __device__ __forceinline__ void add_private(float* hist, uint8_t* tags,
     if (todo && tags[key] == lane) {
       cell[0] += g;
       cell[1] += h;
-      cell[2] += c;
+      cnt[key] += c;
       todo = false;
     }
     __syncwarp();    // orders the winners' adds before the groups'
@@ -239,22 +277,28 @@ __device__ __forceinline__ void add_private(float* hist, uint8_t* tags,
     if (lead) {
       cell[0] += g;
       cell[1] += h;
-      cell[2] += c;
+      cnt[key] += c;
     }
     crowded = __popc(left) - __popc(__ballot_sync(kFullWarp, lead)) >
               kCrowded;
   }
 }
 
-// The row pass into ``acc``: each group's sum is one L2 vector reduction.
+// The row pass into the accumulator: each group's sum is two 64-bit L2
+// reductions and one f32 one.
 __global__ void __launch_bounds__(kFloatThreads)
 hist_wave_float_rows(const uint8_t* __restrict__ bins,
                      const float4* __restrict__ vecs,
+                     const float* __restrict__ amax,
                      const int* __restrict__ slot_leaf, int F, int N, int B,
-                     int S, int stride, int mode, float* __restrict__ acc) {
+                     int S, int stride, int mode,
+                     unsigned long long* __restrict__ acc_gh,
+                     float* __restrict__ acc_c) {
   __shared__ int slot_of[kMaxSlots];
   __shared__ signed char table[kTable];
   load_slots(slot_leaf, S, stride, slot_of, table);
+  const int kg = fixed_shift(amax[0], N);
+  const int kh = fixed_shift(amax[1], N);
 
   const int lane = threadIdx.x & 31;
   const size_t rows = static_cast<size_t>(N);
@@ -271,8 +315,8 @@ hist_wave_float_rows(const uint8_t* __restrict__ bins,
     }
     const bool live = s >= 0;
     if (__ballot_sync(kFullWarp, live) == 0) continue;
-    const float g = round_mode(v.x, mode);
-    const float h = round_mode(v.y, mode);
+    const long long g = to_fixed(round_mode(v.x, mode), kg);
+    const long long h = to_fixed(round_mode(v.y, mode), kh);
     const float c = stride == 2 ? bf16_round(v.z) : round_mode(v.z, mode);
     const uint8_t* col = bins + r;
     for (int f0 = 0; f0 < F; f0 += kRun) {
@@ -288,9 +332,10 @@ hist_wave_float_rows(const uint8_t* __restrict__ bins,
         if (f >= F) break;
         // the Pallas one-hot has no lane for a bin >= B either
         const int key = b[u] < B ? b[u] * S + s : -1;   // the cell in f
-        float gs = g, hs = h, cs = c;
+        long long gs = g, hs = h;
+        float cs = c;
         if (group_sum(key, lane, gs, hs, cs)) {
-          reduce_cell(acc + 4 * (f * feature_cells + key), gs, hs, cs);
+          reduce_cell(acc_gh, acc_c, f * feature_cells + key, gs, hs, cs);
         }
       }
     }
@@ -298,27 +343,34 @@ hist_wave_float_rows(const uint8_t* __restrict__ bins,
 }
 
 // The row pass of a wave whose whole histogram fits in shared memory:
-// each block keeps a private [F][B][S][3] f32 copy, adds into it without
-// atomics, and reduces its nonzero cells into ``acc`` once at the end.
-// Per step the block stages kPrivThreads rows (rounded g, h, count and
-// slot) in shared memory; then warp w takes features w, w + 32, ..., so
+// each block keeps a private copy ([F][B][S][2] int64 and [F][B][S] f32),
+// adds into it without atomics, and reduces its nonzero cells into the
+// accumulator once at the end.  Per step the block stages kPrivThreads
+// rows (fixed-point g, h, the count and the slot) in shared memory; then warp w takes features w, w + 32, ..., so
 // one warp alone writes a feature's cells, and add_private settles which
 // lane adds into which cell.  Each (step, feature) starts not crowded.
 __global__ void __launch_bounds__(kPrivThreads)
 hist_wave_float_private(const uint8_t* __restrict__ bins,
                         const float4* __restrict__ vecs,
+                        const float* __restrict__ amax,
                         const int* __restrict__ slot_leaf, int F, int N,
                         int B, int S, int stride, int mode,
-                        float* __restrict__ acc) {
+                        unsigned long long* __restrict__ acc_gh,
+                        float* __restrict__ acc_c) {
   __shared__ int slot_of[kMaxSlots];
   __shared__ signed char table[kTable];
-  __shared__ float4 stage[kPrivThreads];     // (g, h, count, slot or -1)
-  extern __shared__ float priv[];            // [F][B][S][3], then tags
+  __shared__ longlong2 stage_gh[kPrivThreads];  // fixed-point (g, h)
+  __shared__ float2 stage_cs[kPrivThreads];     // (count, slot or -1)
+  extern __shared__ long long priv[];        // [F][B][S][2], counts, tags
   const int feature_cells = B * S;
   const int cells = F * feature_cells;
-  uint8_t* tags = reinterpret_cast<uint8_t*>(priv + 3 * cells);  // [F][B][S]
-  for (int i = threadIdx.x; i < 3 * cells; i += blockDim.x) priv[i] = 0.0f;
+  float* pcnt = reinterpret_cast<float*>(priv + 2 * cells);      // [F][B][S]
+  uint8_t* tags = reinterpret_cast<uint8_t*>(pcnt + cells);      // [F][B][S]
+  for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) priv[i] = 0;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) pcnt[i] = 0.0f;
   load_slots(slot_leaf, S, stride, slot_of, table);
+  const int kg = fixed_shift(amax[0], N);
+  const int kh = fixed_shift(amax[1], N);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -326,22 +378,26 @@ hist_wave_float_private(const uint8_t* __restrict__ bins,
   for (int base = blockIdx.x * kPrivThreads; base < N;
        base += gridDim.x * kPrivThreads) {
     const int r = base + threadIdx.x;
-    float4 row = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+    longlong2 gh = make_longlong2(0, 0);
+    float2 cs = make_float2(0.0f, -1.0f);
     if (r < N) {
       const float4 v = __ldcs(vecs + r);
       const int s = find_slot(static_cast<int>(v.w), S, slot_of, table);
       if (s >= 0) {
-        row = make_float4(round_mode(v.x, mode), round_mode(v.y, mode),
-                          stride == 2 ? bf16_round(v.z)
-                                      : round_mode(v.z, mode),
-                          static_cast<float>(s));
+        gh = make_longlong2(to_fixed(round_mode(v.x, mode), kg),
+                            to_fixed(round_mode(v.y, mode), kh));
+        cs = make_float2(stride == 2 ? bf16_round(v.z)
+                                     : round_mode(v.z, mode),
+                         static_cast<float>(s));
       }
     }
-    stage[threadIdx.x] = row;
+    stage_gh[threadIdx.x] = gh;
+    stage_cs[threadIdx.x] = cs;
     __syncthreads();
     for (int f = warp; f < F; f += warps) {
       const uint8_t* col = bins + static_cast<size_t>(f) * N + base;
-      float* hist = priv + 3 * f * feature_cells;
+      long long* hist = priv + 2 * f * feature_cells;
+      float* cnt = pcnt + f * feature_cells;
       uint8_t* ftags = tags + f * feature_cells;
       bool crowded = false;
       for (int j0 = 0; j0 < kPrivThreads; j0 += 32 * kRun) {
@@ -349,13 +405,15 @@ hist_wave_float_private(const uint8_t* __restrict__ bins,
 #pragma unroll
         for (int u = 0; u < kRun; ++u) {
           const int j = j0 + 32 * u + lane;
-          b[u] = stage[j].w >= 0.0f ? __ldcs(col + j) : B;
+          b[u] = stage_cs[j].y >= 0.0f ? __ldcs(col + j) : B;
         }
 #pragma unroll
         for (int u = 0; u < kRun; ++u) {
-          const float4 x = stage[j0 + 32 * u + lane];
-          const int key = b[u] < B ? b[u] * S + static_cast<int>(x.w) : -1;
-          add_private(hist, ftags, key, lane, x.x, x.y, x.z, crowded);
+          const int j = j0 + 32 * u + lane;
+          const longlong2 x = stage_gh[j];
+          const float2 y = stage_cs[j];
+          const int key = b[u] < B ? b[u] * S + static_cast<int>(y.y) : -1;
+          add_private(hist, cnt, ftags, key, lane, x.x, x.y, y.x, crowded);
           __syncwarp();    // orders this step's writes before the next's
         }
       }
@@ -363,9 +421,10 @@ hist_wave_float_private(const uint8_t* __restrict__ bins,
     __syncthreads();
   }
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float* p = priv + 3 * i;
-    if (p[0] != 0.0f || p[1] != 0.0f || p[2] != 0.0f) {
-      reduce_cell(acc + 4 * static_cast<size_t>(i), p[0], p[1], p[2]);
+    const long long g = priv[2 * i], h = priv[2 * i + 1];
+    const float c = pcnt[i];
+    if (g != 0 || h != 0 || c != 0.0f) {
+      reduce_cell(acc_gh, acc_c, i, g, h, c);
     }
   }
 }
@@ -585,25 +644,37 @@ hist_wave_int_private(const uint8_t* __restrict__ bins,
   }
 }
 
-// Sum k of accumulator cell ``cell``: the f32 accumulator's [F][B][S][4]
-// cells, or the packed int64 one's (field k of W plus E_k, converted to
-// f32 once).
-__device__ __forceinline__ float cell_sum(const float* acc, size_t cell,
-                                          int k) {
-  return acc[4 * cell + k];
-}
+// The float modes' accumulator: sum k of a cell is its fixed-point g or h
+// sum times 2^-k (through f64, rounded to f32 once), or its f32 count.
+struct FixedAcc {
+  const unsigned long long* gh;
+  const float* c;
+  const float* amax;
+  int n;
+  __device__ float operator()(size_t cell, int k) const {
+    if (k == 2) return c[cell];
+    const long long v = static_cast<long long>(gh[2 * cell + k]);
+    return __double2float_rn(
+        ldexp(static_cast<double>(v), -fixed_shift(amax[k], n)));
+  }
+};
 
-__device__ __forceinline__ float cell_sum(const unsigned long long* acc,
-                                          size_t cell, int k) {
-  long long d[3];
-  unpack(acc[4 * cell], d[0], d[1], d[2]);
-  return __ll2float_rn(d[k] + static_cast<long long>(acc[4 * cell + 1 + k]));
-}
+// The int modes' packed accumulator: sum k of a cell is field k of W plus
+// E_k, converted to f32 once.
+struct PackedAcc {
+  const unsigned long long* acc;
+  __device__ float operator()(size_t cell, int k) const {
+    long long d[3];
+    unpack(acc[4 * cell], d[0], d[1], d[2]);
+    return __ll2float_rn(d[k] +
+                         static_cast<long long>(acc[4 * cell + 1 + k]));
+  }
+};
 
 // Reads the accumulator once and writes the output layout and, when
 // fused, sibling = parent - child.
 template <typename Acc>
-__global__ void hist_wave_epilogue(const Acc* acc, int F, int B, int S,
+__global__ void hist_wave_epilogue(Acc cell_sum, int F, int B, int S,
                                    int stride, const float* par0,
                                    const float* par1, float* out0,
                                    float* out1, float* sib0, float* sib1) {
@@ -614,8 +685,8 @@ __global__ void hist_wave_epilogue(const Acc* acc, int F, int B, int S,
   const size_t cell = static_cast<size_t>(idx / kLanes) * S;  // (f, b, 0)
   if (stride == 2) {
     const int s = c >> 1;
-    const float gh = s < S ? cell_sum(acc, cell + s, c & 1) : 0.0f;
-    const float ct = c < S ? cell_sum(acc, cell + c, 2) : 0.0f;
+    const float gh = s < S ? cell_sum(cell + s, c & 1) : 0.0f;
+    const float ct = c < S ? cell_sum(cell + c, 2) : 0.0f;
     out0[idx] = gh;
     out1[idx] = ct;
     if (sib0 != nullptr) {
@@ -624,7 +695,7 @@ __global__ void hist_wave_epilogue(const Acc* acc, int F, int B, int S,
     }
   } else {
     const int s = c / 3;
-    const float v = s < S ? cell_sum(acc, cell + s, c % 3) : 0.0f;
+    const float v = s < S ? cell_sum(cell + s, c % 3) : 0.0f;
     out0[idx] = v;
     if (sib0 != nullptr) sib0[idx] = par0[idx] - v;
   }
@@ -647,17 +718,21 @@ int resident_blocks(Kernel kernel, int threads, int smem) {
 }
 
 // The float row pass.  A wave whose whole histogram and its tags fit
-// kPrivCap takes the privatized pass when each block gets at least twice as many rows as
-// a feature has cells (its final flush then costs less than its rows);
-// every other wave reduces straight into ``acc``.  The grid is the blocks
+// kFloatPrivCap takes the privatized pass when each block gets at least
+// twice as many rows as a feature has cells (its final flush then costs
+// less than its rows); every other wave reduces straight into the
+// accumulator.  The grid is the blocks
 // the card holds at once (more would run as a second, partial wave), or
 // fewer for few rows.
 int launch_float_rows(const uint8_t* bins, const float4* vecs,
-                      const int* slot_leaf, int F, int N, int B, int S,
-                      int stride, int mode, float* acc, cudaStream_t st) {
-  // f32 (g, h, count) and a one-byte tag per cell
-  const long long priv = (3LL * sizeof(float) + 1) * F * B * S;
-  if (priv <= kPrivCap) {
+                      const float* amax, const int* slot_leaf, int F, int N,
+                      int B, int S, int stride, int mode,
+                      unsigned long long* acc_gh, float* acc_c,
+                      cudaStream_t st) {
+  // int64 (g, h), f32 count and a one-byte tag per cell
+  const long long priv =
+      (2LL * sizeof(long long) + sizeof(float) + 1) * F * B * S;
+  if (priv <= kFloatPrivCap) {
     const int smem = static_cast<int>(priv);
     const cudaError_t err = cudaFuncSetAttribute(
         hist_wave_float_private, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -668,7 +743,8 @@ int launch_float_rows(const uint8_t* bins, const float4* vecs,
                                          kPrivThreads, smem));
     if (grid > 0 && N / grid >= 2 * B * S) {
       hist_wave_float_private<<<grid, kPrivThreads, smem, st>>>(
-          bins, vecs, slot_leaf, F, N, B, S, stride, mode, acc);
+          bins, vecs, amax, slot_leaf, F, N, B, S, stride, mode, acc_gh,
+          acc_c);
       return static_cast<int>(cudaGetLastError());
     }
   }
@@ -679,7 +755,7 @@ int launch_float_rows(const uint8_t* bins, const float4* vecs,
   const int grid = min((N + kFloatThreads - 1) / kFloatThreads,
                        max(resident, 1));
   hist_wave_float_rows<<<grid, kFloatThreads, 0, st>>>(
-      bins, vecs, slot_leaf, F, N, B, S, stride, mode, acc);
+      bins, vecs, amax, slot_leaf, F, N, B, S, stride, mode, acc_gh, acc_c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,7 +809,7 @@ int launch_int_rows(const uint8_t* bins, const float* gv, const float* hv,
 }
 
 template <typename Acc>
-int launch_epilogue(const Acc* acc, int F, int B, int S, int stride,
+int launch_epilogue(Acc acc, int F, int B, int S, int stride,
                     const float* par0, const float* par1, float* out0,
                     float* out1, float* sib0, float* sib1, cudaStream_t st) {
   const int total = F * B * kLanes;
@@ -747,25 +823,28 @@ int launch_epilogue(const Acc* acc, int F, int B, int S, int stride,
 }  // namespace
 
 // Float modes: launches the row pass and the epilogue on ``stream``.
-// ``vecs`` is [N, 4] f32 (g, h, count, leaf id), ``acc`` the f32
-// accumulator [F, B, S, 4], zeroed.  ``*1`` pointers are null in the
-// triple layout, ``par*``/``sib*`` for the unfused call.  Returns
+// ``vecs`` is [N, 4] f32 (g, h, count, leaf id), ``amax`` [2] f32 the
+// largest |g| and |h| of ``vecs`` (it sets the fixed-point scales),
+// ``acc_gh`` the [F, B, S, 2] int64 and ``acc_c`` the [F, B, S] f32
+// accumulator, both zeroed.  ``*1`` pointers are null in the triple
+// layout, ``par*``/``sib*`` for the unfused call.  Returns
 // cudaGetLastError() after the launches (0 = ok).
 extern "C" int lgbm_hist_wave(const uint8_t* bins, const float* vecs,
-                              const int* slot_leaf, int F, int N, int B,
-                              int S, int stride, int mode, float* acc,
-                              const float* par0, const float* par1,
-                              float* out0, float* out1, float* sib0,
-                              float* sib1, void* stream) {
+                              const float* amax, const int* slot_leaf, int F,
+                              int N, int B, int S, int stride, int mode,
+                              void* acc_gh, float* acc_c, const float* par0,
+                              const float* par1, float* out0, float* out1,
+                              float* sib0, float* sib1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* gh = static_cast<unsigned long long*>(acc_gh);
   if (F > 0 && N > 0 && S > 0) {
     const int err = launch_float_rows(
-        bins, reinterpret_cast<const float4*>(vecs), slot_leaf, F, N, B, S,
-        stride, mode, acc, st);
+        bins, reinterpret_cast<const float4*>(vecs), amax, slot_leaf, F, N,
+        B, S, stride, mode, gh, acc_c, st);
     if (err != 0) return err;
   }
-  return launch_epilogue<float>(acc, F, B, S, stride, par0, par1, out0, out1,
-                                sib0, sib1, st);
+  return launch_epilogue(FixedAcc{gh, acc_c, amax, N}, F, B, S, stride,
+                         par0, par1, out0, out1, sib0, sib1, st);
 }
 
 // Int modes (int16, int8): the same for f32 g, h and count weights [N]
@@ -786,7 +865,6 @@ extern "C" int lgbm_hist_wave_int(const uint8_t* bins, const float* gv,
                                     B, S, stride, packed, st);
     if (err != 0) return err;
   }
-  return launch_epilogue<unsigned long long>(packed, F, B, S, stride, par0,
-                                             par1, out0, out1, sib0, sib1,
-                                             st);
+  return launch_epilogue(PackedAcc{packed}, F, B, S, stride, par0, par1,
+                         out0, out1, sib0, sib1, st);
 }

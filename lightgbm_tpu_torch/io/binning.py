@@ -7,12 +7,13 @@ count bin boundaries over a value sample, zero isolated in its own bin,
 user-forced bounds, and the three missing modes {None, Zero, NaN}.  The
 g++ fast path (``native/``) runs where the JAX package takes its own, and
 the numpy path stays as its fallback; both produce the JAX package's bins
-byte for byte.  Categorical mapping is not ported yet.
+byte for byte.  Categorical features map count-ordered categories to bins
+(reference: bin.cpp:424-497).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -244,6 +245,8 @@ class BinMapper:
         self.min_val: float = 0.0
         self.max_val: float = 0.0
         self.bin_upper_bound: np.ndarray = np.array([np.inf])
+        self.bin_2_categorical: List[int] = []
+        self.categorical_2_bin: Dict[int, int] = {}
         self.default_bin: int = 0
         self.most_freq_bin: int = 0
 
@@ -251,10 +254,11 @@ class BinMapper:
                  min_data_in_bin: int = 3, min_split_data: int = 20,
                  use_missing: bool = True,
                  zero_as_missing: bool = False,
-                 forced_bounds: Optional[Sequence[float]] = None) -> None:
+                 forced_bounds: Optional[Sequence[float]] = None,
+                 bin_type: int = BIN_NUMERICAL) -> None:
         """Build the mapping from a value sample. ``values`` excludes zeros;
         ``total_sample_cnt - len(values)`` are implicit zeros;
-        ``forced_bounds`` are the user's bounds for this feature
+        ``forced_bounds`` are the user's bounds for a numerical feature
         (reference: BinMapper::FindBin, bin.cpp:325)."""
         values = np.asarray(values, dtype=np.float64)
         nan_mask = np.isnan(values)
@@ -267,41 +271,46 @@ class BinMapper:
         else:
             self.missing_type = MISSING_NAN if na_cnt > 0 else MISSING_NONE
 
-        self.bin_type = BIN_NUMERICAL
+        self.bin_type = bin_type
         self.default_bin = 0
         zero_cnt = int(total_sample_cnt - len(values) - na_cnt)
         distinct, counts = _distinct_with_zero(values, zero_cnt)
         self.min_val = float(distinct[0])
         self.max_val = float(distinct[-1])
 
-        if self.missing_type == MISSING_NAN:
-            eff_max_bin, eff_total = max_bin - 1, total_sample_cnt - na_cnt
+        if bin_type == BIN_CATEGORICAL:
+            cnt_in_bin = self._find_bin_categorical(
+                distinct, counts, total_sample_cnt, na_cnt, max_bin,
+                min_data_in_bin)
         else:
-            eff_max_bin, eff_total = max_bin, total_sample_cnt
-        if forced_bounds:
-            bounds = find_bin_with_predefined_bounds(
-                distinct, counts, eff_max_bin, eff_total, min_data_in_bin,
-                list(forced_bounds))
-        else:
-            bounds = find_bin_with_zero_as_one_bin(
-                distinct, counts, eff_max_bin, eff_total, min_data_in_bin)
-        if self.missing_type == MISSING_ZERO and len(bounds) == 2:
-            self.missing_type = MISSING_NONE
-        if self.missing_type == MISSING_NAN:
-            bounds.append(math.nan)
-        self.bin_upper_bound = np.asarray(bounds)
-        self.num_bin = len(bounds)
-        # each distinct value lands in the first bin whose upper bound is
-        # >= it (bounds ascend; the count loop of the reference)
-        n_num = (self.num_bin - 1 if self.missing_type == MISSING_NAN
-                 else self.num_bin)
-        which = np.searchsorted(self.bin_upper_bound[:n_num - 1],
-                                distinct, side="left")
-        cnt_in_bin = np.bincount(
-            which, weights=counts, minlength=self.num_bin).astype(np.int64)
-        if self.missing_type == MISSING_NAN:
-            cnt_in_bin[-1] = na_cnt
-        log.check(self.num_bin <= max_bin, "num_bin exceeds max_bin")
+            if self.missing_type == MISSING_NAN:
+                eff_max_bin, eff_total = max_bin - 1, total_sample_cnt - na_cnt
+            else:
+                eff_max_bin, eff_total = max_bin, total_sample_cnt
+            if forced_bounds:
+                bounds = find_bin_with_predefined_bounds(
+                    distinct, counts, eff_max_bin, eff_total,
+                    min_data_in_bin, list(forced_bounds))
+            else:
+                bounds = find_bin_with_zero_as_one_bin(
+                    distinct, counts, eff_max_bin, eff_total, min_data_in_bin)
+            if self.missing_type == MISSING_ZERO and len(bounds) == 2:
+                self.missing_type = MISSING_NONE
+            if self.missing_type == MISSING_NAN:
+                bounds.append(math.nan)
+            self.bin_upper_bound = np.asarray(bounds)
+            self.num_bin = len(bounds)
+            # each distinct value lands in the first bin whose upper bound
+            # is >= it (bounds ascend; the count loop of the reference)
+            n_num = (self.num_bin - 1 if self.missing_type == MISSING_NAN
+                     else self.num_bin)
+            which = np.searchsorted(self.bin_upper_bound[:n_num - 1],
+                                    distinct, side="left")
+            cnt_in_bin = np.bincount(
+                which, weights=counts, minlength=self.num_bin).astype(np.int64)
+            if self.missing_type == MISSING_NAN:
+                cnt_in_bin[-1] = na_cnt
+            log.check(self.num_bin <= max_bin, "num_bin exceeds max_bin")
 
         self.is_trivial = self.num_bin <= 1
         if not self.is_trivial and self._need_filter(cnt_in_bin, total_sample_cnt,
@@ -309,6 +318,9 @@ class BinMapper:
             self.is_trivial = True
         if not self.is_trivial:
             self.default_bin = int(self.value_to_bin(0.0))
+            if bin_type == BIN_CATEGORICAL:
+                log.check(self.default_bin > 0,
+                          "categorical default_bin must be > 0")
             self.most_freq_bin = int(np.argmax(cnt_in_bin))
             self.sparse_rate = float(cnt_in_bin[self.default_bin]) / max(total_sample_cnt, 1)
             max_rate = float(cnt_in_bin[self.most_freq_bin]) / max(total_sample_cnt, 1)
@@ -319,12 +331,74 @@ class BinMapper:
         else:
             self.sparse_rate = 1.0
 
-    @staticmethod
-    def _need_filter(cnt_in_bin: np.ndarray, total_cnt: int,
+    def _find_bin_categorical(self, distinct, counts, total_sample_cnt,
+                              na_cnt, max_bin, min_data_in_bin):
+        """Count-ordered categorical mapping; rare categories and negatives
+        go to the NaN bin (reference: bin.cpp:424-497)."""
+        vals_int: List[int] = []
+        counts_int: List[int] = []
+        for v, c in zip(distinct, counts):
+            iv = int(v)
+            if iv < 0:
+                na_cnt += int(c)
+                log.warning("Met negative value in categorical features, "
+                            "converting to NaN")
+            elif vals_int and iv == vals_int[-1]:
+                counts_int[-1] += int(c)
+            else:
+                vals_int.append(iv)
+                counts_int.append(int(c))
+        self.num_bin = 0
+        cnt_in_bin: List[int] = []
+        rest_cnt = total_sample_cnt - na_cnt
+        if rest_cnt > 0 and vals_int:
+            order = np.argsort(np.asarray(counts_int), kind="stable")[::-1]
+            vals_sorted = [vals_int[i] for i in order]
+            cnts_sorted = [counts_int[i] for i in order]
+            # bin 0 must not be category 0 (0 is the default value)
+            if vals_sorted[0] == 0:
+                if len(vals_sorted) == 1:
+                    vals_sorted.append(vals_sorted[0] + 1)
+                    cnts_sorted.append(0)
+                vals_sorted[0], vals_sorted[1] = vals_sorted[1], vals_sorted[0]
+                cnts_sorted[0], cnts_sorted[1] = cnts_sorted[1], cnts_sorted[0]
+            cut_cnt = int((total_sample_cnt - na_cnt) * 0.99)
+            eff_max_bin = min(len(vals_sorted), max_bin)
+            self.categorical_2_bin = {}
+            self.bin_2_categorical = []
+            used_cnt = 0
+            cur = 0
+            while cur < len(vals_sorted) and (used_cnt < cut_cnt
+                                              or self.num_bin < eff_max_bin):
+                if cnts_sorted[cur] < min_data_in_bin and cur > 1:
+                    break
+                self.bin_2_categorical.append(vals_sorted[cur])
+                self.categorical_2_bin[vals_sorted[cur]] = self.num_bin
+                used_cnt += cnts_sorted[cur]
+                cnt_in_bin.append(cnts_sorted[cur])
+                self.num_bin += 1
+                cur += 1
+            if cur == len(vals_sorted) and na_cnt > 0:
+                self.bin_2_categorical.append(-1)
+                self.categorical_2_bin[-1] = self.num_bin
+                cnt_in_bin.append(0)
+                self.num_bin += 1
+            self.missing_type = (MISSING_NONE if cur == len(vals_sorted)
+                                 and na_cnt == 0 else MISSING_NAN)
+            if cnt_in_bin:
+                cnt_in_bin[-1] += total_sample_cnt - used_cnt
+        return np.asarray(cnt_in_bin, dtype=np.int64)
+
+    def _need_filter(self, cnt_in_bin: np.ndarray, total_cnt: int,
                      filter_cnt: int) -> bool:
-        """True if no split on this feature could satisfy min_data_in_leaf on
-        both sides (reference: NeedFilter, bin.cpp:54-76)."""
-        left = np.cumsum(cnt_in_bin[:-1])
+        """True if no split on this feature could satisfy min_data_in_leaf
+        on both sides (reference: NeedFilter, bin.cpp:54-76): a numerical
+        feature at every boundary, a categorical one only with <= 2 bins,
+        one bin at a time."""
+        if self.bin_type != BIN_NUMERICAL and len(cnt_in_bin) > 2:
+            return False
+        left = (np.cumsum(cnt_in_bin[:-1]) if self.bin_type == BIN_NUMERICAL
+                else np.asarray(cnt_in_bin[:-1]))
         return not bool(np.any((left >= filter_cnt)
                                & (total_cnt - left >= filter_cnt)))
 
@@ -332,6 +406,13 @@ class BinMapper:
         """Vectorized value->bin (reference: BinMapper::ValueToBin, bin.h:472)."""
         scalar = np.isscalar(value)
         v = np.atleast_1d(np.asarray(value, dtype=np.float64))
+        if self.bin_type == BIN_CATEGORICAL:
+            # NaN reads as category 0 unless the NaN bin exists
+            # (reference: bin.h:473-478); unmatched values take the last bin
+            res = self._categories_to_bins(
+                np.where(np.isnan(v) & (self.missing_type != MISSING_NAN),
+                         0.0, v), self.num_bin - 1)
+            return int(res[0]) if scalar else res
         n_search = self.num_bin - (1 if self.missing_type == MISSING_NAN else 0)
         if _native.lib() is not None and v.ndim == 1 and len(v) > 1024:
             res = _native.binarize_numerical(
@@ -348,6 +429,41 @@ class BinMapper:
             out = np.where(nan, self.num_bin - 1, out)
         res = out.astype(np.int32)
         return int(res[0]) if scalar else res
+
+    def _categories_to_bins(self, v: np.ndarray, other: int) -> np.ndarray:
+        """Each value's category bin (the value cast to int) through a
+        table over the category range, ``other`` where the category has
+        no bin; NaN reads as category -1."""
+        res = np.full(v.shape, other, dtype=np.int32)
+        cats = np.asarray([c for c in self.categorical_2_bin if c >= 0],
+                          np.int64)
+        iv = np.where(np.isnan(v), -1, v).astype(np.int64)
+        if len(cats):
+            table = np.full(int(cats.max()) + 1, other, np.int32)
+            table[cats] = [self.categorical_2_bin[int(c)] for c in cats]
+            ok = (iv >= 0) & (iv < len(table))
+            res[ok] = table[iv[ok]]
+        if -1 in self.categorical_2_bin:
+            res[iv == -1] = self.categorical_2_bin[-1]
+        return res
+
+    def value_to_bin_predict(self, value, sentinel: int) -> np.ndarray:
+        """Prediction-time value->bin of a CATEGORICAL feature: NaN,
+        negative and unseen categories map to ``sentinel``, a bin outside
+        every node's bitset, so bin-space traversal routes them right, as
+        the reference's CategoricalDecision does (tree.h:262-303)."""
+        v = np.atleast_1d(np.asarray(value, dtype=np.float64))
+        res = np.full(v.shape, sentinel, dtype=np.int32)
+        ok = ~np.isnan(v) & (v >= 0)
+        cats = np.asarray([c for c in self.categorical_2_bin if c >= 0],
+                          np.int64)
+        if len(cats):
+            iv = np.where(ok, v, -1).astype(np.int64)
+            table = np.full(int(cats.max()) + 1, sentinel, np.int32)
+            table[cats] = [self.categorical_2_bin[int(c)] for c in cats]
+            inside = (iv >= 0) & (iv < len(table))
+            res[inside] = table[iv[inside]]
+        return res
 
     @classmethod
     def from_thresholds(cls, thresholds, missing_type: int = MISSING_NONE
@@ -385,26 +501,69 @@ class BinMapper:
         return m
 
     @classmethod
+    def categorical_from_categories(cls, categories) -> "BinMapper":
+        """Model-derived CATEGORICAL mapper (the reference package's
+        ``BinMapper.categorical_from_categories``): the bins are the
+        category values the forest's bitsets reference, plus a trailing
+        NaN/unseen bin that no bitset contains.  Bin 0 is not category 0
+        (``_find_bin_categorical``'s convention)."""
+        m = cls()
+        cats = sorted({int(c) for c in categories if int(c) >= 0})
+        if not cats:
+            return m  # trivial: the model references no category
+        if cats[0] == 0:
+            if len(cats) == 1:
+                cats.append(1)
+            cats[0], cats[1] = cats[1], cats[0]
+        cats.append(-1)  # NaN / unseen catch-all, never in a bitset
+        m.bin_2_categorical = cats
+        m.categorical_2_bin = {c: i for i, c in enumerate(cats)}
+        m.num_bin = len(cats)
+        m.bin_type = BIN_CATEGORICAL
+        m.missing_type = MISSING_NAN
+        m.is_trivial = False
+        m.sparse_rate = 0.0
+        m.min_val = float(min(c for c in cats if c >= 0))
+        m.max_val = float(max(cats))
+        m.default_bin = int(m.value_to_bin(0.0))
+        m.most_freq_bin = m.default_bin
+        return m
+
+    def to_dict(self) -> dict:
+        """The mapper's state, as the reference package's ``to_dict``."""
+        return {
+            "num_bin": self.num_bin, "missing_type": self.missing_type,
+            "is_trivial": self.is_trivial, "sparse_rate": self.sparse_rate,
+            "bin_type": self.bin_type, "min_val": self.min_val,
+            "max_val": self.max_val,
+            "bin_upper_bound": [float(x) for x in self.bin_upper_bound],
+            "bin_2_categorical": list(self.bin_2_categorical),
+            "default_bin": self.default_bin,
+            "most_freq_bin": self.most_freq_bin,
+        }
+
+    @classmethod
     def from_dict(cls, d: dict) -> "BinMapper":
         """Mapper from the reference package's ``BinMapper.to_dict()``
         state."""
-        if int(d["bin_type"]) != BIN_NUMERICAL:
-            log.fatal("categorical bin mappers are not in the PyTorch port "
-                      "yet (ROADMAP.md port queue: categorical/EFB/mixed "
-                      "width)")
         m = cls()
         m.num_bin = int(d["num_bin"])
         m.missing_type = int(d["missing_type"])
         m.is_trivial = bool(d["is_trivial"])
         m.sparse_rate = float(d["sparse_rate"])
-        m.bin_type = BIN_NUMERICAL
+        m.bin_type = int(d["bin_type"])
         m.min_val = float(d["min_val"])
         m.max_val = float(d["max_val"])
         m.bin_upper_bound = np.asarray(d["bin_upper_bound"], dtype=np.float64)
+        m.bin_2_categorical = [int(x) for x in d.get("bin_2_categorical", [])]
+        m.categorical_2_bin = {c: i for i, c in enumerate(m.bin_2_categorical)}
         m.default_bin = int(d["default_bin"])
         m.most_freq_bin = int(d["most_freq_bin"])
         return m
 
     def bin_to_value(self, bin_idx: int) -> float:
-        """Representative threshold value for a bin (its upper bound)."""
+        """A numerical bin's representative threshold (its upper bound), a
+        categorical bin's category."""
+        if self.bin_type == BIN_CATEGORICAL:
+            return float(self.bin_2_categorical[bin_idx])
         return float(self.bin_upper_bound[bin_idx])

@@ -1,16 +1,19 @@
 """Binned dataset (counterpart of lightgbm_tpu/io/dataset.py): dense
-numeric matrices only.
+matrices of numerical and categorical features.
 
-``X_bin[num_data, num_features]`` uint8 holds the bin of every used
-(non-trivial) feature; it is built on the host exactly as the reference
-package builds it — same row sample, same bin mappers (``max_bin_by_feature``
-and forced bins included), same bytes, through the native binning loop
-where it loads.
+``X_bin[num_data, num_phys_features]`` holds the bin of every used
+(non-trivial) feature, or, where Exclusive Feature Bundling packs sparse
+features together (``io/bundling.py``), of every physical column; it is
+uint8 while every column has at most 256 bins and uint16 above.  It is
+built on the host exactly as the reference package builds it — same row
+sample, same bin mappers (categorical ones, ``max_bin_by_feature`` and
+forced bins included), same bundles, same bytes, through the native
+binning loop where it loads.
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -19,11 +22,7 @@ from ..config import Config
 from ..utils import log
 from ..utils.random import Random
 from ..utils.timetag import timetag
-from .binning import MISSING_NAN, BinMapper
-
-# EFB considers features whose default-bin share reaches this rate
-# (lightgbm_tpu/io/bundling.py find_groups sparse_threshold)
-_EFB_SPARSE_RATE = 0.8
+from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN, BinMapper
 
 
 class Metadata:
@@ -43,9 +42,10 @@ class Metadata:
 class BinnedDataset:
     """The constructed training dataset (reference: Dataset, dataset.h:283).
 
-    X_bin: uint8 [num_data, num_features] (used features only);
-    bin_mappers: one per ORIGINAL column; used_feature_map: original ->
-    inner index (-1 unused); real_feature_idx: inner -> original."""
+    X_bin: uint8/uint16 [num_data, num_phys_features] (used features
+    only, bundled where ``bundle`` is set); bin_mappers: one per ORIGINAL
+    column; used_feature_map: original -> inner index (-1 unused);
+    real_feature_idx: inner -> original."""
 
     def __init__(self):
         self.num_data: int = 0
@@ -57,10 +57,26 @@ class BinnedDataset:
         self.bin_offsets: Optional[np.ndarray] = None
         self.metadata: Metadata = Metadata()
         self.feature_names: List[str] = []
+        self.max_bin: int = 255
+        # EFB bundles (io.bundling.BundleInfo; None = no bundling)
+        self.bundle = None
 
     @property
     def num_features(self) -> int:
+        """Used (inner) features, not physical columns: with EFB several
+        features share one ``X_bin`` column."""
         return 0 if self.real_feature_idx is None else len(self.real_feature_idx)
+
+    @property
+    def num_phys_features(self) -> int:
+        """Physical ``X_bin`` columns (``num_features`` unless bundled)."""
+        return 0 if self.X_bin is None else self.X_bin.shape[1]
+
+    def phys_max_bins(self) -> np.ndarray:
+        """Bins per PHYSICAL column (the histogram kernels' width)."""
+        if self.bundle is not None:
+            return self.bundle.phys_num_bin
+        return self.feature_max_bins()
 
     def inner_to_mapper(self, inner_feature: int) -> BinMapper:
         return self.bin_mappers[int(self.real_feature_idx[inner_feature])]
@@ -71,12 +87,15 @@ class BinnedDataset:
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, config: Config,
+                    categorical_features: Sequence[int] = (),
                     feature_names: Optional[List[str]] = None,
                     reference: Optional["BinnedDataset"] = None
                     ) -> "BinnedDataset":
         """Construct from a dense float matrix: sample rows, find per-feature
-        bin bounds, binarize every row (reference: dataset_loader.cpp:574,
-        bin.cpp:325, dataset.cpp:265).  With ``reference`` the mappers are
+        bin bounds (categorical for the columns in
+        ``categorical_features``), bundle exclusive sparse features,
+        binarize every row (reference: dataset_loader.cpp:574, bin.cpp:325,
+        dataset.cpp:265).  With ``reference`` the mappers and bundles are
         shared, so validation data lands in the training bin space."""
         data = np.asarray(data)
         if data.dtype not in (np.float32, np.float64):
@@ -98,6 +117,8 @@ class BinnedDataset:
             ds.real_feature_idx = reference.real_feature_idx
             ds.bin_offsets = reference.bin_offsets
             ds.feature_names = reference.feature_names
+            ds.max_bin = reference.max_bin
+            ds.bundle = reference.bundle
             ds._binarize(data)
             return ds
 
@@ -112,6 +133,8 @@ class BinnedDataset:
         ds.metadata = Metadata(n)
         ds.feature_names = (list(feature_names) if feature_names
                             else [f"Column_{i}" for i in range(p)])
+        ds.max_bin = config.max_bin
+        cat_set = set(int(c) for c in categorical_features)
         forced = _load_forced_bins(config.forcedbins_filename, p,
                                    config.max_bin)
         # min-data filter threshold scaled to the bin-finding sample
@@ -135,11 +158,22 @@ class BinnedDataset:
                                 mbf[j] if mbf else config.max_bin,
                                 config.min_data_in_bin, filter_cnt,
                                 config.use_missing, config.zero_as_missing,
-                                forced.get(j))
+                                forced.get(j),
+                                bin_type=(BIN_CATEGORICAL if j in cat_set
+                                          else BIN_NUMERICAL))
                 ds.bin_mappers.append(mapper)
         ds._finalize_features()
-        if config.enable_bundle:
-            ds._refuse_bundling(sample)
+        if (config.enable_bundle and len(ds.real_feature_idx) >= 2
+                and config.max_bin <= 255):
+            from .bundling import build_bundles
+            # wide-sparse datasets get uint16-wide bundle columns so EFB
+            # can pack hundreds of features a column (the reference's rule)
+            wide = len(ds.real_feature_idx) > 2048
+            bundle = build_bundles(ds.bin_mappers, ds.real_feature_idx,
+                                   sample, n, config.max_conflict_rate,
+                                   max_bins_per_group=4096 if wide else 256)
+            if not bundle.is_trivial:
+                ds.bundle = bundle
         ds._binarize(data)
         return ds
 
@@ -154,45 +188,66 @@ class BinnedDataset:
         if not used:
             log.warning("There are no meaningful features, as all feature values are constant.")
 
-    def _refuse_bundling(self, sample: np.ndarray) -> None:
-        """EFB (lightgbm_tpu/io/bundling.py) may only bundle features whose
-        default-bin share in the sample reaches 0.8, and needs two of them.
-        Where two such features exist the reference package might bundle,
-        so the port refuses rather than train a different tree."""
-        sparse = 0
-        for j in self.real_feature_idx:
-            m = self.bin_mappers[int(j)]
-            fb = m.value_to_bin(sample[:, int(j)])
-            rate = 1.0 - np.count_nonzero(fb != m.default_bin) / max(len(fb), 1)
-            sparse += rate >= _EFB_SPARSE_RATE
-        if sparse >= 2:
-            log.fatal("this dataset has sparse features that Exclusive "
-                      "Feature Bundling may pack, and EFB is not in the "
-                      "PyTorch port yet (ROADMAP.md port queue: "
-                      "categorical/EFB/mixed width); pass "
-                      "enable_bundle=false")
+    def _bin_matrix_spec(self):
+        """``(columns, dtype)`` of the physical bin matrix (reference:
+        dataset.py ``_bin_matrix_spec``): sized by the actual bin counts,
+        since a categorical feature can hold more bins than ``max_bin``."""
+        if self.bundle is not None:
+            widest = int(max(self.bundle.phys_num_bin.max(initial=0),
+                             self.feature_max_bins().max(initial=0)))
+            cols = self.bundle.num_phys
+        else:
+            widest = int(self.feature_max_bins().max(initial=0))
+            cols = len(self.real_feature_idx)
+        dtype = (np.uint8 if widest <= 256
+                 else np.uint16 if widest <= 65536 else np.uint32)
+        if dtype != np.uint8 and self.max_bin <= 256:
+            log.warning(
+                "A feature has %d bins (> 256, from a high-cardinality "
+                "categorical); the whole binned matrix is widened to %s",
+                widest, np.dtype(dtype).name)
+        return cols, dtype
+
+    def _feature_bins(self, data: np.ndarray, inner: int) -> np.ndarray:
+        """Bins of inner feature ``inner`` for every row of ``data``."""
+        return self.inner_to_mapper(inner).value_to_bin(
+            data[:, int(self.real_feature_idx[inner])])
 
     def _binarize(self, data: np.ndarray) -> None:
         """Bin every row into ``X_bin`` (reference: dataset.py
-        ``_binarize_chunk``).  With the native library each used column is
-        binned in place, strided, straight into its uint8 column of
-        ``X_bin`` (the reference copies the columns feature-major first;
-        the bytes are the same, without the f64 copy); otherwise
-        ``value_to_bin`` column by column."""
+        ``_binarize_chunk`` / ``_binarize_bundled_chunk``).  With the
+        native library each numerical column of a uint8 matrix is binned
+        in place, strided, straight into its column of ``X_bin`` (the
+        reference copies the columns feature-major first; the bytes are
+        the same, without the f64 copy); every other column goes through
+        ``value_to_bin``, and a bundle's members through
+        ``io/bundling.py encode_column``."""
+        from .bundling import encode_column
         used = self.real_feature_idx
-        X = np.empty((self.num_data, len(used)), dtype=np.uint8)
-        fast = _native.lib() is not None
+        cols, dtype = self._bin_matrix_spec()
+        X = np.empty((self.num_data, cols), dtype=dtype)
+        fast = _native.lib() is not None and dtype == np.uint8
+        groups = (self.bundle.groups if self.bundle is not None
+                  else [[i] for i in range(len(used))])
         with timetag("binarize"):
-            for inner, j in enumerate(used):
-                m = self.bin_mappers[int(j)]
-                if fast:
+            for gp, members in enumerate(groups):
+                if len(members) > 1:
+                    X[:, gp] = encode_column(
+                        self.bundle, members,
+                        [self._feature_bins(data, i) for i in members],
+                        [self.inner_to_mapper(i).default_bin
+                         for i in members], self.num_data, dtype)
+                    continue
+                inner = members[0]
+                m = self.inner_to_mapper(inner)
+                if fast and m.bin_type == BIN_NUMERICAL:
                     ns = m.num_bin - (1 if m.missing_type == MISSING_NAN
                                       else 0)
                     _native.binarize_numerical_u8(
-                        data[:, int(j)], m.bin_upper_bound, ns - 1,
-                        m.missing_type, m.num_bin, X[:, inner])
+                        data[:, int(used[inner])], m.bin_upper_bound, ns - 1,
+                        m.missing_type, m.num_bin, X[:, gp])
                 else:
-                    X[:, inner] = m.value_to_bin(data[:, int(j)])
+                    X[:, gp] = self._feature_bins(data, inner)
         self.X_bin = X
 
 

@@ -17,6 +17,7 @@ import numpy as np
 
 from ..boosting.gbdt import PredictorBase
 from ..core.tree import Tree
+from .binning import BIN_CATEGORICAL
 from ..utils import log
 
 
@@ -63,6 +64,17 @@ def tree_to_string(tree: Tree, index: int) -> str:
     ])
 
 
+def _feature_info(m) -> str:
+    """A mapper's ``feature_infos`` entry: ``none`` (trivial), the sorted
+    categories (categorical) or ``[min:max]``."""
+    if m.is_trivial:
+        return "none"
+    if m.bin_type == BIN_CATEGORICAL:
+        return ":".join(str(c) for c in sorted(
+            c for c in m.bin_2_categorical if c >= 0))
+    return f"[{_fmt(m.min_val)}:{_fmt(m.max_val)}]"
+
+
 def model_to_string(gbdt, num_iteration: int = -1,
                     start_iteration: int = 0) -> str:
     """(reference: GBDT::SaveModelToString, gbdt_model_text.cpp:271-368).
@@ -74,9 +86,7 @@ def model_to_string(gbdt, num_iteration: int = -1,
     ds = gbdt.train_ds
     if ds is not None:
         feature_names = list(ds.feature_names)
-        infos = ["none" if m.is_trivial
-                 else f"[{_fmt(m.min_val)}:{_fmt(m.max_val)}]"
-                 for m in ds.bin_mappers]
+        infos = [_feature_info(m) for m in ds.bin_mappers]
     else:
         feature_names = list(gbdt.feature_names)
         infos = list(gbdt.feature_infos)
@@ -200,10 +210,11 @@ class LoadedGBDT(PredictorBase):
 
 def load_model_string(model_str: str, device) -> LoadedGBDT:
     """Parse LightGBM model text (the port's, the JAX package's or the
-    reference's) into a booster that predicts on ``device``.  An objective
-    the port cannot build leaves ``objective=None``: raw scores only."""
-    from ..config import Config
-    from ..objective import create_objective
+    reference's) into a booster that predicts on ``device``.  The header's
+    objective is built for prediction (``objective_from_model``); a name
+    the port cannot build leaves raw scores only, and asking for converted
+    predictions then raises."""
+    from ..objective import objective_from_model
 
     header: Dict[str, str] = {}
     pos = model_str.find("\nTree=")
@@ -214,20 +225,14 @@ def load_model_string(model_str: str, device) -> LoadedGBDT:
             header[k.strip()] = v.strip()
     average_output = "average_output" in head_part.splitlines()
 
-    objective = None
     obj_str = header.get("objective", "custom") or "custom"
-    if obj_str != "custom":
-        parts = obj_str.split()
-        params = {"objective": parts[0], "verbosity": log.verbosity()}
-        for tok in parts[1:]:
-            if ":" in tok:
-                k, v = tok.split(":", 1)
-                params[k] = v
-        try:
-            objective = create_objective(Config.from_params(params))
-        except log.LightGBMError as exc:
-            log.warning("Objective %r of the model file is not built: %s; "
-                        "predictions are raw scores", obj_str, exc)
+    num_class = int(header.get("num_class", "1"))
+    objective, objective_error = None, None
+    try:
+        objective = objective_from_model(obj_str, num_class)
+    except log.LightGBMError as exc:
+        objective_error = (f"the model's objective {obj_str!r} is not built "
+                           f"({exc}); predict with raw_score=True")
 
     models: List[Tree] = []
     for chunk in model_str.split("\nTree=")[1:]:
@@ -242,11 +247,13 @@ def load_model_string(model_str: str, device) -> LoadedGBDT:
         max_feature_idx = int(header.get("max_feature_idx", "-1"))
     except ValueError:
         max_feature_idx = -1
-    return LoadedGBDT(models, int(header.get("num_tree_per_iteration", "1")),
-                      objective, obj_str, int(header.get("num_class", "1")),
+    gbdt = LoadedGBDT(models, int(header.get("num_tree_per_iteration", "1")),
+                      objective, obj_str, num_class,
                       header.get("feature_names", "").split(),
                       header.get("feature_infos", "").split(),
                       average_output, max_feature_idx, device)
+    gbdt.objective_error = objective_error
+    return gbdt
 
 
 def load_model_file(path: str, device) -> LoadedGBDT:

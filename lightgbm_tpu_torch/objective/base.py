@@ -7,6 +7,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.log import refuse
+
+# the ROADMAP.md port-queue item that brings training with the objectives
+# a loaded model may name
+OTHER_OBJECTIVES = ("the rest of queue 1 — multiclass, ranking and the "
+                    "other objectives")
+
 
 class Objective:
     """Base objective: ``get_gradients`` is elementwise torch on the score's
@@ -44,3 +51,18 @@ class Objective:
 
     def __str__(self) -> str:
         return self.name
+
+
+class PredictionObjective(Objective):
+    """An objective a loaded model names: ``convert_output`` is ported, so
+    the model predicts what the JAX package predicts; training with it is
+    not in the port yet and raises naming that item."""
+
+    def init(self, metadata, num_data: int, device) -> None:
+        refuse(f"training with objective={self.name}", OTHER_OBJECTIVES)
+
+    def get_gradients(self, score):
+        refuse(f"gradients of objective={self.name}", OTHER_OBJECTIVES)
+
+    def boost_from_score(self, class_id: int = 0) -> float:
+        refuse(f"boost_from_score of objective={self.name}", OTHER_OBJECTIVES)

@@ -27,7 +27,7 @@ NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (argument types, result type)
 _SIGNATURES = {
-    "lgbm_hist_wave": ([_P] * 3 + [_I] * 6 + [_P] * 8, _I),
+    "lgbm_hist_wave": ([_P] * 4 + [_I] * 6 + [_P] * 9, _I),
     "lgbm_hist_wave_int": ([_P] * 6 + [_I] * 5 + [_P] * 8, _I),
     "lgbm_hist_channels": ([_P] * 2 + [_I] * 6 + [_P] * 3, _I),
     "lgbm_hist_channels_smem_bytes": ([_I], _I),

@@ -30,15 +30,16 @@ On Hopper (``csrc/hist_wave.cu``) the function's byte bound is the
 histogram traffic per launch.  Every mode takes one pass over the rows:
 one thread a row, the row's values and slot found once, features in an
 inner loop, the lanes of a warp that hit the same cell summed first.  The
-sums go into an accumulator [F, B, S, 4] in device memory (L2-resident,
+sums go into an accumulator [F, B, S, ...] in device memory (L2-resident,
 zeroed here with each launch), or, in a wave whose whole histogram fits in
-shared memory (at 28 features x 256 bins one or two slots: the root wave
-and the next two), into a per-block copy there that is added into the
+shared memory (at 28 features x 256 bins: the root wave, and in the int
+modes the next two), into a per-block copy there that is added into the
 accumulator once; an epilogue writes the layout and the sibling.
 
-* float modes: an f32 accumulator; one 16-byte vector reduction a group;
-  the shared-memory copy is written by one warp a feature without atomics
-  (f32 shared atomics are compare-and-swap loops on Hopper);
+* float modes: a fixed-point int64 (g, h) accumulator beside an f32 count
+  one; two 64-bit reductions and one f32 reduction a group; the
+  shared-memory copy (one slot at 28 x 256) is written by one warp a
+  feature without atomics;
 * int modes: a packed int64 accumulator, each cell's three sums in one
   64-bit word that one atomic adds (with corrections for the fields that
   wrap), so the sums are exact at any number of rows; the shared-memory
@@ -46,13 +47,15 @@ accumulator once; an epilogue writes the layout and the sibling.
   and also takes larger waves in tiles of two features or more (up to 33
   slots at 28 x 256) when a block's rows outnumber a feature's cells.
 
-The source's header says more.  The float reductions add in an order
-that changes from run to run, so the kernel's g/h sums agree with
-``hist_wave_plain`` to f32 rounding (within 1e-5 of each cell's sum of
-magnitudes in a cell of up to 1,000 rows, sqrt(n / 1000) times that in a
-cell of n rows more: the rounding of either f32 sum grows as sqrt(n)),
-counts exactly.  The int modes add integers and equal the plain version
-bit for bit.
+The source's header says more.  In the float modes the kernel sums g and
+h in fixed point (int64, a power-of-two scale per launch from the
+stream's max |g| and |h|), so its sums do not depend on the order of the
+adds: two launches on the same inputs are bit-equal.  They agree with
+``hist_wave_plain``'s f32 sums to f32 rounding (within 1e-5 of each
+cell's sum of magnitudes in a cell of up to 1,000 rows, sqrt(n / 1000)
+times that in a cell of n rows more: the rounding of the plain f32 sum
+grows as sqrt(n)), counts exactly (the count weights are 0 or 1).  The
+int modes add integers and equal the plain version bit for bit.
 
 ``hist_wave`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -232,8 +235,14 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
         # leaf ids ride the f32 vector stream like the Pallas kernel's
         # (exact below 2^24)
         vecs = torch.stack([gv, hv, cv, leaf_id.float()], 1)
-        # the f32 accumulator [F, B, S, 4] the row pass reduces into
-        acc = torch.zeros(F * B * S * 4, dtype=torch.float32, device=dev)
+        # max |g| and |h| of the stream set the launch's fixed-point
+        # scales; one reduction on the device, never read on the host
+        amax = (vecs[:, :2].abs().amax(0) if N else
+                torch.zeros(2, dtype=torch.float32, device=dev))
+        # the fixed-point g/h accumulator [F, B, S, 2] and the f32 count
+        # one [F, B, S] the row pass reduces into
+        acc = torch.zeros(F * B * S * 2, dtype=torch.int64, device=dev)
+        acc_c = torch.zeros(F * B * S, dtype=torch.float32, device=dev)
     outs = [torch.empty(hist_shape, dtype=torch.float32, device=dev)
             for _ in range(n_out)] + [None] * (2 - n_out)
     sibs = [None, None]
@@ -244,20 +253,23 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    tail = (ptr(acc), ptr(pars[0]), ptr(pars[1]), ptr(outs[0]),
-            ptr(outs[1]), ptr(sibs[0]), ptr(sibs[1]),
+    tail = (ptr(pars[0]), ptr(pars[1]), ptr(outs[0]), ptr(outs[1]),
+            ptr(sibs[0]), ptr(sibs[1]),
             torch.cuda.current_stream(dev).cuda_stream)
     stride = 2 if packed else 3
     if quant:
         err = lib.lgbm_hist_wave_int(ptr(bins_fm), ptr(gv), ptr(hv), ptr(cv),
                                      ptr(leaf), ptr(slot_leaf), F, N, B, S,
-                                     stride, *tail)
+                                     stride, ptr(acc), *tail)
     else:
-        err = lib.lgbm_hist_wave(ptr(bins_fm), ptr(vecs), ptr(slot_leaf), F,
-                                 N, B, S, stride, _MODES[mode], *tail)
+        err = lib.lgbm_hist_wave(ptr(bins_fm), ptr(vecs), ptr(amax),
+                                 ptr(slot_leaf), F, N, B, S, stride,
+                                 _MODES[mode], ptr(acc), ptr(acc_c), *tail)
     _build.check_launch("hist_wave", err)
     hist_wave.launches += 1
     hist_wave.layout_launches["packed" if packed else "triple"] += 1
+    hist_wave.sibling_launches["fused" if parent is not None
+                               else "unfused"] += 1
     child = tuple(outs) if packed else outs[0]
     if parent is None:
         return child
@@ -266,3 +278,4 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
 
 hist_wave.launches = 0                                   # all launches
 hist_wave.layout_launches = {"packed": 0, "triple": 0}   # by layout
+hist_wave.sibling_launches = {"fused": 0, "unfused": 0}  # by sibling form

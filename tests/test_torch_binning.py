@@ -6,7 +6,6 @@ import pytest
 
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.io.dataset import BinnedDataset
-from lightgbm_tpu_torch.utils.log import LightGBMError
 
 
 def _matrix(n=5000, f=8, seed=0):
@@ -54,18 +53,26 @@ def test_bins_identical_to_reference(params, seed):
 
 
 def test_bundling_candidates_refused():
-    """Two mostly-zero columns are EFB candidates: the port refuses them
-    unless bundling is off, and then bins like the reference."""
+    """Two mostly-zero, mutually exclusive columns are EFB candidates.  The
+    port once refused them; it now bundles them as the reference does
+    (same groups, same bytes), and with bundling off bins them like the
+    reference too."""
     pytest.importorskip("jax")
     from lightgbm_tpu.config import Config as RefConfig
     from lightgbm_tpu.io.dataset import BinnedDataset as RefDataset
     X = _matrix(seed=5)
     rng = np.random.default_rng(5)
     for j in (0, 3):
-        X[rng.random(size=len(X)) < 0.9, j] = 0.0
-    with pytest.raises(LightGBMError, match="EFB"):
-        BinnedDataset.from_matrix(X, Config())
+        X[(rng.random(size=len(X)) < 0.9) | np.isnan(X[:, j]), j] = 0.0
+    X[X[:, 0] != 0.0, 3] = 0.0          # never non-zero in the same row
+    # 63 bins each: two columns fit one 256-bin group
+    port = BinnedDataset.from_matrix(X, Config.from_params({"max_bin": 63}))
+    ref = RefDataset.from_matrix(X, RefConfig.from_params({"max_bin": 63}))
+    assert ref.bundle is not None and port.bundle is not None
+    assert port.bundle.groups == ref.bundle.groups
+    assert port.X_bin.tobytes() == ref.X_bin.tobytes()
     off = {"enable_bundle": False}
     port = BinnedDataset.from_matrix(X, Config.from_params(off))
     ref = RefDataset.from_matrix(X, RefConfig.from_params(off))
+    assert port.bundle is None
     assert port.X_bin.tobytes() == ref.X_bin.tobytes()

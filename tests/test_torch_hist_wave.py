@@ -567,3 +567,35 @@ def test_quantized_kernel_at_the_shared_memory_boundary_on_card(S):
     arrs, parent = _quant_inputs("int16", N=200_000, F=28, B=256,
                                  leaves=2 * S, seed=70 + S, n_slots=S)
     _int_card_equal(arrs, 256, "int16", True, parent, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("many_slots", [False, True])
+@pytest.mark.parametrize("mode", ["2xbf16", "highest"])
+def test_float_kernel_is_repeatable_on_card(mode, many_slots, packed, fused):
+    """The float modes sum g and h in fixed point, so two launches on the
+    same inputs are bit-equal: skewed bins at one slot (the shared-memory
+    form, the whole histogram in a block) and at the layout's most slots
+    (the L2 form), in both layouts, fused and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    bins, gv, hv, cv, _, _, parent = _inputs(N=200_000, F=7, B=256, seed=80)
+    bins = _skew(bins, seed=81)
+    S = hw.wave_capacity_max(packed) if many_slots else 1
+    rng = np.random.default_rng(82)
+    leaf = rng.integers(0, 2 * S, size=bins.shape[1]).astype(np.int32)
+    slot = _slots(rng.permutation(2 * S)[:S], packed)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+         for a in (bins, gv, hv, cv, leaf, slot)]
+    par = None
+    if fused:
+        par = (tuple(torch.from_numpy(p).cuda() for p in parent) if packed
+               else torch.from_numpy(parent[0]).cuda())
+    first = _leaves(hw.hist_wave(*t, 256, highest=mode, packed=packed,
+                                 parent=par, num_slots=S))
+    second = _leaves(hw.hist_wave(*t, 256, highest=mode, packed=packed,
+                                  parent=par, num_slots=S))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -136,3 +136,95 @@ def test_loaded_booster_surface():
         bst.predict(rows, pred_contrib=True)
     with pytest.raises(TypeError):
         lt.Booster(device="cpu")
+
+
+def _objective_data(objective, n=600, f=5, seed=0):
+    """Seeded normal features and labels the objective accepts."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f))
+    lin = 0.6 * X[:, 0] - 0.4 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]
+    if objective == "regression":
+        y = lin + 0.1 * rng.normal(size=n)
+    elif objective == "poisson":
+        y = rng.poisson(np.exp(0.5 * lin)).astype(np.float64)
+    elif objective in ("gamma", "tweedie"):
+        y = rng.gamma(2.0, np.exp(0.3 * lin))
+    elif objective in ("multiclass", "multiclassova"):
+        y = np.argmax(X[:, :3] + 0.5 * rng.normal(size=(n, 3)), 1)
+        y = y.astype(np.float64)
+    else:                                       # cross entropy: [0, 1]
+        y = 1.0 / (1.0 + np.exp(-lin - 0.3 * rng.normal(size=n)))
+    return X, y
+
+
+_JAX_MODELS = {}
+
+
+def _jax_model(objective, rounds=3, **extra):
+    """A JAX-package booster of ``rounds`` trees of 7 leaves, cached."""
+    key = (objective, rounds, tuple(sorted(extra.items())))
+    if key not in _JAX_MODELS:
+        pytest.importorskip("jax")
+        import lightgbm_tpu as lgb
+        X, y = _objective_data(objective)
+        params = {"objective": objective, "num_leaves": 7,
+                  "min_data_in_leaf": 20, "verbose": -1, **extra}
+        _JAX_MODELS[key] = (X, lgb.train(params, lgb.Dataset(X, label=y),
+                                         rounds))
+    return _JAX_MODELS[key]
+
+
+@pytest.mark.parametrize("objective,extra", [
+    ("regression", {}), ("poisson", {}), ("gamma", {}), ("tweedie", {}),
+    ("multiclass", {"num_class": 3}), ("multiclassova", {"num_class": 3}),
+    ("cross_entropy", {}), ("cross_entropy_lambda", {})])
+def test_loaded_objective_converts_like_the_jax_package(objective, extra):
+    """A JAX-trained model of each objective, loaded from its text,
+    predicts what the JAX package predicts, raw and converted (the
+    objective's convert_output), at 1e-6."""
+    X, ref = _jax_model(objective, **extra)
+    port = lt.Booster(model_str=ref.model_to_string(), device="cpu")
+    rows = X[:50]
+    for raw in (True, False):
+        np.testing.assert_allclose(port.predict(rows, raw_score=raw),
+                                   ref.predict(rows, raw_score=raw),
+                                   rtol=0, atol=1e-6)
+    if objective not in ("regression",):
+        # the conversion is not the identity: raw and converted differ
+        assert not np.allclose(port.predict(rows),
+                               port.predict(rows, raw_score=True))
+
+
+def test_loaded_cross_entropy_early_stop_is_binary():
+    """cross_entropy takes the binary margin early stop, as in the JAX
+    package (boosting/gbdt.py _early_stop_spec)."""
+    X, ref = _jax_model("cross_entropy", rounds=12)
+    port = lt.Booster(model_str=ref.model_to_string(), device="cpu")
+    got = port.predict(X, pred_early_stop=True, pred_early_stop_freq=1,
+                       pred_early_stop_margin=0.5)
+    cfg = ref._gbdt.config
+    saved = (cfg.pred_early_stop, cfg.pred_early_stop_freq,
+             cfg.pred_early_stop_margin)
+    cfg.pred_early_stop, cfg.pred_early_stop_freq = True, 1
+    cfg.pred_early_stop_margin = 0.5
+    try:
+        want = ref.predict(X)
+    finally:
+        (cfg.pred_early_stop, cfg.pred_early_stop_freq,
+         cfg.pred_early_stop_margin) = saved
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert not np.allclose(got, port.predict(X), rtol=0, atol=1e-6)
+
+
+def test_unknown_objective_predicts_raw_only():
+    """A header objective the port cannot build: raw scores still predict,
+    converted ones raise instead of returning raw scores silently."""
+    X, ref = _jax_model("poisson")
+    text = ref.model_to_string().replace("objective=poisson",
+                                         "objective=not_an_objective")
+    port = lt.Booster(model_str=text, device="cpu")
+    np.testing.assert_allclose(port.predict(X[:20], raw_score=True),
+                               ref.predict(X[:20], raw_score=True),
+                               rtol=0, atol=1e-6)
+    with pytest.raises(lt.LightGBMError, match="not_an_objective"):
+        port.predict(X[:20])

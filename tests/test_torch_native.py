@@ -106,8 +106,10 @@ def test_max_bin_by_feature_checks():
     with pytest.raises(LightGBMError, match="same size"):
         BinnedDataset.from_matrix(
             X, Config.from_params({"max_bin_by_feature": [15, 15]}))
-    with pytest.raises(LightGBMError, match="ROADMAP"):
-        Config.from_params({"max_bin_by_feature": [15, 300] + [15] * 6})
+    # values above 255 are allowed now (wide columns); 1 or less is not
+    with pytest.raises(LightGBMError, match="greater than 1"):
+        BinnedDataset.from_matrix(X, Config.from_params(
+            {"max_bin_by_feature": [15, 1] + [15] * 6}))
 
 
 @pytest.mark.parametrize("delim,header,label", [

@@ -83,5 +83,7 @@ def test_config_quantized_modes_and_bagging():
             cfg.pos_bagging_fraction) == (11, 0.5, 2, 0.4)
     with pytest.raises(LightGBMError, match="bagging_fraction"):
         Config.from_params({"bagging_fraction": 0.0})
-    with pytest.raises(LightGBMError, match="GOSS"):
-        Config.from_params({"boosting": "goss"})
+    # GOSS is in the port; DART and RF are refused
+    assert Config.from_params({"boosting": "goss"}).boosting == "goss"
+    with pytest.raises(LightGBMError, match="DART"):
+        Config.from_params({"boosting": "dart"})
