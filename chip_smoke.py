@@ -87,7 +87,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``max_bin_by_feature`` 1023 (255 elsewhere), 5 rounds, trained twice:
    both the narrow (K1, triple) and the wide (side-pass) group non-empty,
    K1's triple layout and the side-pass launched, equal model digests;
-   the side-pass's time per wave by CUDA events.
+   the side-pass's time per wave by CUDA events;
+12. multiclass: 581,012 x 54 Covertype-shaped rows (10 continuous
+   columns, a 4-column wilderness and a 40-column soil one-hot that EFB
+   bundles, 7 classes with Covertype's shares; seed 3): K1 packed
+   unfused at the bundled column count against its plain version;
+   ``objective=multiclass, num_class=7``, 255 leaves, 5 rounds (35 trees),
+   trained twice on one Dataset with one digest, multi_logloss falling
+   every round; one profiled iteration; device prediction of every row,
+   probabilities within 1e-6 of the host walk on the first 20,000; 2
+   rounds of multiclassova;
+13. lambdarank: 2,270,296 x 136 MSLR-WEB30K-shaped rows (bench.py's
+   ``_rank_data``: query sizes from ``ops/rank.py mslr_like_sizes``,
+   grades 0-4): K1 packed fused at F = 136 against its plain version;
+   bench.py ``_run_rank``'s parameters (255 leaves, min_data_in_leaf 50,
+   min_sum_hessian_in_leaf 5, eval_at 10), 5 rounds, trained twice with
+   one digest; one profiled iteration; the pair pass's ms per iteration by
+   CUDA events against its bound (``rank_pair_cost``); the device NDCG@10
+   within 1e-6 of the host loop; peak device memory;
+14. regression: the headline 1,000,000 x 28 rows with a seeded noisy
+   blend for the label and seeded positive sample weights, ``regression``
+   and ``quantile`` (alpha 0.9: the host leaf refit, its time broken out),
+   5 rounds each, each trained twice with one digest, the metric falling
+   every round.
 
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
@@ -96,7 +118,8 @@ of its model text (equal digests, equal trees).  Prints a
 ``{"kernels": [...]}`` line (``launches`` from each kernel's path,
 ``training_path_launches`` over the three training phases,
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
-and errors) and, last, the device line
+and errors), a ``{"pair_pass": {...}}`` line (the lambdarank pair pass,
+torch, with its bound) and, last, the device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
 lightgbm_tpu.
 """
@@ -384,6 +407,24 @@ def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
     return tag, res
 
 
+def print_check(k, kind, card):
+    """One kernel-vs-plain result line."""
+    print(f"{k['tag']}: max_abs_err {k['max_abs_err']:.3g}, kernel "
+          f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, index_add_ "
+          f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+          f"{k['bound_by']} ({k['bytes']} bytes, {k['ops']} adds) "
+          f"[{kind}, {card}]", flush=True)
+
+
+def phase_check(hw, res, key, N, F, leaves, fused, seed, kind, card):
+    """K1 (2xbf16, packed) against its plain version at a training phase's
+    shape, recorded in ``res`` under ``key`` like the phase-2 cases."""
+    n0 = hw.hist_wave.launches
+    tag, res[key] = check_kernel(hw, N, F, 256, leaves, fused, "2xbf16", seed)
+    res[key].update(tag=tag, check_launches=hw.hist_wave.launches - n0)
+    print_check(res[key], kind, card)
+
+
 def check_channels(hc, N, F, B, C, seed, skew=False):
     """K2 against its plain version on one shape, and two launches on the
     same inputs bit-equal (every cell has one owner, the chunks are summed
@@ -527,8 +568,8 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
                 callbacks=None, layout="k1_packed"):
     """One training phase on the card with every launch count set to 0
     just before and read just after; checks one K1 launch of ``layout``
-    or more per wave.  Returns (booster, counts, logloss, AUC, median
-    ms/iter)."""
+    or more per wave.  Returns (booster, counts, the training set's metric
+    curves by name, median ms/iter)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     reset_counts(hw, hc)
@@ -541,13 +582,13 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
     gb = bst._gbdt
     waves = [w for w, _ in gb.wave_stats]
     rows = [r for _, r in gb.wave_stats]
-    if len(gb.models) != rounds:
+    if len(gb.models) != rounds * gb.num_tpi:
         raise AssertionError(f"{name}: trained {len(gb.models)} trees, "
-                             f"expected {rounds}")
+                             f"expected {rounds * gb.num_tpi}")
     if launches < sum(waves) or launches == 0:
         raise AssertionError(f"{name}: K1 launched {launches} times for "
                              f"{sum(waves)} waves")
-    loss, auc = ev["train"]["binary_logloss"], ev["train"]["auc"]
+    curves = ev["train"]
     per_iter = gb.iter_seconds[1:]
     print(f"{name}: leaves/tree {[t.num_leaves for t in gb.models]}, "
           f"waves/tree {waves}, rows histogrammed/tree {rows}, "
@@ -556,9 +597,9 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
           f"{float(np.median(per_iter)):.4f}), first {gb.iter_seconds[0]:.4f};"
           f" peak device memory {torch.cuda.max_memory_allocated()} bytes "
           f"[{kind}, {card}]", flush=True)
-    print(f"{name}: train logloss {loss}, auc {auc}; model digest "
-          f"{model_digest(bst)}", flush=True)
-    return bst, counts, loss, auc, float(np.median(per_iter)) * 1e3
+    print(f"{name}: train {dict(curves)}; model digest {model_digest(bst)}",
+          flush=True)
+    return bst, counts, curves, float(np.median(per_iter)) * 1e3
 
 
 def goss_phase(lt, hw, hc, params, ds, kind, card):
@@ -577,10 +618,11 @@ def goss_phase(lt, hw, hc, params, ds, kind, card):
         devices.add(mask.device.type)
         shares.append(float(mask.mean()))
     rounds = 14
-    bst, counts, loss, _, _ = train_phase(
+    bst, counts, curves, _ = train_phase(
         lt, hw, hc, "GOSS path", {**params, "boosting": "goss",
                                   "top_rate": 0.2, "other_rate": 0.1},
         ds, kind, card, rounds=rounds, callbacks=[record])
+    loss = curves["binary_logloss"]
     gb = bst._gbdt
     unsampled, sampled = gb.iter_seconds[1:10], gb.iter_seconds[10:]
     p = other_k / (N - top_k)
@@ -657,9 +699,10 @@ def cat_efb_phase(lt, hw, hc, params, kind, card):
     if h.bundle is None or h.num_phys_features > 28 + 4 + 4:
         raise AssertionError(f"EFB gave {h.num_phys_features} physical "
                              "columns, expected at most 36")
-    bst, counts, loss, auc, iter_ms = train_phase(
+    bst, counts, curves, iter_ms = train_phase(
         lt, hw, hc, "categorical + EFB path", params, ds, kind, card,
         layout="k1_unfused")
+    auc = curves["auc"]
     if counts["k1_fused"] or counts["k1_triple"]:
         raise AssertionError(f"bundled path launched {counts}")
     n_cat = sum(t.num_cat for t in bst._gbdt.models)
@@ -702,7 +745,7 @@ def mixed_phase(lt, hw, hc, params, kind, card):
                     params=mparams).construct()
     runs = []
     for i in range(2):
-        bst, counts, _, _, _ = train_phase(
+        bst, counts, _, _ = train_phase(
             lt, hw, hc, f"mixed-width path (run {i + 1})", mparams, ds,
             kind, card, layout="k1_triple")
         runs.append((bst, counts, model_digest(bst)))
@@ -970,7 +1013,7 @@ def cli_phase(lt, kind, card, rows=200_000):
             if r.returncode != 0:
                 raise AssertionError(f"CLI task={task} exited "
                                      f"{r.returncode}: {r.stderr[-2000:]}")
-        Xf, _, _ = load_text(data, Config())
+        Xf = load_text(data, Config())[0]
         want = lt.Booster(model_file=model).predict(Xf)
         got = np.loadtxt(out)
         err = float(np.abs(got - want).max())
@@ -982,6 +1025,249 @@ def cli_phase(lt, kind, card, rows=200_000):
           f"[{kind}, {card}]", flush=True)
     if trees != 5 or err > 1e-10:
         raise AssertionError("CLI output disagrees with Booster.predict")
+
+
+COVTYPE_ROWS = 581_012
+# Covertype's class shares (cover types 1-7 of its 581,012 rows)
+COVTYPE_SHARES = (0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035)
+
+
+def covertype_like(rows: int = COVTYPE_ROWS, seed: int = 3):
+    """Covertype-shaped multiclass data: 10 integer-valued continuous
+    columns at Covertype's means and spreads, a 4-column wilderness
+    one-hot and a 40-column soil one-hot (Zipf-skewed), and 7 classes drawn
+    from a seeded softmax of a blend of them whose biases are fitted so
+    the expected class shares are Covertype's."""
+    rng = np.random.default_rng(seed)
+    mean = np.array([2959, 156, 14, 269, 46, 2350, 212, 223, 142, 1980.])
+    std = np.array([280, 112, 7.5, 212, 58, 1559, 27, 20, 38, 1324.])
+    z = rng.normal(size=(rows, 10))
+    wild = rng.choice(4, size=rows, p=[0.45, 0.05, 0.44, 0.06])
+    p = 1.0 / np.arange(1, 41) ** 1.2
+    soil = rng.choice(40, size=rows, p=p / p.sum())
+    K = len(COVTYPE_SHARES)
+    shares = np.asarray(COVTYPE_SHARES)
+    blend = (z @ rng.normal(size=(10, K)) + rng.normal(size=(4, K))[wild]
+             + rng.normal(size=(40, K))[soil]
+             + 0.5 * z[:, :1] * z[:, 1:2] * rng.normal(size=K))
+    bias = np.log(shares)
+    for _ in range(20):
+        lg = blend + bias
+        e = np.exp(lg - lg.max(1, keepdims=True))
+        prob = e / e.sum(1, keepdims=True)
+        bias += np.log(shares / prob.mean(0))
+    y = (rng.random(rows)[:, None] > np.cumsum(prob, axis=1)).sum(1)
+    X = np.zeros((rows, 54))
+    X[:, :10] = np.round(mean + std * z)
+    X[np.arange(rows), 10 + wild] = 1.0
+    X[np.arange(rows), 14 + soil] = 1.0
+    return X, np.minimum(y, K - 1).astype(np.float64)
+
+
+def multiclass_phase(lt, hw, hc, res, kind, card):
+    """Covertype-shaped multiclass at 581,012 x 54 (EFB bundles the one-hot
+    blocks): K1 at the bundled column count against its plain version;
+    ``objective=multiclass, num_class=7``, 255 leaves, 5 rounds (35 trees),
+    trained twice on one Dataset, one digest, multi_logloss falling every
+    round; one profiled iteration; device prediction of every row against
+    the host walk on the first rows (probabilities, 1e-6); then 2 rounds
+    of multiclassova.
+    Returns the first run's counts."""
+    from lightgbm_tpu_torch.core import forest
+    t0 = time.perf_counter()
+    X, y = covertype_like()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y).construct()
+    bin_s = time.perf_counter() - t0
+    h = ds._handle
+    F_phys = h.num_phys_features
+    shares = np.bincount(y.astype(np.int64), minlength=7) / len(y)
+    print(f"multiclass data ({COVTYPE_ROWS:,} x 54, Covertype-shaped, seed 3):"
+          f" generated in {gen_s:.2f} s, binned in {bin_s:.2f} s; class "
+          f"shares {np.round(shares, 4).tolist()}; {h.num_features} features "
+          f"in {F_phys} physical columns [{card}]", flush=True)
+    if h.bundle is None or F_phys > 16:
+        raise AssertionError(f"EFB gave {F_phys} physical columns for the "
+                             "one-hot blocks, expected at most 16")
+    phase_check(hw, res, "k1_multiclass", COVTYPE_ROWS, F_phys, 63, False,
+                301, kind, card)
+    params = {"objective": "multiclass", "num_class": 7,
+              "metric": ["multi_logloss", "multi_error"], "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 255, "min_data_in_leaf": 100,
+              "verbose": -1}
+    runs = []
+    for i in range(2):
+        bst, counts, curves, iter_ms = train_phase(
+            lt, hw, hc, f"multiclass path (run {i + 1})", params, ds, kind,
+            card, layout="k1_unfused")
+        runs.append((bst, counts, model_digest(bst)))
+        loss = curves["multi_logloss"]
+        if not all(b < a for a, b in zip(loss, loss[1:])):
+            raise AssertionError(f"multi_logloss did not fall: {loss}")
+    print(f"multiclass path: {iter_ms / 1e3:.4f} s/iter (7 trees an "
+          f"iteration), K1 launches {runs[0][1]['k1']} in 35 trees; digests "
+          f"{runs[0][2]} / {runs[1][2]} [{kind}, {card}]", flush=True)
+    if runs[0][2] != runs[1][2]:
+        raise AssertionError("two multiclass trainings on one Dataset differ")
+    bst = runs[0][0]
+    profile_iteration(bst, iter_ms, kind, card)
+    n = PREDICT_CHECK_ROWS
+    host = bst.predict(X[:n])
+    before = dict(forest.calls)
+    prob, ms = timed(lambda: bst.predict(X))
+    ran = {k: forest.calls[k] - before[k] for k in before}
+    err = float(np.abs(prob[:n] - host).max())
+    print(f"multiclass predict ({COVTYPE_ROWS:,} rows x "
+          f"{bst._gbdt.num_trees} trees): {ms:.2f} "
+          f"ms, device forest calls {ran}; max |probability - host walk| "
+          f"{err:.3g} (tol 1e-6), rows sum to 1 within "
+          f"{float(np.abs(prob.sum(1) - 1).max()):.3g} [{kind}, {card}]",
+          flush=True)
+    if ran["predict"] != 1 or err > 1e-6 or prob.shape != (COVTYPE_ROWS, 7):
+        raise AssertionError("multiclass device predict disagrees with the "
+                             "host walk")
+    _, ova_counts, ova, _ = train_phase(
+        lt, hw, hc, "multiclassova path",
+        {**params, "objective": "multiclassova"}, ds, kind, card, rounds=2,
+        layout="k1_unfused")
+    if not all(math.isfinite(v) for v in ova["multi_error"]):
+        raise AssertionError(f"multiclassova multi_error {ova}")
+    return runs[0][1]
+
+
+RANK_ROWS = 2_270_296            # MSLR-WEB30K fold 1's training rows
+
+
+def mslr_like(rows: int = RANK_ROWS):
+    """bench.py's ``_rank_data``: MSLR-WEB30K-shaped ragged queries from
+    the port's ``ops/rank.py mslr_like_sizes`` (seed 0), 136 features, and
+    grades 0-4 by within-query quantiles of a noisy feature blend."""
+    from lightgbm_tpu_torch.ops.rank import mslr_like_sizes
+    rng = np.random.default_rng(0)
+    sizes = mslr_like_sizes(rows, rng=rng)
+    n = int(sizes.sum())
+    X = rng.normal(size=(n, 136))
+    score = X[:, :12] @ rng.normal(size=12) + rng.logistic(size=n) * 2.0
+    y = np.zeros(n)
+    lo = 0
+    for s in sizes:
+        q = score[lo:lo + s]
+        y[lo:lo + s] = np.searchsorted(
+            np.quantile(q, [0.5, 0.75, 0.9, 0.97]), q)
+        lo += s
+    return X, y, sizes
+
+
+def rank_phase(lt, hw, hc, res, kind, card):
+    """Lambdarank at MSLR-WEB30K's shape (2,270,296 x 136): K1 packed fused
+    at F = 136 against its plain version; bench.py ``_run_rank``'s
+    parameters, 5 rounds, trained twice on one Dataset, one digest; one
+    profiled iteration; the pair pass's ms per iteration by CUDA events
+    against its bound; the device NDCG@10 against the host loop (1e-6).
+    Returns the first run's counts and the pair pass's numbers."""
+    import torch
+    from lightgbm_tpu_torch.ops.rank import rank_pair_cost
+    t0 = time.perf_counter()
+    X, y, sizes = mslr_like()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, group=sizes).construct()
+    bin_s = time.perf_counter() - t0
+    del X
+    print(f"lambdarank data ({RANK_ROWS:,} x 136 in {len(sizes):,} queries "
+          f"of 1-{int(sizes.max())} documents, MSLR-WEB30K-shaped): generated "
+          f"in {gen_s:.2f} s, binned in {bin_s:.2f} s [{card}]", flush=True)
+    phase_check(hw, res, "k1_rank", RANK_ROWS, 136, 63, True, 302, kind,
+                card)
+    torch.cuda.empty_cache()
+    params = {"objective": "lambdarank", "metric": "ndcg", "eval_at": [10],
+              "num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
+              "min_data_in_leaf": 50, "min_sum_hessian_in_leaf": 5.0,
+              "verbose": -1}
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        bst, counts, curves, iter_ms = train_phase(
+            lt, hw, hc, f"lambdarank path (run {i + 1})", params, ds, kind,
+            card)
+        runs.append((bst, counts, model_digest(bst),
+                     time.perf_counter() - t0))
+    print(f"lambdarank path: {iter_ms / 1e3:.4f} s/iter; wall per run "
+          f"(Booster init with the query blocks, 5 rounds, NDCG every round) "
+          f"{runs[0][3]:.1f} / {runs[1][3]:.1f} s; digests {runs[0][2]} / "
+          f"{runs[1][2]} [{kind}, {card}]", flush=True)
+    if runs[0][2] != runs[1][2]:
+        raise AssertionError("two lambdarank trainings on one Dataset differ")
+    profile_iteration(runs[0][0], iter_ms, kind, card)
+    gb = runs[0][0]._gbdt
+    del runs
+    obj, score = gb.objective, gb._train_score
+    pair_ms = cuda_ms(lambda: obj.get_gradients(score), reps=5)
+    from lightgbm_tpu_torch.core.query import pair_chunk_elems
+    ops, n_bytes = rank_pair_cost(sizes, chunk_elems=1)
+    pb = bound(n_bytes, ops)
+    n_chunks = sum(-(-b.idx.shape[0] // max(1, pair_chunk_elems(DEV)
+                                            // (b.P * b.P)))
+                   for b in obj.qblocks.buckets)
+    m = gb.metrics[0]
+    dev = m.eval(score, obj)[0][1]
+    host = m.eval_host(score.double().cpu().numpy())[0][1]
+    print(f"lambdarank pair pass: {pair_ms:.3f} ms per iteration (CUDA "
+          f"events, median of 5, {n_chunks} chunks of up to "
+          f"{pair_chunk_elems(DEV):,} pair elements); bound {pb['bound_ms']:.4f}"
+          f" ms by {pb['bound_by']} ({ops:.4g} operations, {n_bytes:.4g} "
+          f"bytes: {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); "
+          f"train NDCG@10 device {dev!r}, host loop {host!r}, |diff| "
+          f"{abs(dev - host):.3g} (tol 1e-6) [{kind}, {card}]", flush=True)
+    if abs(dev - host) > 1e-6 or not 0.0 < dev <= 1.0:
+        raise AssertionError("device NDCG@10 disagrees with the host loop")
+    pair = {"name": "pair_lambdas (lambdarank pair pass, torch)",
+            "route": "torch", "source": "lightgbm_tpu_torch/objective/rank.py",
+            "replaces": "lightgbm_tpu/objective/rank.py:50 (XLA)",
+            "ms": pair_ms, "bound_ms": pb["bound_ms"],
+            "bound_by": pb["bound_by"], "bytes_ms": n_bytes / HBM_BYTES_PER_S
+            * 1e3, "library_ms": None, "calls_per_iteration": 1}
+    return counts, pair
+
+
+def regression_phase(lt, hw, hc, kind, card):
+    """Regression on the headline HIGGS-shaped rows (the label a seeded
+    noisy blend of them) with seeded positive sample weights: ``regression``
+    and ``quantile`` (alpha 0.9, the host leaf refit), 5 rounds each,
+    trained twice, one digest each; the metric falls every round.  Returns
+    the first regression run's counts."""
+    X, _ = higgs_like(MAIN_ROWS)
+    rng = np.random.default_rng(5)
+    y = (X[:, :8] @ rng.normal(size=8) + 0.5 * X[:, 0] * X[:, 1]
+         + rng.normal(size=MAIN_ROWS) * 0.5)
+    w = rng.uniform(0.5, 2.0, size=MAIN_ROWS)
+    ds = lt.Dataset(X, label=y, weight=w).construct()
+    del X
+    base = {"num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
+            "min_data_in_leaf": 100, "verbose": -1}
+    first = None
+    for obj, metric, extra in (("regression", "l2", {}),
+                               ("quantile", "quantile", {"alpha": 0.9})):
+        digests = []
+        for i in range(2):
+            bst, counts, curves, iter_ms = train_phase(
+                lt, hw, hc, f"{obj} path (run {i + 1})",
+                {**base, "objective": obj, "metric": [metric], **extra}, ds,
+                kind, card)
+            digests.append(model_digest(bst))
+            first = first or counts
+            loss = curves[metric]
+            if not all(b < a for a, b in zip(loss, loss[1:])):
+                raise AssertionError(f"{obj}: {metric} did not fall: {loss}")
+        renew = bst._gbdt.renew_seconds
+        print(f"{obj} path (weighted): {iter_ms / 1e3:.4f} s/iter, of which "
+              f"the host leaf refit {float(np.median(renew)) if renew else 0.0:.4f}"
+              f" s (median per tree, {len(renew)} refits); digests "
+              f"{digests[0]} / {digests[1]} [{kind}, {card}]", flush=True)
+        if digests[0] != digests[1]:
+            raise AssertionError(f"two {obj} trainings on one Dataset differ")
+    return first
 
 
 def main() -> int:
@@ -1061,11 +1347,7 @@ def main() -> int:
         res[key].update(tag=tag,
                         check_launches=hc.hist_channels.launches - n0)
     for k in res.values():
-        print(f"{k['tag']}: max_abs_err {k['max_abs_err']:.3g}, kernel "
-              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, index_add_ "
-              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
-              f"{k['bound_by']} ({k['bytes']} bytes, {k['ops']} adds) "
-              f"[{kind}, {card}]", flush=True)
+        print_check(k, kind, card)
 
     # ---- 3. small-input reference ---------------------------------------
     small_reference(lt)
@@ -1076,8 +1358,9 @@ def main() -> int:
               "num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
               "min_data_in_leaf": 100, "verbose": -1}
     ds = native_binning(lt, X, y, card)
-    bst, counts, loss, auc, iter_ms = train_phase(
+    bst, counts, curves, iter_ms = train_phase(
         lt, hw, hc, "main path", params, ds, kind, card)
+    loss, auc = curves["binary_logloss"], curves["auc"]
     if not all(b < a for a, b in zip(loss, loss[1:])):
         raise AssertionError(f"train logloss did not fall: {loss}")
     if auc[-1] <= 0.7:
@@ -1093,9 +1376,10 @@ def main() -> int:
     _, k1_f_ms, _ = profile_iteration(bst, iter_ms, kind, card)
 
     # ---- 5. quantized main path (int16) ----------------------------------
-    bst16, counts16, loss16, auc16, iter16_ms = train_phase(
+    bst16, counts16, curves16, iter16_ms = train_phase(
         lt, hw, hc, "int16 path", {**params, "tpu_hist_dtype": "int16"}, ds,
         kind, card)
+    loss16, auc16 = curves16["binary_logloss"], curves16["auc"]
     if not all(b < a for a, b in zip(loss16, loss16[1:])):
         raise AssertionError(f"int16 train logloss did not fall: {loss16}")
     if abs(auc16[-1] - auc[-1]) > 1e-3:
@@ -1112,10 +1396,11 @@ def main() -> int:
     del bst16
 
     # ---- 7. int8 with bagging --------------------------------------------
-    _, counts8, _, auc8, _ = train_phase(
+    _, counts8, curves8, _ = train_phase(
         lt, hw, hc, "int8 bagging path",
         {**params, "tpu_hist_dtype": "int8", "bagging_fraction": 0.8,
          "bagging_freq": 1}, ds, kind, card)
+    auc8 = curves8["auc"]
     if abs(auc8[-1] - auc[-1]) > 1e-2:
         raise AssertionError(f"int8 bagged train AUC {auc8[-1]} is not "
                              f"within 1e-2 of 2xbf16's {auc[-1]}")
@@ -1134,6 +1419,11 @@ def main() -> int:
     # ---- 10. categorical + EFB; 11. mixed width ---------------------------
     counts_cat = cat_efb_phase(lt, hw, hc, params, kind, card)
     counts_mixed = mixed_phase(lt, hw, hc, params, kind, card)
+
+    # ---- 12. multiclass; 13. lambdarank; 14. regression --------------------
+    counts_multi = multiclass_phase(lt, hw, hc, res, kind, card)
+    counts_rank, pair = rank_phase(lt, hw, hc, res, kind, card)
+    counts_reg = regression_phase(lt, hw, hc, kind, card)
 
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);
@@ -1184,6 +1474,13 @@ def main() -> int:
               ["k1_triple_narrow"]),
         entry("hist_wave packed fused (K1, GOSS)", "k1_goss", k1_src, k1_at,
               counts_goss["k1_packed"], ["k1_goss"]),
+        entry("hist_wave unfused packed (K1, multiclass on EFB columns)",
+              "k1_multiclass", k1_src, k1_at, counts_multi["k1_unfused"],
+              ["k1_multiclass"]),
+        entry("hist_wave packed fused (K1, lambdarank at F=136)", "k1_rank",
+              k1_src, k1_at, counts_rank["k1_packed"], ["k1_rank"]),
+        entry("hist_wave packed fused (K1, weighted regression)", "k1",
+              k1_src, k1_at, counts_reg["k1_packed"], ["k1"]),
         entry("hist_channels (K2)", "k2",
               "lightgbm_tpu_torch/csrc/hist_channels.cu",
               "lightgbm_tpu/ops/pallas_hist.py:199", counts_k2["k2"],
@@ -1196,6 +1493,7 @@ def main() -> int:
                    ("max_abs_err", "ms", "plain_ms", "bound_ms",
                     "library_ms")):
             raise AssertionError(f"non-finite kernel numbers: {k}")
+    print(json.dumps({"pair_pass": pair}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

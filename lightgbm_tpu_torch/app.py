@@ -52,8 +52,9 @@ def _parse_args(argv: List[str]) -> Dict[str, str]:
 
 def _dataset_from_file(path: str, cfg: Config, params: Dict,
                        reference=None) -> Dataset:
-    X, label, names = load_text(path, cfg)
-    return Dataset(X, label=label, feature_name=names, params=dict(params),
+    X, label, weight, group, names = load_text(path, cfg)
+    return Dataset(X, label=label, weight=weight, group=group,
+                   feature_name=names, params=dict(params),
                    reference=reference)
 
 
@@ -109,7 +110,7 @@ def run_predict(cfg: Config, params: Dict) -> None:
     bst.reset_parameter({"pred_early_stop": cfg.pred_early_stop,
                          "pred_early_stop_freq": cfg.pred_early_stop_freq,
                          "pred_early_stop_margin": cfg.pred_early_stop_margin})
-    X, _, _ = load_text(cfg.data, cfg)
+    X = load_text(cfg.data, cfg)[0]
     num_it = cfg.num_iteration_predict if cfg.num_iteration_predict > 0 \
         else None
     pred = np.atleast_1d(bst.predict(

@@ -44,22 +44,23 @@ def resolve_device(device) -> torch.device:
 
 class Dataset:
     """Training/validation data with lazy binning (reference:
-    basic.py:712-1664): dense matrices, labels, and categorical columns
-    by index or name (``categorical_feature``, or the parameter of that
-    name)."""
+    basic.py:712-1664): dense matrices, labels, sample weights, query
+    groups (sizes, or boundaries), and categorical columns by index or
+    name (``categorical_feature``, or the parameter of that name).  A
+    valid set carries its own weights and groups."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
-        for arg, item in ((weight, "sample weights"), (group, "ranking"),
-                          (init_score, "init scores")):
-            if arg is not None:
-                refuse(item, "the rest of queue 1")
+        if init_score is not None:
+            refuse("init scores", "the rest of queue 1")
         self.categorical_feature = categorical_feature
         self.data = data
         self.label = label
+        self.weight = weight
+        self.group = group
         self.reference = reference
         self.feature_name = feature_name
         self.params = dict(params) if params else {}
@@ -86,6 +87,8 @@ class Dataset:
             feature_names=names, reference=ref)
         if self.label is not None:
             self._handle.metadata.set_label(self.label)
+        self.set_weight(self.weight)
+        self.set_group(self.group)
         if self.free_raw_data:
             self.data = None
         return self
@@ -109,6 +112,20 @@ class Dataset:
             else:
                 out.append(int(c))
         return sorted(set(out))
+
+    def set_weight(self, weight) -> None:
+        self.weight = weight
+        if self._handle is not None and weight is not None:
+            self._handle.metadata.set_weights(np.asarray(weight).ravel())
+
+    def set_group(self, group) -> None:
+        """Query sizes (or boundaries) of the rows, in row order."""
+        self.group = group
+        if self._handle is not None and group is not None:
+            self._handle.metadata.set_query(np.asarray(group).ravel())
+
+    def get_group(self):
+        return self.group
 
     def num_data(self) -> int:
         return self.construct()._handle.num_data

@@ -1,10 +1,12 @@
 """Gradient Boosting Decision Tree trainer (counterpart of
-lightgbm_tpu/boosting/gbdt.py, lean: one tree per iteration).
+lightgbm_tpu/boosting/gbdt.py).
 
-Each iteration computes the objective's gradients from the training
-score, refreshes the bagging mask, grows one tree with the wave grower
-(K1 on the card), shrinks it, and adds it to the training and validation
-scores — all on the training device.  Bagging masks are drawn on the host
+Each iteration computes the objective's gradients once from the training
+score ([N], or [N, K] for K trees an iteration), refreshes the bagging
+mask, and for each class grows a tree with the wave grower (K1 on the
+card), refits its leaves for the percentile objectives (a host step),
+shrinks it, and adds it to the training and validation scores — all on
+the training device.  Bagging masks are drawn on the host
 from numpy's generator seeded with ``bagging_seed``, as in the reference,
 so both packages draw the same rows.  The trees are kept as host ``Tree``
 objects for prediction and model text (reference: GBDT::TrainOneIter,
@@ -254,12 +256,11 @@ class PredictorBase:
 class GBDT(PredictorBase):
     """Trainer state: the forest, the scores and the grower."""
 
-    num_tpi = 1    # trees per iteration: binary only in the port
-    num_class = 1
-
     def __init__(self):
         self.models: List[Tree] = []
         self.iter_ = 0
+        self.num_tpi = 1          # trees per iteration (num_class for
+        self.num_class = 1        # the multiclass objectives)
         self.config = None
         self.objective = None
         self.train_ds = None
@@ -269,14 +270,15 @@ class GBDT(PredictorBase):
         self._valid_scores: List[torch.Tensor] = []
         self._valid_bins: List[torch.Tensor] = []
         # what the scores were built from, for replaying them onto a valid
-        # set attached later: the constants added, and each tree's shrunk
-        # f32 leaf values as added (None for a constant tree)
-        self._constants: List[float] = []
+        # set attached later: the (class, constant) pairs added, and each
+        # tree's shrunk f32 leaf values as added (None for a constant tree)
+        self._constants: List[Tuple[int, float]] = []
         self._leaf_f32: List[Optional[torch.Tensor]] = []
-        self.wave_stats: List[Tuple[int, int]] = []  # per tree: (K1
+        self.wave_stats: List[Tuple[int, int]] = []  # per grown tree: (K1
         #                                             launches, rows)
-        self.iter_seconds: List[float] = []  # host clock per grown tree,
+        self.iter_seconds: List[float] = []  # host clock per iteration,
         #                                      device work included
+        self.renew_seconds: List[float] = []  # host leaf refit per tree
 
     def init(self, config, train_ds, objective, metrics, device) -> None:
         self.device = torch.device(device)
@@ -285,10 +287,11 @@ class GBDT(PredictorBase):
         self.objective = objective
         self.metrics = list(metrics)
         self.shrinkage_rate = float(config.learning_rate)
+        self.num_tpi = self.num_class = objective.num_tree_per_iteration
         N = train_ds.num_data
         objective.init(train_ds.metadata, N, self.device)
         for m in self.metrics:
-            m.init(train_ds.metadata, N)
+            m.init(train_ds.metadata, N, self.device)
         self.meta, self.B = build_device_meta(train_ds, config, self.device)
         self.B_phys = padded_phys_width(train_ds)
         self._bundled = train_ds.bundle is not None
@@ -297,13 +300,28 @@ class GBDT(PredictorBase):
             for i in range(train_ds.num_features))
         self.split_cfg = SplitConfig.from_config(config)
         self._init_grower(config, train_ds)
-        self._train_score = torch.zeros(N, dtype=torch.float32,
-                                        device=self.device)
+        self._train_score = self._zero_score(N)
         self._bag_mask = torch.ones(N, dtype=torch.float32, device=self.device)
         self._bag_mask_host = np.ones(N, dtype=bool)
         self._rng = np.random.default_rng(config.bagging_seed)
         self._feat_rng = np.random.default_rng(config.feature_fraction_seed)
-        self.class_need_train = objective.class_need_train(0)
+        self.class_need_train = [objective.class_need_train(k)
+                                 for k in range(self.num_tpi)]
+
+    def _zero_score(self, n: int) -> torch.Tensor:
+        """Raw scores of n rows: [n] for one tree an iteration, else
+        [n, K]."""
+        shape = (n,) if self.num_tpi == 1 else (n, self.num_tpi)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def _add_to_class(self, score: torch.Tensor, k: int,
+                      delta) -> torch.Tensor:
+        """``score`` with ``delta`` (a scalar or [n]) added to class k."""
+        if score.dim() == 1:
+            return score + delta
+        score = score.clone()
+        score[:, k] += delta
+        return score
 
     def _init_grower(self, config, train_ds) -> None:
         """The wave grower and its device bins (reference package: gbdt.py
@@ -366,13 +384,12 @@ class GBDT(PredictorBase):
         ms = []
         for proto in self.metrics:
             m = type(proto)(self.config)
-            m.init(valid_ds.metadata, valid_ds.num_data)
+            m.init(valid_ds.metadata, valid_ds.num_data, self.device)
             ms.append(m)
         bins = self._device_phys_bins(valid_ds.X_bin)
-        score = torch.zeros(valid_ds.num_data, dtype=torch.float32,
-                            device=self.device)
-        for c in self._constants:
-            score = score + c
+        score = self._zero_score(valid_ds.num_data)
+        for k, c in self._constants:
+            score = self._add_to_class(score, k, c)
         grown = [i for i, lv in enumerate(self._leaf_f32) if lv is not None]
         if grown:
             forest = stack_forest(
@@ -381,7 +398,8 @@ class GBDT(PredictorBase):
             leaves = forest_leaf_fn(self.meta, phys=self._bundled)(forest,
                                                                    bins)
             for row, i in enumerate(grown):
-                score = score + self._leaf_f32[i][leaves[row]]
+                score = self._add_to_class(score, i % self.num_tpi,
+                                           self._leaf_f32[i][leaves[row]])
         self.valid_names.append(name)
         self.valid_metrics.append(ms)
         self._valid_scores.append(score)
@@ -391,22 +409,29 @@ class GBDT(PredictorBase):
     def objective_string(self) -> str:
         return self.objective.to_model_string()
 
-    def _boost_from_average(self) -> float:
-        """(reference: gbdt.cpp:344-367)."""
-        if self.models or not (self.config.boost_from_average
-                               or self.train_ds.num_features == 0):
+    def _boost_from_average(self, k: int) -> float:
+        """Class k's starting score, added in the first iteration
+        (reference: gbdt.cpp:344-367)."""
+        if self.models:
             return 0.0
-        init = float(self.objective.boost_from_score(0))
+        if not (self.config.boost_from_average
+                or self.train_ds.num_features == 0):
+            if self.objective.name in ("regression_l1", "quantile", "mape"):
+                log.warning("Disabling boost_from_average in %s may cause "
+                            "the slow convergence", self.objective.name)
+            return 0.0
+        init = float(self.objective.boost_from_score(k))
         if abs(init) > K_EPSILON:
-            self._add_constant(init)
+            self._add_constant(k, init)
             log.info("Start training from score %f", init)
             return init
         return 0.0
 
-    def _add_constant(self, value: float) -> None:
-        self._constants.append(value)
-        self._train_score = self._train_score + value
-        self._valid_scores = [s + value for s in self._valid_scores]
+    def _add_constant(self, k: int, value: float) -> None:
+        self._constants.append((k, value))
+        self._train_score = self._add_to_class(self._train_score, k, value)
+        self._valid_scores = [self._add_to_class(s, k, value)
+                              for s in self._valid_scores]
 
     def _bagging(self, it: int) -> None:
         """Row-subsample mask refresh every ``bagging_freq`` iterations,
@@ -456,52 +481,97 @@ class GBDT(PredictorBase):
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; True when training should stop (no
-        splittable leaf).  Gradients are computed in the same call as the
-        growth (the reference's fused gradient pass, gbdt.py:1138-1187)."""
+        class has a splittable leaf).  Gradients come once from the score
+        at the iteration's start, so class k's tree does not see the trees
+        of classes < k (reference package: gbdt.py:1552-1760)."""
         t0 = time.perf_counter()
-        init_score = self._boost_from_average()
+        K = self.num_tpi
+        init_scores = [self._boost_from_average(k) for k in range(K)]
         g, h = self.objective.get_gradients(self._train_score)
         g, h = self._sample(self.iter_, g, h)
         feature_mask = self._feature_mask()
-        nl = 1
-        if self.class_need_train and self.train_ds.num_features > 0:
-            arrs, leaf_id, stats = self._grow(self._bins_fm, g, h,
-                                              self._bag_mask, feature_mask)
-            nl = int(arrs.num_leaves)
-        if nl <= 1:
-            # constant tree, only for the first iteration
+        first = len(self.models) < K
+        grown_any = False
+        for k in range(K):
+            gk, hk = (g, h) if K == 1 else (g[:, k].contiguous(),
+                                            h[:, k].contiguous())
+            nl = 1
+            if self.class_need_train[k] and self.train_ds.num_features > 0:
+                arrs, leaf_id, stats = self._grow(self._bins_fm, gk, hk,
+                                                  self._bag_mask, feature_mask)
+                nl = int(arrs.num_leaves)
+            if nl > 1:
+                grown_any = True
+                self._add_tree(k, arrs, leaf_id, stats, init_scores[k])
+                continue
+            # constant tree: its value only in the first iteration
             # (reference: gbdt.cpp:418-436)
-            if not self.models:
-                output = (init_score if self.class_need_train
-                          else float(self.objective.boost_from_score(0)))
+            output = 0.0
+            if first:
+                output = (init_scores[k] if self.class_need_train[k]
+                          else float(self.objective.boost_from_score(k)))
                 if abs(output) > K_EPSILON:
-                    self._add_constant(output)
-                self.models.append(Tree.constant(output))
-                self._leaf_f32.append(None)
+                    self._add_constant(k, output)
+            self.models.append(Tree.constant(output))
+            self._leaf_f32.append(None)
+        if not grown_any:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
+            if not first:
+                del self.models[-K:], self._leaf_f32[-K:]
             return True
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.iter_seconds.append(time.perf_counter() - t0)
+        self.iter_ += 1
+        return False
+
+    def _add_tree(self, k: int, arrs, leaf_id, stats,
+                  init_score: float) -> None:
+        """Refit (percentile objectives), shrink and add class k's grown
+        tree to the training and validation scores."""
+        if self.objective.is_renew_tree_output:
+            arrs = self._renew_tree_output(arrs, leaf_id, k)
         lr = self.shrinkage_rate
         arrs = arrs._replace(leaf_value=arrs.leaf_value * lr,
                              internal_value=arrs.internal_value * lr)
-        self._train_score = self._train_score + arrs.leaf_value[leaf_id.long()]
+        self._train_score = self._add_to_class(
+            self._train_score, k, arrs.leaf_value[leaf_id.long()])
         tree = Tree.from_device(arrs, self.train_ds, shrinkage=lr)
         depth = tree_depth(tree.left_child, tree.right_child, tree.num_leaves)
         for i, vb in enumerate(self._valid_bins):
             leaf = predict_leaf_bins(arrs, vb, self.meta, depth,
                                      has_cat=self._has_cat,
                                      phys=self._bundled)
-            self._valid_scores[i] = self._valid_scores[i] + arrs.leaf_value[leaf]
+            self._valid_scores[i] = self._add_to_class(
+                self._valid_scores[i], k, arrs.leaf_value[leaf])
         if abs(init_score) > K_EPSILON:
             tree.leaf_value = tree.leaf_value + init_score
         self.models.append(tree)
         self._leaf_f32.append(arrs.leaf_value)
         self.wave_stats.append(stats)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.iter_seconds.append(time.perf_counter() - t0)
-        self.iter_ += 1
-        return False
+
+    def _renew_tree_output(self, arrs, leaf_id, k: int):
+        """The percentile leaf refit of the L1-family objectives, on the
+        host between growth and shrinkage (reference:
+        serial_tree_learner.cpp:855-893; reference package: gbdt.py
+        ``_renew_tree_output``): residuals against the score before this
+        tree, over each leaf's sampled rows (bagging or GOSS).  Its host
+        time is kept in ``renew_seconds``."""
+        t0 = time.perf_counter()
+        nl = int(arrs.num_leaves)
+        score = self._train_score if self.num_tpi == 1 \
+            else self._train_score[:, k]
+        residual = (self.train_ds.metadata.label.astype(np.float64)
+                    - score.cpu().numpy().astype(np.float64))
+        new_vals = self.objective.renew_leaf_values(
+            residual, leaf_id.cpu().numpy(), nl,
+            (self._bag_mask > 0).cpu().numpy())
+        lv = arrs.leaf_value.cpu().numpy().copy()
+        ok = ~np.isnan(new_vals)
+        lv[:nl][ok] = new_vals[ok]
+        self.renew_seconds.append(time.perf_counter() - t0)
+        return arrs._replace(leaf_value=torch.as_tensor(lv).to(self.device))
 
     # ------------------------------------------------------------------
     def _tree_bin_space(self, tree: Tree):
@@ -556,15 +626,23 @@ class GBDT(PredictorBase):
 
     def eval_results(self, include_train: bool = True) -> List[Tuple]:
         """All (data_name, metric_name, value, higher_better) entries
-        (reference: GBDT::OutputMetric, gbdt.cpp:513-571)."""
+        (reference: GBDT::OutputMetric, gbdt.cpp:513-571).  A metric that
+        takes device scores gets the score tensor; the others share one
+        host copy of it."""
         sets = ([("training", self.metrics, self._train_score)]
                 if include_train else [])
         sets += list(zip(self.valid_names, self.valid_metrics,
                          self._valid_scores))
         out = []
         for ds_name, metrics, score in sets:
-            host = score.double().cpu().numpy()
+            host = None
             for m in metrics:
-                for name, value, hib in m.eval(host, self.objective):
-                    out.append((ds_name, name, value, hib))
+                if m.accepts_device_score:
+                    res = m.eval(score, self.objective)
+                else:
+                    if host is None:
+                        host = score.double().cpu().numpy()
+                    res = m.eval(host, self.objective)
+                out += [(ds_name, name, value, hib)
+                        for name, value, hib in res]
         return out

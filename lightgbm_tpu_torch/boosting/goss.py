@@ -5,6 +5,7 @@ Every iteration after the first ``1 / learning_rate`` keeps the
 ``top_rate`` share of rows by |g·h|, draws ``other_rate`` of the rest with
 probability ``other_k / rest_k`` and multiplies the drawn rows' g and h
 by ``(N - top_k) / other_k``; the kept rows are the grower's sample mask.
+With K trees an iteration a row's weight is summed over the classes.
 The JAX package's draw, ``jax.random.uniform(fold_in(PRNGKey(
 bagging_seed), it), (N,))``, is reproduced bit for bit on the training
 device (``utils/random.py``), so both packages keep the same rows.
@@ -43,6 +44,8 @@ class GOSS(GBDT):
         other_k = max(1, int(N * self.config.other_rate))
         multiply = (N - top_k) / other_k
         weight = torch.abs(g * h)
+        if weight.dim() == 2:
+            weight = weight.sum(dim=1)           # summed over classes
         threshold = torch.topk(weight, top_k, sorted=False).values.min()
         is_top = weight >= threshold
         # f32 division, as jnp divides a Python int by an int32 count
@@ -56,4 +59,6 @@ class GOSS(GBDT):
                                                 device=self.device),
                           torch.ones((), dtype=torch.float32,
                                      device=self.device))
+        if g.dim() == 2:
+            amp = amp[:, None]
         return g * amp, h * amp

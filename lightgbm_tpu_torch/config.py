@@ -102,6 +102,8 @@ _ALIASES: Dict[str, str] = {
     "output_freq": "metric_freq",
     "training_metric": "is_provide_training_metric", "is_training_metric": "is_provide_training_metric",
     "train_metric": "is_provide_training_metric",
+    "ndcg_eval_at": "eval_at", "ndcg_at": "eval_at", "map_eval_at": "eval_at",
+    "map_at": "eval_at",
     "num_machine": "num_machines",
 }
 
@@ -237,12 +239,22 @@ class Config:
     scale_pos_weight: float = 1.0
     sigmoid: float = 1.0
     boost_from_average: bool = True
-    reg_sqrt: bool = False              # read by a loaded model's regression
+    reg_sqrt: bool = False
+    alpha: float = 0.9                  # huber and quantile
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    tweedie_variance_power: float = 1.5
+    max_position: int = 20              # lambdarank: NDCG truncation
+    lambdamart_norm: bool = True
+    label_gain: List[float] = field(default_factory=list)
 
     # ---- Metric ----
     metric: List[str] = field(default_factory=list)
     metric_freq: int = 1
     is_provide_training_metric: bool = False
+    eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
+    multi_error_top_k: int = 1
+    auc_mu_weights: List[float] = field(default_factory=list)
 
     # ---- Network ----
     num_machines: int = 1
@@ -300,9 +312,12 @@ class Config:
             log.fatal(f"tree_learner={self.tree_learner!r} is not in the "
                       "PyTorch port yet (ROADMAP.md port queue: the rest of "
                       "queue 1: parallel and fleet planes)")
-        if self.num_class != 1:
-            log.fatal("num_class must be 1: multiclass is not in the PyTorch "
-                      "port yet (ROADMAP.md port queue: the rest of queue 1)")
+        if self.objective in ("multiclass", "multiclassova") \
+                and self.num_class < 2:
+            log.fatal(f"num_class must be >= 2 for objective {self.objective}")
+        if self.objective not in ("multiclass", "multiclassova", "none") \
+                and self.num_class != 1:
+            log.fatal(f"num_class must be 1 for objective {self.objective}")
         if self.tpu_hist_dtype not in ("2xbf16", "bf16", "highest",
                                        "int16", "int8",
                                        "float32", "bfloat16"):

@@ -26,17 +26,57 @@ from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN, BinMapper
 
 
 class Metadata:
-    """Labels of the training rows (reference: Metadata, dataset.h:41-250).
-    Weights, queries and init scores are not in the port yet."""
+    """Labels, sample weights and query boundaries of the rows (reference:
+    Metadata, dataset.h:41-250; reference package: io/dataset.py
+    ``Metadata``).  Init scores are not in the port yet."""
 
     def __init__(self, num_data: int = 0):
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None          # float32 [num_data]
+        self.weights: Optional[np.ndarray] = None        # float32 [num_data]
+        self.query_boundaries: Optional[np.ndarray] = None  # int32 [Q + 1]
+        self.query_weights: Optional[np.ndarray] = None  # float32 [Q]
 
     def set_label(self, label) -> None:
         label = np.ascontiguousarray(label, dtype=np.float32).ravel()
         log.check(len(label) == self.num_data, "label length != num_data")
         self.label = label
+
+    def set_weights(self, weights) -> None:
+        if weights is None:
+            self.weights = None
+            return
+        weights = np.ascontiguousarray(weights, dtype=np.float32).ravel()
+        log.check(len(weights) == self.num_data, "weights length != num_data")
+        log.check(bool((weights >= 0).all()), "weights should be non-negative")
+        self.weights = weights
+        self._update_query_weights()
+
+    def set_query(self, group) -> None:
+        """``group`` is per-query sizes (LightGBM convention) or boundaries."""
+        if group is None:
+            self.query_boundaries = None
+            self.query_weights = None
+            return
+        group = np.ascontiguousarray(group, dtype=np.int64).ravel()
+        if group.sum() == self.num_data:  # sizes
+            self.query_boundaries = np.concatenate(
+                [[0], np.cumsum(group)]).astype(np.int32)
+        elif len(group) >= 1 and group[0] == 0 and group[-1] == self.num_data:
+            self.query_boundaries = group.astype(np.int32)
+        else:
+            log.fatal("Initial sizes of queries do not sum to num_data")
+        self._update_query_weights()
+
+    def _update_query_weights(self) -> None:
+        """A query's weight is the mean weight of its rows."""
+        if self.query_boundaries is None or self.weights is None:
+            self.query_weights = None
+            return
+        b = self.query_boundaries
+        sums = np.add.reduceat(self.weights, b[:-1])
+        cnts = np.diff(b)
+        self.query_weights = (sums / np.maximum(cnts, 1)).astype(np.float32)
 
 
 class BinnedDataset:

@@ -3,14 +3,13 @@ lightgbm_tpu/io/text_loader.py, its dense delimited path).
 
 The analog of the reference's DatasetLoader text path (reference:
 src/io/dataset_loader.cpp:168,807-1042): dense TSV/CSV/space-separated
-files with the label in a configurable column, an optional header and
-ignored columns.  The file is parsed in place from an mmap by the native
+files with the label in a configurable column, optional weight and group
+(query id) columns, an optional header and ignored columns.  The file is parsed in place from an mmap by the native
 parser (``native/binning_native.cpp`` ``csv_parse``), bit-equal to
 ``np.loadtxt``, which is the lenient fallback when the strict parser
-rejects a file or g++ is missing.  LibSVM input, ``two_round`` loading,
-weight/group columns and the ``.weight``/``.query``/``.init`` sidecars are
-not in the port yet and raise ``LightGBMError`` naming their ROADMAP.md
-item.
+rejects a file or g++ is missing.  LibSVM input, ``two_round`` loading
+and the ``.weight``/``.query``/``.init`` sidecars are not in the port yet
+and raise ``LightGBMError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -125,29 +124,41 @@ def _resolve_column(spec: str, names: List[str], what: str) -> Optional[int]:
 
 
 def _column_plan(names: List[str], ncol: int, config):
-    """The label/ignore column layout of a data file -> (names, label_col,
-    keep_columns).  Integer ignore indices do not count the label column
-    (reference: config.h weight_column doc); ``name:`` specs are absolute
-    header positions."""
+    """The label/weight/group/ignore column layout of a data file ->
+    (names, label_col, weight_col, group_col, keep_columns).  Integer
+    weight/group/ignore indices do not count the label column (reference:
+    config.h weight_column doc); ``name:`` specs are absolute header
+    positions."""
     if not names:
         names = [f"Column_{i}" for i in range(ncol)]
     label_col = _resolve_column(config.label_column, names, "label")
     if label_col is None:
         label_col = 0
-    for spec, what in ((config.weight_column, "weight columns (sample "
-                        "weights)"),
-                       (config.group_column, "group columns (ranking)")):
-        if spec:
-            log.refuse(what, "the rest of queue 1")
-    drop = {label_col}
+
+    def skip_label(spec: str, what: str) -> Optional[int]:
+        c = _resolve_column(spec, names, what)
+        if c is None or spec.startswith("name:") or c < label_col:
+            return c
+        return c + 1
+
+    weight_col = skip_label(str(config.weight_column or ""), "weight")
+    group_col = skip_label(str(config.group_column or ""), "group")
+    drop = {label_col, weight_col, group_col} - {None}
     for tok in str(config.ignore_column or "").split(","):
-        tok = tok.strip()
-        c = _resolve_column(tok, names, "ignore")
+        c = skip_label(tok.strip(), "ignore")
         if c is not None:
-            drop.add(c if tok.startswith("name:") or c < label_col
-                     else c + 1)
+            drop.add(c)
     keep = [i for i in range(ncol) if i not in drop]
-    return names, label_col, keep
+    return names, label_col, weight_col, group_col, keep
+
+
+def _group_from_col(ids: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """Per-row query ids (rows of a query adjacent) -> query sizes."""
+    if ids is None:
+        return None
+    ids = ids.astype(np.int64)
+    change = np.flatnonzero(np.diff(ids)) + 1
+    return np.diff(np.concatenate([[0], change, [len(ids)]]))
 
 
 def _refuse_sidecars(path: str) -> None:
@@ -156,13 +167,16 @@ def _refuse_sidecars(path: str) -> None:
                          (".group", "ranking (.group file)"),
                          (".init", "init scores (.init file)")):
         if os.path.exists(path + suffix):
-            log.refuse(what, "the rest of queue 1")
+            log.refuse(what, "libsvm and two_round loading")
 
 
-def load_text(path: str, config) -> Tuple[np.ndarray, np.ndarray, List[str]]:
-    """Load a dense text data file -> (X, label, feature_names).
-    ``label_column`` counts every file column; ``ignore_column`` drops
-    columns from X."""
+def load_text(path: str, config) -> Tuple[np.ndarray, np.ndarray,
+                                          Optional[np.ndarray],
+                                          Optional[np.ndarray], List[str]]:
+    """Load a dense text data file -> (X, label, weight, group,
+    feature_names); weight and group (query sizes) are None without a
+    ``weight_column`` / ``group_column``.  ``label_column`` counts every
+    file column; the other columns are dropped from X."""
     if not os.path.exists(path):
         log.fatal(f"Data file {path} does not exist")
     if config.two_round:
@@ -179,5 +193,10 @@ def load_text(path: str, config) -> Tuple[np.ndarray, np.ndarray, List[str]]:
         names = [t.strip() for t in first.rstrip("\n").split(delim)]
         skip = 1
     data = _read_dense(path, delim, skip)
-    names, label_col, keep = _column_plan(names, data.shape[1], config)
-    return data[:, keep], data[:, label_col], [names[i] for i in keep]
+    names, label_col, weight_col, group_col, keep = _column_plan(
+        names, data.shape[1], config)
+    weight = data[:, weight_col] if weight_col is not None else None
+    group = _group_from_col(data[:, group_col] if group_col is not None
+                            else None)
+    return (data[:, keep], data[:, label_col], weight, group,
+            [names[i] for i in keep])

@@ -1,10 +1,10 @@
-"""Objective functions (counterpart of lightgbm_tpu/objective/): the binary
-log-loss trains; every objective the JAX package writes into a model
-header is built for prediction (its ``convert_output``)."""
+"""Objective functions (counterpart of lightgbm_tpu/objective/): every
+objective the JAX package trains, for training and for a loaded model's
+prediction (its ``convert_output``)."""
 from __future__ import annotations
 
 from ..utils import log
-from .base import OTHER_OBJECTIVES, Objective
+from .base import Objective
 from .binary import BinaryLogloss
 from .multiclass import MulticlassOVA, MulticlassSoftmax
 from .rank import LambdarankNDCG
@@ -37,11 +37,10 @@ NO_OBJECTIVE = ("none", "null", "custom", "na", "")
 
 def create_objective(config) -> Objective:
     """The training objective (reference: src/objective/
-    objective_function.cpp:15-50): binary only in the port."""
-    if config.objective != "binary":
-        log.fatal(f"objective={config.objective!r} is not in the PyTorch port "
-                  f"yet (ROADMAP.md port queue: {OTHER_OBJECTIVES})")
-    return BinaryLogloss(config)
+    objective_function.cpp:15-50)."""
+    if config.objective not in _OBJECTIVES:
+        log.fatal(f"Unknown objective type name: {config.objective}")
+    return _OBJECTIVES[config.objective](config)
 
 
 def objective_from_model(obj_str: str, num_class: int = 1):
@@ -61,8 +60,7 @@ def objective_from_model(obj_str: str, num_class: int = 1):
         if ":" in tok:
             k, v = tok.split(":", 1)
             params[k] = v
-    n_class = int(params.pop("num_class", num_class))
-    cfg = Config.from_params(params)
-    # the header's class count; Config refuses num_class > 1 for training
-    cfg.num_class = max(n_class, int(num_class))
-    return _OBJECTIVES[name](cfg)
+    n_class = max(int(params.pop("num_class", num_class)), int(num_class))
+    if name in ("multiclass", "multiclassova"):
+        params["num_class"] = n_class
+    return _OBJECTIVES[name](Config.from_params(params))

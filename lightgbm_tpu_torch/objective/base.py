@@ -7,30 +7,41 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.log import refuse
-
-# the ROADMAP.md port-queue item that brings training with the objectives
-# a loaded model may name
-OTHER_OBJECTIVES = ("the rest of queue 1 — multiclass, ranking and the "
-                    "other objectives")
-
 
 class Objective:
     """Base objective: ``get_gradients`` is elementwise torch on the score's
-    device, so the trainer computes gradients in the same call as growth."""
+    device.  Labels and weights are bound on the training device at
+    ``init``; the host copies stay for ``boost_from_score`` and the leaf
+    refits."""
 
     name = "none"
+    is_renew_tree_output = False
     num_tree_per_iteration = 1
 
     def __init__(self, config):
         self.config = config
         self.num_data = 0
         self.label: Optional[np.ndarray] = None
+        self.weights: Optional[np.ndarray] = None
 
     def init(self, metadata, num_data: int, device) -> None:
-        """Bind the labels (reference: ObjectiveFunction::Init)."""
+        """Bind labels and weights (reference: ObjectiveFunction::Init)."""
         self.num_data = num_data
         self.label = metadata.label
+        self.weights = metadata.weights
+        self.device = torch.device(device)
+        self._to_device()
+
+    def _to_device(self) -> None:
+        self._label_d = (None if self.label is None else
+                         torch.as_tensor(self.label).to(self.device))
+        self._weights_d = (None if self.weights is None else
+                           torch.as_tensor(self.weights).to(self.device))
+
+    def _apply_weight(self, g, h):
+        if self._weights_d is not None:
+            return g * self._weights_d, h * self._weights_d
+        return g, h
 
     def get_gradients(self, score) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
@@ -42,27 +53,56 @@ class Objective:
         return True
 
     def to_model_string(self) -> str:
-        """The model text's ``objective=`` value."""
+        """The model text's ``objective=`` value, as the JAX package writes
+        it (lightgbm_tpu/io/model_io.py ``_objective_string``)."""
         return self.name
 
     def convert_output(self, raw: np.ndarray) -> np.ndarray:
         """Raw margin -> user-space prediction."""
         return raw
 
+    def renew_leaf_values(self, residual: np.ndarray, leaf_id: np.ndarray,
+                          num_leaves: int, bag_mask: np.ndarray) -> np.ndarray:
+        """Per-leaf refit for percentile-style losses (reference:
+        RenewTreeOutput, serial_tree_learner.cpp:855-893): new leaf
+        outputs [num_leaves], NaN = keep the grown value."""
+        raise NotImplementedError
+
     def __str__(self) -> str:
         return self.name
 
 
-class PredictionObjective(Objective):
-    """An objective a loaded model names: ``convert_output`` is ported, so
-    the model predicts what the JAX package predicts; training with it is
-    not in the port yet and raises naming that item."""
-
-    def init(self, metadata, num_data: int, device) -> None:
-        refuse(f"training with objective={self.name}", OTHER_OBJECTIVES)
-
-    def get_gradients(self, score):
-        refuse(f"gradients of objective={self.name}", OTHER_OBJECTIVES)
-
-    def boost_from_score(self, class_id: int = 0) -> float:
-        refuse(f"boost_from_score of objective={self.name}", OTHER_OBJECTIVES)
+def percentile(values: np.ndarray, weights: Optional[np.ndarray],
+               alpha: float) -> float:
+    """(Weighted) percentile with the reference's interpolation
+    (reference: PercentileFun / WeightedPercentileFun,
+    src/objective/regression_objective.hpp:18-76)."""
+    cnt = len(values)
+    if cnt == 0:
+        return 0.0
+    if cnt == 1:
+        return float(values[0])
+    order = np.argsort(values, kind="stable")
+    data = values[order]
+    if weights is None:
+        float_pos = (1.0 - alpha) * cnt
+        pos = int(float_pos)
+        if pos < 1:
+            return float(data[-1])
+        if pos >= cnt:
+            return float(data[0])
+        bias = float_pos - pos
+        # the reference selects the (pos-1)/pos-th largest
+        v1 = data[cnt - pos]
+        v2 = data[cnt - pos - 1]
+        return float(v1 - (v1 - v2) * bias)
+    cdf = np.cumsum(weights[order])
+    threshold = cdf[-1] * alpha
+    pos = min(int(np.searchsorted(cdf, threshold, side="right")), cnt - 1)
+    if pos == 0 or pos == cnt - 1:
+        return float(data[pos])
+    v1, v2 = float(data[pos - 1]), float(data[pos])
+    if cdf[pos + 1] - cdf[pos] >= 1.0:
+        return float((threshold - cdf[pos]) / (cdf[pos + 1] - cdf[pos])
+                     * (v2 - v1) + v1)
+    return v2

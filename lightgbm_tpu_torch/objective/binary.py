@@ -13,9 +13,11 @@ K_EPSILON = 1e-15
 
 
 class BinaryLogloss(Objective):
+    """``is_pos`` picks the positive rows from the labels (label > 0;
+    one class of a one-vs-all multiclass)."""
     name = "binary"
 
-    def __init__(self, config):
+    def __init__(self, config, is_pos=None):
         super().__init__(config)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0.0:
@@ -24,11 +26,12 @@ class BinaryLogloss(Objective):
         self.scale_pos_weight = float(config.scale_pos_weight)
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             log.fatal("Cannot set is_unbalance and scale_pos_weight at the same time")
+        self._is_pos = is_pos if is_pos is not None else (lambda y: y > 0)
         self.need_train = True
 
     def init(self, metadata, num_data, device):
         super().init(metadata, num_data, device)
-        pos = self.label > 0
+        pos = self._is_pos(self.label)
         cnt_pos = int(pos.sum())
         cnt_neg = num_data - cnt_pos
         self.need_train = cnt_pos > 0 and cnt_neg > 0
@@ -45,9 +48,9 @@ class BinaryLogloss(Objective):
         w_pos *= self.scale_pos_weight
         log.info("Number of positive: %d, number of negative: %d", cnt_pos, cnt_neg)
         self._y = torch.as_tensor(
-            np.where(pos, 1.0, -1.0).astype(np.float32)).to(device)
+            np.where(pos, 1.0, -1.0).astype(np.float32)).to(self.device)
         self._lw = torch.as_tensor(
-            np.where(pos, w_pos, w_neg).astype(np.float32)).to(device)
+            np.where(pos, w_pos, w_neg).astype(np.float32)).to(self.device)
 
     def get_gradients(self, score):
         response = -self._y * self.sigmoid / (
@@ -55,10 +58,14 @@ class BinaryLogloss(Objective):
         abs_resp = torch.abs(response)
         g = response * self._lw
         h = abs_resp * (self.sigmoid - abs_resp) * self._lw
-        return g, h
+        return self._apply_weight(g, h)
 
     def boost_from_score(self, class_id: int = 0) -> float:
-        pavg = float((self.label > 0).astype(np.float64).mean())
+        pos = self._is_pos(self.label).astype(np.float64)
+        if self.weights is not None:
+            pavg = float(np.sum(pos * self.weights) / np.sum(self.weights))
+        else:
+            pavg = float(pos.mean())
         pavg = min(max(pavg, K_EPSILON), 1.0 - K_EPSILON)
         initscore = float(np.log(pavg / (1.0 - pavg)) / self.sigmoid)
         log.info("[binary:BoostFromScore]: pavg=%f -> initscore=%f", pavg, initscore)

@@ -119,3 +119,41 @@ def test_unported_task_names_its_item(workdir, task, item):
              workdir, check=False)
     assert r.returncode != 0
     assert "ROADMAP.md" in r.stderr and item in r.stderr
+
+
+@pytest.mark.parametrize("objective,cols", [
+    ("lambdarank", ["weight_column=1", "group_column=0"]),
+    ("regression", ["header=true", "weight_column=name:w",
+                    "group_column=name:qid"])])
+def test_cli_weight_and_group_columns(tmp_path, objective, cols):
+    """``task=train`` with a weight and a group (query id) column, by index
+    (not counting the label) and by name: the API's model on the same
+    weights and query sizes."""
+    rng = np.random.default_rng(3)
+    qid = np.repeat(np.arange(40), rng.integers(3, 25, size=40))
+    n = len(qid)
+    X = rng.normal(size=(n, 4))
+    w = rng.uniform(0.5, 2.0, n).round(4)
+    y = (np.clip(np.round(X[:, 0] + X[:, 1] + 2), 0, 4) if objective ==
+         "lambdarank" else X[:, 0] * 2 + X[:, 1] ** 2)
+    table = np.column_stack([y, qid, w, X])
+    with open(tmp_path / "data.tsv", "w") as fh:
+        if "header=true" in cols:
+            fh.write("y\tqid\tw\ta\tb\tc\td\n")
+        np.savetxt(fh, table, delimiter="\t", fmt="%.8f")
+    _run("lightgbm_tpu_torch",
+         ["task=train", "data=data.tsv", f"objective={objective}",
+          "num_trees=4", "num_leaves=7", "min_data_in_leaf=5",
+          "output_model=model.txt", "device_type=cpu", "verbosity=-1", *cols],
+         tmp_path)
+    text = (tmp_path / "model.txt").read_text()
+    bst = lt.train({"objective": objective, "num_leaves": 7,
+                    "min_data_in_leaf": 5, "verbose": -1},
+                   lt.Dataset(table[:, 3:].round(8), label=y.round(8),
+                              weight=w, group=np.bincount(qid)), 4,
+                   device="cpu")
+
+    def trees(t):
+        return t.split("\nTree=0\n")[1].split("end of trees")[0]
+    assert text.count("Tree=") == 4
+    assert trees(bst.model_to_string()) == trees(text)

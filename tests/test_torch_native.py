@@ -131,7 +131,7 @@ def test_load_text_matches_reference(tmp_path, delim, header, label):
             fh.write(delim.join(repr(float(v)) for v in row) + "\n")
     params = {"header": header, "label_column": label,
               "ignore_column": "3" if label == "2" else ""}
-    X, y, fnames = load_text(str(path), Config.from_params(params))
+    X, y, _, _, fnames = load_text(str(path), Config.from_params(params))
     rX, ry, _, _, rnames = ref_load(str(path), RefConfig.from_params(params))
     np.testing.assert_array_equal(X, rX)
     np.testing.assert_array_equal(y, ry)
@@ -140,6 +140,40 @@ def test_load_text_matches_reference(tmp_path, delim, header, label):
     want = np.loadtxt(path, delimiter=delim, skiprows=int(header), ndmin=2)
     col = names.index("target") if label == "name:target" else int(label or 0)
     np.testing.assert_array_equal(y, want[:, col])
+
+
+@pytest.mark.parametrize("header", [False, True])
+def test_load_text_weight_and_group_columns(tmp_path, header):
+    """``weight_column`` / ``group_column`` (index forms not counting the
+    label, ``name:`` forms) give the JAX package's arrays: the weights,
+    the query sizes from adjacent ids, and X without those columns."""
+    pytest.importorskip("jax")
+    from lightgbm_tpu.config import Config as RefConfig
+    from lightgbm_tpu.io.text_loader import load_text as ref_load
+    rng = np.random.default_rng(5)
+    qid = np.repeat(np.arange(9), rng.integers(1, 12, size=9))
+    n = len(qid)
+    data = np.column_stack([rng.integers(0, 4, n), rng.normal(size=n),
+                            qid, rng.uniform(0.5, 2, n).round(3),
+                            rng.normal(size=n)])
+    path = tmp_path / "rank.tsv"
+    names = ["y", "f0", "qid", "w", "f1"]
+    with open(path, "w") as fh:
+        if header:
+            fh.write("\t".join(names) + "\n")
+        for row in data:
+            fh.write("\t".join(repr(float(v)) for v in row) + "\n")
+    params = ({"header": True, "weight_column": "name:w",
+               "group_column": "name:qid"} if header else
+              {"weight_column": "2", "group_column": "1"})
+    got = load_text(str(path), Config.from_params(params))
+    want = ref_load(str(path), RefConfig.from_params(params))
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert got[4] == want[4]
+    np.testing.assert_array_equal(got[2], data[:, 3])
+    np.testing.assert_array_equal(got[3], np.bincount(qid))
+    assert got[0].shape == (n, 2)
 
 
 def test_load_text_refusals(tmp_path):
@@ -152,8 +186,10 @@ def test_load_text_refusals(tmp_path):
     dense.write_text("1\t0.5\t2.0\n0\t0.1\t3.0\n")
     with pytest.raises(LightGBMError, match="two_round"):
         load_text(str(dense), Config.from_params({"two_round": True}))
+    (tmp_path / "data.tsv.query").write_text("2\n")
     with pytest.raises(LightGBMError, match="ROADMAP"):
-        load_text(str(dense), Config.from_params({"weight_column": "1"}))
+        load_text(str(dense), cfg)
+    (tmp_path / "data.tsv.query").unlink()
     (tmp_path / "data.tsv.weight").write_text("1\n2\n")
     with pytest.raises(LightGBMError, match="weights"):
         load_text(str(dense), cfg)

@@ -134,12 +134,12 @@ def test_convert_round_trips(trained):
 
 @pytest.mark.parametrize("params", [
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-    {"objective": "poisson"},
+    {"tree_learner": "feature"},
     {"boosting": "dart"}, {"tree_learner": "data"},
     {"feature_fraction_bynode": 0.5}, {"tpu_wave_overlap": True},
     {"tpu_batched_split_apply": False},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "lambdarank"}, {"cegb_penalty_split": 0.1},
+    {"tree_learner": "voting"},
+    {"cegb_penalty_feature_lazy": [0.5] * 10}, {"cegb_penalty_split": 0.1},
     {"tpu_fused_grad": False}, {"forcedsplits_filename": "f.json"}])
 def test_outside_the_slice_is_refused(params):
     X, y = _data(n=300)
