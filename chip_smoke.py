@@ -111,9 +111,47 @@ Phases, in order; any failure raises and the script exits nonzero:
    5 rounds each, each trained twice with one digest, the metric falling
    every round.
 
+The serial grower, the rest of the training API and LibSVM input (run
+after phase 8 on phase 4's Dataset, and after phase 9), labelled (a)-(f):
+
+(a) the serial grower on phase 4's rows: ``forcedsplits_filename`` (the
+   fixture ``tests/fixtures/forced_splits.json``: features 25, 10, 4),
+   ``cegb_penalty_split`` 0.02, a coupled CEGB penalty on every column and
+   a lazy one on four, ``feature_fraction_bynode`` 0.5; 255 leaves, 3
+   rounds, trained twice with one digest; the forced BFS prefix in every
+   tree; one K2 launch (C = 32) per leaf histogram and no K1; one profiled
+   iteration;
+(b) the same rows at ``max_bin=1023``: every column wider than 256 bins,
+   so the serial grower's fixed-point wide histogram takes every leaf; 3
+   rounds twice, one digest; its time at the root leaf by CUDA events,
+   beside the mixed-width side-pass in the same role; one profiled
+   iteration; then CEGB without lazy penalties (split 0.02, coupled 0.5
+   on every column) on the wave grower, 3 rounds twice, one digest;
+(c) K2 at C = 32 (the serial grower's channel group) against its plain
+   version at 1,000,000 x 28 x 256 in phase 2, bit-equal launches, with
+   its byte bound for the 32 channels read and the 3 used;
+(d) the training API on phase 4's rows at 31 leaves: 10 rounds against 5
+   saved and 5 more through ``init_model`` from the file (probabilities
+   within 1e-4), init scores from the 5-round model's raw scores (plus 5
+   rounds within 1e-4 in raw score of the continued model), a numpy
+   logloss ``fobj`` with an AUC ``feval``, ``learning_rates`` as a
+   decaying list, ``cv`` (3 folds, 5 rounds); each run twice with one
+   digest (``cv``: equal results), wall seconds;
+(e) sparse input: a 1,000,000 x 5,000 CSR with 8 stored entries a row
+   (``tests/test_sparse.py``'s wide shape and parameters) binned without
+   densifying (host seconds, tracemalloc peak), 3 rounds on the grower the
+   JAX package's rule picks, prediction from the CSR on the card (the
+   used columns gathered; within 1e-6 of the host walk on 20,000 rows);
+(f) the CLI on LibSVM files: a 200,000-row MSLR-shaped file with ``qid:``
+   through ``objective=lambdarank`` gives the same trees with and without
+   ``two_round``; a binary file with ``.weight`` and ``.init`` sidecars
+   and ``save_binary=true``; ``input_model`` continuation; training from
+   the ``<data>.bin`` file gives the text's trees.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
-its launches in all, by layout and by sibling form (fused or not).  Each training phase prints a digest
+its launches in all, by layout and by sibling form (fused or not); K2 its
+launches, the serial grower's wide histogram its calls.  Each training phase prints a digest
 of its model text (equal digests, equal trees).  Prints a
 ``{"kernels": [...]}`` line (``launches`` from each kernel's path,
 ``training_path_launches`` over the three training phases,
@@ -531,9 +569,10 @@ def profile_iteration(bst, iter_ms, kind, card):
     kernels = [r for r in rows if not r[2].startswith("aten::")]
     busy = sum(r[0] for r in kernels) / 1e3
     k1 = sum(r[0] for r in kernels if "hist_wave" in r[2]) / 1e3
+    k2 = sum(r[0] for r in kernels if "hist_channels" in r[2]) / 1e3
     idle = max(0.0, 1 - busy / iter_ms)
     print(f"profiled iteration: device kernels {busy:.3f} ms (K1 "
-          f"{k1:.3f} ms); unprofiled iteration {iter_ms:.3f} ms -> device "
+          f"{k1:.3f} ms, K2 {k2:.3f} ms); unprofiled iteration {iter_ms:.3f} ms -> device "
           f"idle share {idle:.3f} (wall with the profiler on {wall_ms:.1f} "
           f"ms) [{kind}, {card}]", flush=True)
     for dev_us, count, key in sorted(kernels, reverse=True)[:8]:
@@ -542,33 +581,39 @@ def profile_iteration(bst, iter_ms, kind, card):
 
 
 def reset_counts(hw, hc):
-    """Every kernel's launch count to 0, and the side-pass's calls."""
-    from lightgbm_tpu_torch.core.histogram import hist_wave_side
+    """Every kernel's launch count to 0, and the calls of the side-pass and
+    of the serial grower's wide-column histogram."""
+    from lightgbm_tpu_torch.core.histogram import (hist_fixed_point,
+                                                   hist_wave_side)
     hw.hist_wave.launches = 0
     hw.hist_wave.layout_launches.update(packed=0, triple=0)
     hw.hist_wave.sibling_launches.update(fused=0, unfused=0)
     hc.hist_channels.launches = 0
     hist_wave_side.calls = 0
+    hist_fixed_point.calls = 0
 
 
 def read_counts(hw, hc) -> dict:
     """Every kernel's launch count: K1 in all, by layout and by sibling
-    form, K2; and the side-pass's calls."""
-    from lightgbm_tpu_torch.core.histogram import hist_wave_side
+    form, K2; and the calls of the side-pass and of the wide histogram."""
+    from lightgbm_tpu_torch.core.histogram import (hist_fixed_point,
+                                                   hist_wave_side)
     return {"k1": hw.hist_wave.launches,
             "k1_packed": hw.hist_wave.layout_launches["packed"],
             "k1_triple": hw.hist_wave.layout_launches["triple"],
             "k1_fused": hw.hist_wave.sibling_launches["fused"],
             "k1_unfused": hw.hist_wave.sibling_launches["unfused"],
             "k2": hc.hist_channels.launches,
-            "side_pass": hist_wave_side.calls}
+            "side_pass": hist_wave_side.calls,
+            "wide_hist": hist_fixed_point.calls}
 
 
 def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
                 callbacks=None, layout="k1_packed"):
     """One training phase on the card with every launch count set to 0
-    just before and read just after; checks one K1 launch of ``layout``
-    or more per wave.  Returns (booster, counts, the training set's metric
+    just before and read just after; checks one launch of ``layout`` (a
+    ``read_counts`` key: K1's layouts per wave, or, on the serial grower,
+    ``k2`` / ``wide_hist`` per leaf histogram) or more per wave.  Returns (booster, counts, the training set's metric
     curves by name, median ms/iter)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
@@ -586,8 +631,8 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
         raise AssertionError(f"{name}: trained {len(gb.models)} trees, "
                              f"expected {rounds * gb.num_tpi}")
     if launches < sum(waves) or launches == 0:
-        raise AssertionError(f"{name}: K1 launched {launches} times for "
-                             f"{sum(waves)} waves")
+        raise AssertionError(f"{name}: {layout} launched {launches} times "
+                             f"for {sum(waves)} waves")
     curves = ev["train"]
     per_iter = gb.iter_seconds[1:]
     print(f"{name}: leaves/tree {[t.num_leaves for t in gb.models]}, "
@@ -1270,6 +1315,457 @@ def regression_phase(lt, hw, hc, kind, card):
     return first
 
 
+FORCED_SPLITS = os.path.join(HERE, "tests", "fixtures", "forced_splits.json")
+FORCED_PREFIX = (25, 10, 4)      # the fixture's BFS features
+
+
+def serial_phase(lt, hw, hc, params, ds, X, y, kind, card):
+    """(a) The serial grower at the headline width: forced splits
+    (``tests/fixtures/forced_splits.json``), CEGB (split penalty 0.02, a
+    coupled penalty on every column, a lazy one on a few) and by-node
+    sampling (0.5), 3 rounds, trained twice with one digest; the forced
+    BFS prefix stands in every tree; K2 (C = 32) takes every leaf
+    histogram.  (b) The same rows at ``max_bin=1023``: every column has
+    more than 256 bins, the serial grower's fixed-point wide histogram
+    takes every leaf, 3 rounds twice with one digest; its ms per leaf at
+    the root by CUDA events, beside the mixed-width side-pass
+    (``hist_wave_side``) with one slot at the same shape.  Returns (narrow
+    counts, wide counts, wide ms, side-pass ms)."""
+    import torch
+    from lightgbm_tpu_torch.core.histogram import (hist_fixed_point,
+                                                   hist_wave_side)
+    F = X.shape[1]
+    # relative to the working directory (the repository's root, where the
+    # script runs): the path lands in the model text, so the digest of an
+    # unchanged tree must not depend on where the checkout is
+    narrow = {**params, "forcedsplits_filename": os.path.relpath(
+        FORCED_SPLITS),
+              "cegb_penalty_split": 0.02,
+              "cegb_penalty_feature_coupled": [0.5] * F,
+              "cegb_penalty_feature_lazy": [1e-5] * 4 + [0.0] * (F - 4),
+              "feature_fraction_bynode": 0.5}
+    out = []
+    for name, p, d, layout in (
+            ("serial grower (forced, CEGB, by-node)", narrow, ds, "k2"),
+            ("serial grower (all-wide, max_bin 1023)",
+             {**params, "max_bin": 1023}, None, "wide_hist")):
+        if d is None:
+            t0 = time.perf_counter()
+            d = lt.Dataset(X, label=y, params={"max_bin": 1023}).construct()
+            phys = d._handle.phys_max_bins()
+            print(f"{name}: binned in {time.perf_counter() - t0:.2f} s, "
+                  f"{len(phys)} columns of {int(phys.min())}-"
+                  f"{int(phys.max())} bins, X_bin {d._handle.X_bin.dtype} "
+                  f"[{card}]", flush=True)
+        runs = []
+        for i in range(2):
+            bst, counts, curves, iter_ms = train_phase(
+                lt, hw, hc, f"{name} (run {i + 1})", p, d, kind, card,
+                rounds=3, layout=layout)
+            runs.append((bst, counts, model_digest(bst), iter_ms))
+        gb = runs[0][0]._gbdt
+        if gb.uses_wave:
+            raise AssertionError(f"{name}: the wave grower took the data")
+        passes = sum(w for w, _ in gb.wave_stats)
+        print(f"{name}: {layout} launches {runs[0][1][layout]} for "
+              f"{passes} leaf histograms in 3 trees of "
+              f"{[t.num_leaves for t in gb.models]} leaves; K1 launches "
+              f"{runs[0][1]['k1']}; {runs[0][3] / 1e3:.4f} / "
+              f"{runs[1][3] / 1e3:.4f} s/iter; digests {runs[0][2]} / "
+              f"{runs[1][2]} [{kind}, {card}]", flush=True)
+        if runs[0][2] != runs[1][2]:
+            raise AssertionError(f"{name}: two trainings differ")
+        if runs[0][1]["k1"] or runs[0][1][layout] != passes:
+            raise AssertionError(f"{name}: launches {runs[0][1]} for "
+                                 f"{passes} leaf histograms")
+        if layout == "k2":
+            for t in gb.models:
+                if (tuple(t.split_feature[:3]) != FORCED_PREFIX
+                        or t.left_child[0] != 1 or t.right_child[0] != 2):
+                    raise AssertionError(
+                        f"{name}: forced prefix missing: features "
+                        f"{t.split_feature[:3]}, children "
+                        f"{t.left_child[0]}, {t.right_child[0]}")
+            print(f"{name}: forced BFS prefix {FORCED_PREFIX} in all "
+                  f"{len(gb.models)} trees [{kind}, {card}]", flush=True)
+        else:
+            g, h = gb.objective.get_gradients(gb._train_score)
+            wide = gb._bins_fm[1]
+            mask = gb._bag_mask
+            calls = hist_fixed_point.calls, hist_wave_side.calls
+            wide_ms = cuda_ms(lambda: hist_fixed_point(
+                wide, g, h, mask, gb.B_phys), reps=5)
+            # the mixed-width wave's side-pass in the same role: one slot
+            # (leaf 0, lanes g, h, count) over the row-major bins
+            wide_rm = wide.t().contiguous()
+            slot = torch.full((128,), -1, dtype=torch.int32, device=DEV)
+            slot[:3] = 0
+            leaf0 = torch.zeros(wide.shape[1], dtype=torch.int32, device=DEV)
+
+            def side():
+                return hist_wave_side(wide_rm, g * mask, h * mask, mask,
+                                      leaf0, slot, gb.B_phys, lanes=3)
+            side_ms = cuda_ms(side, reps=3)
+            fixed = hist_fixed_point(wide, g, h, mask, gb.B_phys)
+            side_err = float((side()[..., :3] - fixed).abs().max())
+            hist_fixed_point.calls, hist_wave_side.calls = calls
+            del wide_rm, leaf0
+            print(f"{name}: wide histogram of the root leaf ({wide.shape[1]:,}"
+                  f" rows x {wide.shape[0]} columns x {gb.B_phys} bins) "
+                  f"{wide_ms:.3f} ms (CUDA events, median of 5); the "
+                  f"side-pass hist_wave_side in its place {side_ms:.3f} ms "
+                  f"(median of 3), max |side-pass - fixed point| "
+                  f"{side_err:.3g}; "
+                  f"{sum(r for _, r in gb.wave_stats) / max(passes, 1):,.0f}"
+                  f" rows a leaf histogram on average [{kind}, {card}]",
+                  flush=True)
+        profile_iteration(runs[0][0], runs[0][3], kind, card)
+        out.append(runs[0][1])
+        del runs
+    return out[0], out[1], wide_ms, side_ms
+
+
+def cegb_wave_phase(lt, hw, hc, params, ds, kind, card):
+    """CEGB without lazy penalties on the wave grower, as the JAX package
+    grows it: split penalty 0.02 and a coupled one of 0.5 on every column,
+    3 rounds trained twice with one digest, K1 packed on every wave.
+    Returns the first run's counts."""
+    p = {**params, "cegb_penalty_split": 0.02,
+         "cegb_penalty_feature_coupled": [0.5] * 28}
+    runs = []
+    for i in range(2):
+        bst, counts, _, iter_ms = train_phase(
+            lt, hw, hc, f"wave grower with CEGB (run {i + 1})", p, ds, kind,
+            card, rounds=3)
+        runs.append((bst._gbdt.uses_wave, counts, model_digest(bst),
+                     iter_ms))
+        del bst
+    print(f"wave grower with CEGB: {runs[0][3] / 1e3:.4f} / "
+          f"{runs[1][3] / 1e3:.4f} s/iter; digests {runs[0][2]} / "
+          f"{runs[1][2]} [{kind}, {card}]", flush=True)
+    if not (runs[0][0] and runs[1][0]):
+        raise AssertionError("CEGB without lazy penalties left the wave")
+    if runs[0][2] != runs[1][2]:
+        raise AssertionError("wave grower with CEGB: two trainings differ")
+    return runs[0][1]
+
+
+def api_phase(lt, params, ds, X, y, kind, card):
+    """(d) Continued training and the rest of the training API on the
+    headline rows, at 31 leaves (depth cut: fewer near-tied splits between
+    a continued and an uninterrupted run): 5 rounds saved, 5 more from the
+    file through ``init_model``, probabilities within 1e-4 of 10
+    uninterrupted rounds (the JAX package's tolerance); init scores from
+    the 5-round model's raw scores, plus 5 rounds, within 1e-4 in raw score
+of the continued model; a numpy binary-logloss ``fobj`` with an
+    AUC ``feval``; ``learning_rates`` as a decaying list; ``cv`` with 3
+    folds and 5 rounds.  Each run is trained twice with one digest (``cv``:
+    equal results); wall seconds of each."""
+    import tempfile
+    p = {**params, "num_leaves": 31}
+    n = PREDICT_CHECK_ROWS
+
+    def auc(pred, label):
+        order = np.argsort(pred, kind="stable")
+        ranks = np.empty(len(pred))
+        ranks[order] = np.arange(1, len(pred) + 1)
+        pos = label == 1
+        return float((ranks[pos].sum() - pos.sum() * (pos.sum() + 1) / 2)
+                     / (pos.sum() * (~pos).sum()))
+
+    def fobj(preds, data):
+        lab = data.get_label()
+        prob = 1.0 / (1.0 + np.exp(-preds))
+        return prob - lab, prob * (1.0 - prob)
+
+    def feval(preds, data):
+        return "auc_custom", auc(preds, data.get_label()), True
+
+    def twice(name, fn, digest=model_digest):
+        walls, outs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(fn())
+            walls.append(time.perf_counter() - t0)
+        d = [digest(o) for o in outs]
+        print(f"API {name}: wall {walls[0]:.2f} / {walls[1]:.2f} s; digests "
+              f"{d[0]} / {d[1]} [{kind}, {card}]", flush=True)
+        if d[0] != d[1]:
+            raise AssertionError(f"API {name}: two runs differ")
+        return outs[0]
+
+    full = twice("10 rounds uninterrupted",
+                 lambda: lt.train(p, ds, 10, device=DEV))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "five.txt")
+        first = lt.train(p, ds, 5, device=DEV)
+        first.save_model(path)
+        cont = twice("5 rounds + 5 from the file (init_model)",
+                     lambda: lt.train(p, ds, 5, init_model=path, device=DEV))
+    err = float(np.abs(cont.predict(X[:n]) - full.predict(X[:n])).max())
+    print(f"API continued vs uninterrupted: {cont.num_trees()} trees, max "
+          f"|probability difference| {err:.3g} on {n:,} rows (tol 1e-4) "
+          f"[{kind}, {card}]", flush=True)
+    if cont.num_trees() != 10 or err > 1e-4:
+        raise AssertionError("continued training differs from 10 rounds")
+    init = first.predict(X, raw_score=True)
+    ds_init = lt.Dataset(X, label=y, init_score=init, reference=ds)
+    with_init = twice("init scores from the 5-round model",
+                      lambda: lt.train(p, ds_init, 5, device=DEV))
+    gap = float(np.abs(init[:n] + with_init.predict(X[:n], raw_score=True)
+                       - cont.predict(X[:n], raw_score=True)).max())
+    print(f"API init scores: max |init + 5 rounds - continued| raw {gap:.3g}"
+          f" on {n:,} rows (tol 1e-4) [{kind}, {card}]", flush=True)
+    if not gap <= 1e-4:
+        raise AssertionError("init scores + 5 rounds differ from the "
+                             "continued model")
+    ev = {}
+    custom = twice("fobj (numpy logloss) + feval (AUC)",
+                   lambda: lt.train(p, ds, 5, fobj=fobj, feval=feval,
+                                    valid_sets=[ds], valid_names=["train"],
+                                    evals_result=ev, device=DEV))
+    cauc = ev["train"]["auc_custom"]
+    print(f"API fobj/feval: train AUC by feval {cauc} [{kind}, {card}]",
+          flush=True)
+    if not (cauc[-1] > 0.7 and all(b >= a for a, b in zip(cauc, cauc[1:]))):
+        raise AssertionError(f"custom objective AUC {cauc}")
+    del custom
+    twice("learning_rates [0.2, 0.15, 0.1, 0.07, 0.05]",
+          lambda: lt.train(p, ds, 5, learning_rates=[0.2, 0.15, 0.1, 0.07,
+                                                     0.05], device=DEV))
+    full_ds = lt.Dataset(X, label=y, free_raw_data=False)
+    res = twice("cv (3 folds, 5 rounds)",
+                lambda: lt.cv({**p, "metric": "binary_logloss"}, full_ds, 5,
+                              nfold=3, device=DEV),
+                digest=lambda r: hashlib.sha256(json.dumps(
+                    r, sort_keys=True).encode()).hexdigest()[:16])
+    curve = res["valid binary_logloss-mean"]
+    print(f"API cv: valid binary_logloss mean {curve}, stdv "
+          f"{res['valid binary_logloss-stdv']} [{kind}, {card}]", flush=True)
+    if not all(b < a for a, b in zip(curve, curve[1:])):
+        raise AssertionError(f"cv logloss did not fall: {curve}")
+
+
+SPARSE_ROWS, SPARSE_COLS, SPARSE_PER_ROW = 1_000_000, 5_000, 8
+SPARSE_PARAMS = {"objective": "binary", "num_leaves": 7, "max_bin": 15,
+                 "min_data_in_leaf": 20, "max_conflict_rate": 0.1,
+                 "verbose": -1}
+
+
+def sparse_data():
+    """(CSR, label) of phase (e), from seed 0: ``tests/test_sparse.py``'s
+    generator at ``SPARSE_ROWS`` rows."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(0)
+    n, f, k = SPARSE_ROWS, SPARSE_COLS, SPARSE_PER_ROW
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, f, size=n * k)
+    informative = cols < 50
+    vals = np.where(informative, 1.0 + rng.random(n * k),
+                    rng.normal(size=n * k))
+    X = sp.csr_matrix((vals, (rows, cols)), shape=(n, f))
+    signal = np.zeros(n)
+    np.add.at(signal, rows[informative], vals[informative])
+    y = (signal + 0.5 * rng.normal(size=n) > 1.0).astype(np.float64)
+    return X, y
+
+
+def proc_status(key: str) -> int:
+    """A byte count of /proc/self/status (VmRSS, VmHWM)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError(f"/proc/self/status has no {key}")
+
+
+def sparse_build_child():
+    """The body of ``sparse_build_rss``'s process: build phase (e)'s Dataset
+    while a thread samples the RSS every 5 ms; prints the RSS resident
+    before the build (imports, the CSR) and the largest sample, in bytes,
+    as JSON."""
+    import threading
+
+    import lightgbm_tpu_torch as lt
+    X, y = sparse_data()
+    before = proc_status("VmRSS")
+    peak = [before]
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], proc_status("VmRSS"))
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        lt.Dataset(X, label=y, params=SPARSE_PARAMS).construct()
+    finally:
+        done.set()
+        watcher.join()
+    peak[0] = max(peak[0], proc_status("VmRSS"))
+    print(json.dumps({"before": before, "after": peak[0]}))
+
+
+def sparse_build_rss():
+    """Peak RSS of building phase (e)'s Dataset, in a process of its own
+    (this one's high-water mark is the earlier phases'): the RSS resident
+    before the build and the peak sampled during it, in bytes."""
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); "
+            "import chip_smoke; chip_smoke.sparse_build_child()")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"sparse build process exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def sparse_phase(lt, kind, card):
+    """(e) A CSR of 1,000,000 x 5,000 with 8 stored entries a row (the JAX
+    package's ``tests/test_sparse.py`` wide shape and parameters at a
+    million rows): the Dataset built without densifying (host seconds, the
+    peak of host memory allocated meanwhile by tracemalloc, and the peak
+    RSS of the same build in a process of its own), 3 rounds on the grower
+    the JAX package's rule picks, then prediction from the CSR: the used
+    columns gathered block by block and walked on the card (held against
+    the host walk on the first rows)."""
+    import tracemalloc
+
+    from lightgbm_tpu_torch.core import forest
+    rss = sparse_build_rss()
+    X, y = sparse_data()
+    n, f = X.shape
+    params = SPARSE_PARAMS
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, params=params).construct()
+    build_s = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    h = ds._handle
+    phys = h.phys_max_bins()
+    wide = int((phys > 256).sum())
+    dense_bytes = n * f * 8
+    print(f"sparse Dataset ({n:,} x {f:,}, {X.nnz:,} stored entries): built "
+          f"in {build_s:.2f} s (host), peak host memory allocated "
+          f"{peak / 1e6:.1f} MB (tracemalloc), peak RSS during the build in "
+          f"a process of its own (sampled every 5 ms) "
+          f"{rss['after'] / 1e9:.3f} GB ("
+          f"{rss['before'] / 1e9:.3f} GB resident before it: imports and "
+          f"the CSR; the dense matrix would be {dense_bytes / 1e9:.0f} GB); "
+          f"{h.num_features} features in "
+          f"{len(phys)} physical columns ({wide} of more than 256 bins), "
+          f"X_bin {h.X_bin.dtype} [{card}]", flush=True)
+    if peak > dense_bytes / 10 or rss["after"] - rss["before"] > \
+            dense_bytes / 10:
+        raise AssertionError("the sparse Dataset was densified")
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, 3, device=DEV)
+    train_s = time.perf_counter() - t0
+    gb = bst._gbdt
+    grower = ("wave (mixed width)" if gb.uses_wave and wide else
+              "wave" if gb.uses_wave else "serial")
+    before = dict(forest.calls)
+    t0 = time.perf_counter()
+    pred = bst.predict(X)
+    pred_s = time.perf_counter() - t0
+    ran = {k: forest.calls[k] - before[k] for k in before}
+    # the first rows alone are below the device threshold: the host walk
+    m = PREDICT_CHECK_ROWS
+    host = bst.predict(X[:m])
+    err = float(np.abs(pred[:m] - host).max())
+    used = len(gb._sparse_window(0, gb.current_iteration())[0])
+    gap = float(pred[y == 1].mean() - pred[y == 0].mean())
+    print(f"sparse training: 3 rounds on the {grower} grower in "
+          f"{train_s:.2f} s ({[t.num_leaves for t in gb.models]} leaves, "
+          f"s/iter {gb.iter_seconds}); predict from the CSR {pred_s:.2f} s "
+          f"({used} columns gathered; device forest calls {ran}), max "
+          f"|probability - host walk| {err:.3g} on {m:,} rows (tol 1e-6), "
+          f"mean prediction positives - negatives {gap:.4f} [{kind}, {card}]",
+          flush=True)
+    if ran["predict"] < 1:
+        raise AssertionError(f"sparse predict: device forest calls {ran}")
+    if pred.shape != (n,) or not np.all(np.isfinite(pred)) or gap <= 0.01 \
+            or not err <= 1e-6:
+        raise AssertionError("sparse predictions are not right")
+
+
+def cli_more_phase(lt, kind, card, rows=200_000):
+    """(f) The CLI on LibSVM input: a 200,000-row MSLR-shaped file (``qid:``
+    tokens, 136 features numbered from 1, grades 0-4) through
+    ``task=train objective=lambdarank`` gives the same trees with
+    ``two_round=true`` as with ``two_round=false``; a binary LibSVM file
+    with ``.weight`` and ``.init`` sidecars trains; ``input_model``
+    continues its model; ``save_binary=true`` writes ``<data>.bin``, and
+    training from that file gives the same model text."""
+    import tempfile
+    X, y, sizes = mslr_like(rows)
+    n = X.shape[0]
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    walls = {}
+
+    def cli(tag, d, *args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                            "task=train", "verbosity=-1", *args], cwd=d,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        walls[tag] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"CLI {tag} exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+
+    def trees(path):
+        with open(path) as fh:
+            return fh.read().split("end of trees")[0]
+
+    with tempfile.TemporaryDirectory() as d:
+        rank = os.path.join(d, "rank.svm")
+        t0 = time.perf_counter()
+        fmt = ["%d", "qid:%d"] + [f"{j + 1}:%.6g" for j in range(136)]
+        np.savetxt(rank, np.column_stack([y, qid, X]), fmt=fmt,
+                   delimiter=" ")
+        write_s = time.perf_counter() - t0
+        common = ["num_trees=3", "num_leaves=255", "min_data_in_leaf=50",
+                  "min_sum_hessian_in_leaf=5", "learning_rate=0.1"]
+        for tr in ("false", "true"):
+            cli(f"lambdarank two_round={tr}", d, f"data={rank}",
+                "objective=lambdarank", f"two_round={tr}",
+                f"output_model=rank_{tr}.txt", *common)
+        same = trees(os.path.join(d, "rank_false.txt")) == trees(
+            os.path.join(d, "rank_true.txt"))
+        binary = os.path.join(d, "bin.svm")
+        rng = np.random.default_rng(7)
+        yb = (X[:, :8] @ rng.normal(size=8) + rng.logistic(size=n) > 0)
+        np.savetxt(binary, np.column_stack([yb, X]),
+                   fmt=["%d"] + [f"{j + 1}:%.6g" for j in range(136)],
+                   delimiter=" ")
+        np.savetxt(binary + ".weight", rng.uniform(0.5, 2.0, n), fmt="%.6g")
+        np.savetxt(binary + ".init", rng.normal(size=n) * 0.1, fmt="%.6g")
+        cli("binary + .weight + .init, save_binary", d, f"data={binary}",
+            "objective=binary", "save_binary=true", "output_model=b.txt",
+            *common)
+        cli("input_model continuation", d, f"data={binary}",
+            "objective=binary", "input_model=b.txt", "output_model=c.txt",
+            *common)
+        cli("from the binary dataset file", d, f"data={binary}.bin",
+            "objective=binary", "output_model=b2.txt", *common)
+        with open(os.path.join(d, "c.txt")) as fh:
+            n_cont = fh.read().count("\nTree=")
+        same_bin = trees(os.path.join(d, "b.txt")) == trees(
+            os.path.join(d, "b2.txt"))
+    print(f"CLI on LibSVM ({n:,} x 136, {len(sizes):,} queries; file "
+          f"written in {write_s:.1f} s): walls "
+          f"{ {k: round(v, 1) for k, v in walls.items()} } s; lambdarank "
+          f"trees equal with two_round true/false: {same}; continued model "
+          f"{n_cont} trees; trees from <data>.bin equal to the text's: "
+          f"{same_bin} [{kind}, {card}]", flush=True)
+    if not (same and same_bin and n_cont == 6):
+        raise AssertionError("the CLI's LibSVM runs disagree")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1340,7 +1836,7 @@ def main() -> int:
         res[key].update(tag=tag, check_launches=hw.hist_wave.launches - n0)
     for i, (key, (N, F, B), C, *skew) in enumerate((
             ("k2", M, 128), ("k2_ragged", R, 256),
-            ("k2_skew", M, 128, True))):
+            ("k2_skew", M, 128, True), ("k2_c32", M, 32))):
         n0 = hc.hist_channels.launches
         tag, res[key] = check_channels(hc, N, F, B, C, 100 + i,
                                        skew=bool(skew))
@@ -1348,6 +1844,12 @@ def main() -> int:
                         check_launches=hc.hist_channels.launches - n0)
     for k in res.values():
         print_check(k, kind, card)
+    used3 = bound(M[0] * M[1] + 4 * M[0] * 3 + 4 * M[1] * M[2] * 3,
+                  M[0] * M[1] * 3)
+    print(f"K2 at C=32 for the serial grower's three channels: bound of the "
+          f"3 channels it uses {used3['bound_ms']:.4f} ms, of the 32 it "
+          f"reads {res['k2_c32']['bound_ms']:.4f} ms (by "
+          f"{res['k2_c32']['bound_by']}) [{kind}, {card}]", flush=True)
 
     # ---- 3. small-input reference ---------------------------------------
     small_reference(lt)
@@ -1411,10 +1913,18 @@ def main() -> int:
     if "Tree=4" not in text or "nan" in text.split("end of trees")[0]:
         raise AssertionError("model text is incomplete or not finite")
     predict_phase(lt, bst, X, kind, card)
+
+    # ---- (a)-(b) the serial grower; (d) the training API ------------------
+    counts_serial, counts_wide, wide_ms, side_ms = serial_phase(
+        lt, hw, hc, params, ds, X, y, kind, card)
+    counts_cegb = cegb_wave_phase(lt, hw, hc, params, ds, kind, card)
+    api_phase(lt, params, ds, X, y, kind, card)
     del X, y, ds
 
-    # ---- 9. CLI ----------------------------------------------------------
+    # ---- 9. CLI; (e) sparse input; (f) the CLI on LibSVM -----------------
     cli_phase(lt, kind, card)
+    sparse_phase(lt, kind, card)
+    cli_more_phase(lt, kind, card)
 
     # ---- 10. categorical + EFB; 11. mixed width ---------------------------
     counts_cat = cat_efb_phase(lt, hw, hc, params, kind, card)
@@ -1454,7 +1964,8 @@ def main() -> int:
         entry("hist_wave (K1)", "k1", k1_src, k1_at, counts["k1_packed"],
               ["k1", "k1_ragged", "k1_high_ids_2xbf16", "k1_skew",
                "k1_skew_one_slot"],
-              skewed=skewed("k1_skew", "k1_skew_one_slot")),
+              skewed=skewed("k1_skew", "k1_skew_one_slot"),
+              cegb_wave_path_launches=counts_cegb["k1_packed"]),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
@@ -1487,6 +1998,13 @@ def main() -> int:
               ["k2", "k2_ragged", "k2_skew"],
               training_path_launches=on_trainer("k2"),
               skewed=skewed("k2_skew")),
+        entry("hist_channels C=32 (K2, serial grower leaf histograms)",
+              "k2_c32", "lightgbm_tpu_torch/csrc/hist_channels.cu",
+              "lightgbm_tpu/ops/pallas_hist.py:199", counts_serial["k2"],
+              ["k2_c32"], bound_3_channels_ms=used3["bound_ms"],
+              all_wide_path_launches=counts_wide["k2"],
+              wide_histogram_root_ms=wide_ms,
+              side_pass_in_its_place_root_ms=side_ms),
     ]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

@@ -8,6 +8,12 @@ snapshots, :221-247 Predict).  Arguments are ``key=value`` pairs; a
 ``config=FILE`` pair loads a LightGBM .conf file, and pairs on the command
 line win over the file's (reference: config.cpp Config::Set ordering).
 Training and prediction run on the card unless ``device_type=cpu``.
+``input_model`` continues a model's forest in ``task=train``; init scores
+come from ``initscore_filename`` (``valid_data_initscores`` for the valid
+sets) or a ``<data>.init`` file; ``two_round=true`` bins the data while
+streaming the file; ``save_binary=true`` writes the training set's binned
+dataset to ``<data>.bin``, and a data file that is such a file loads
+without parsing or binning.
 """
 from __future__ import annotations
 
@@ -17,10 +23,11 @@ from typing import Dict, List
 import numpy as np
 
 from . import callback
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, parse_categorical_spec
 from .config import Config, read_config_file
 from .engine import train as train_api
-from .io.text_loader import load_text
+from .io.dataset_io import is_dataset_file
+from .io.text_loader import load_init_scores, load_text, load_text_two_round
 from .utils import log
 
 # tasks of the reference CLI the port does not run yet -> ROADMAP.md item
@@ -51,22 +58,47 @@ def _parse_args(argv: List[str]) -> Dict[str, str]:
 
 
 def _dataset_from_file(path: str, cfg: Config, params: Dict,
-                       reference=None) -> Dataset:
-    X, label, weight, group, names = load_text(path, cfg)
-    return Dataset(X, label=label, weight=weight, group=group,
-                   feature_name=names, params=dict(params),
-                   reference=reference)
+                       reference=None, initscore_path: str = "") -> Dataset:
+    """A data file as a Dataset (reference package: app.py
+    ``_dataset_from_file``): a binned dataset file as it is, else the text
+    loaded in memory or, with ``two_round``, binned while streaming."""
+    if is_dataset_file(path):
+        log.info("Loading the binned dataset %s", path)
+        ds = Dataset(path, params=dict(params), reference=reference)
+    elif cfg.two_round:
+        ref = reference.construct()._handle if reference is not None else None
+        handle, label, weight, group, names = load_text_two_round(
+            path, cfg, parse_categorical_spec(cfg.categorical_feature), ref)
+        ds = Dataset(None, params=dict(params), feature_name=names,
+                     reference=reference)
+        ds._handle = handle
+        ds.set_label(label)
+        ds.set_weight(weight)
+        ds.set_group(group)
+    else:
+        X, label, weight, group, names = load_text(path, cfg)
+        ds = Dataset(X, label=label, weight=weight, group=group,
+                     feature_name=names, params=dict(params),
+                     reference=reference)
+    init_score = load_init_scores(path, initscore_path)
+    if init_score is not None:
+        ds.set_init_score(init_score)
+    return ds
 
 
 def run_train(cfg: Config, params: Dict) -> None:
-    if cfg.input_model:
-        log.refuse("continued training from input_model",
-                   "the rest of queue 1")
-    if cfg.initscore_filename:
-        log.refuse("init scores", "the rest of queue 1")
-    train_set = _dataset_from_file(cfg.data, cfg, params)
-    valid_sets = [_dataset_from_file(v, cfg, params, reference=train_set)
-                  for v in cfg.valid]
+    train_set = _dataset_from_file(cfg.data, cfg, params,
+                                   initscore_path=cfg.initscore_filename)
+    if cfg.save_binary:
+        out = cfg.data + ".bin"
+        train_set.save_binary(out)
+        log.info("Saved the binned dataset to %s", out)
+    valid_sets = [
+        _dataset_from_file(v, cfg, params, reference=train_set,
+                           initscore_path=(cfg.valid_data_initscores[i]
+                                           if i < len(cfg.valid_data_initscores)
+                                           else ""))
+        for i, v in enumerate(cfg.valid)]
     valid_names = ([f"valid_{i + 1}" for i in range(len(valid_sets))]
                    if len(valid_sets) > 1 else ["valid"] * len(valid_sets))
     cbs = []
@@ -88,6 +120,7 @@ def run_train(cfg: Config, params: Dict) -> None:
     bst = train_api(params, train_set, num_boost_round=int(cfg.num_iterations),
                     valid_sets=valid_sets or None,
                     valid_names=valid_names or None,
+                    init_model=cfg.input_model or None,
                     early_stopping_rounds=(cfg.early_stopping_round
                                            if cfg.early_stopping_round > 0
                                            else None),

@@ -5,7 +5,8 @@ trains and predicts on ``device`` ("cuda" unless the caller, or the
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional
+import os
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +31,27 @@ def parse_categorical_spec(spec: str) -> list:
     return cats
 
 
+def _is_scipy_sparse(data) -> bool:
+    return hasattr(data, "toarray") and hasattr(data, "tocsr")
+
+
+def _same_bin_mappers(a: BinnedDataset, b: BinnedDataset) -> bool:
+    """Whether two constructed datasets share one bin space (reference:
+    Dataset::CheckAlign; reference package: basic.py
+    ``_same_bin_mappers``)."""
+    if a.bin_mappers is b.bin_mappers:
+        return True
+    if len(a.bin_mappers) != len(b.bin_mappers):
+        return False
+    for ma, mb in zip(a.bin_mappers, b.bin_mappers):
+        if (ma.num_bin != mb.num_bin or ma.bin_type != mb.bin_type
+                or ma.missing_type != mb.missing_type
+                or not np.array_equal(ma.bin_upper_bound, mb.bin_upper_bound)
+                or ma.bin_2_categorical != mb.bin_2_categorical):
+            return False
+    return True
+
+
 def resolve_device(device) -> torch.device:
     """The device to run on; CUDA must be present when it is asked for."""
     device = torch.device(device)
@@ -44,18 +66,21 @@ def resolve_device(device) -> torch.device:
 
 class Dataset:
     """Training/validation data with lazy binning (reference:
-    basic.py:712-1664): dense matrices, labels, sample weights, query
-    groups (sizes, or boundaries), and categorical columns by index or
-    name (``categorical_feature``, or the parameter of that name).  A
-    valid set carries its own weights and groups."""
+    basic.py:712-1664): dense matrices, scipy sparse matrices (binned
+    without densifying), or the name of a file ``save_binary`` wrote;
+    labels, sample weights, query groups (sizes, or boundaries), init
+    scores (class major for K trees an iteration), and categorical columns
+    by index or name (``categorical_feature``, or the parameter of that
+    name).  A valid set carries its own weights, groups and init scores."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
-        if init_score is not None:
-            refuse("init scores", "the rest of queue 1")
+        self.init_score = init_score
+        self.used_indices: Optional[np.ndarray] = None
+        self._matrix_cache = None
         self.categorical_feature = categorical_feature
         self.data = data
         self.label = label
@@ -73,22 +98,34 @@ class Dataset:
             return self
         if self.data is None:
             raise LightGBMError("Cannot construct Dataset: raw data was freed")
-        if hasattr(self.data, "tocsr"):
-            refuse("sparse input", "the rest of queue 1")
-        mat = np.asarray(self.data)
-        names = (list(self.feature_name)
-                 if isinstance(self.feature_name, (list, tuple)) else None)
-        ref = (self.reference.construct()._handle
-               if self.reference is not None else None)
-        self._handle = BinnedDataset.from_matrix(
-            mat, Config.from_params(self.params),
-            categorical_features=self._resolve_categorical(
-                names or [f"Column_{i}" for i in range(mat.shape[1])]),
-            feature_names=names, reference=ref)
+        if isinstance(self.data, (str, bytes)) or hasattr(self.data,
+                                                          "__fspath__"):
+            from .io.dataset_io import is_dataset_file, load_dataset
+            path = os.fsdecode(self.data)
+            if not is_dataset_file(path):
+                raise LightGBMError(f"{path} is not a binned dataset file "
+                                    "(Dataset.save_binary writes one)")
+            self._handle = load_dataset(path)
+        else:
+            sparse = _is_scipy_sparse(self.data)
+            mat = self.data if sparse else np.asarray(self.data)
+            names = (list(self.feature_name)
+                     if isinstance(self.feature_name, (list, tuple))
+                     else None)
+            ref = (self.reference.construct()._handle
+                   if self.reference is not None else None)
+            builder = (BinnedDataset.from_csr if sparse
+                       else BinnedDataset.from_matrix)
+            self._handle = builder(
+                mat, Config.from_params(self.params),
+                categorical_features=self._resolve_categorical(
+                    names or [f"Column_{i}" for i in range(mat.shape[1])]),
+                feature_names=names, reference=ref)
         if self.label is not None:
-            self._handle.metadata.set_label(self.label)
+            self._handle.metadata.set_label(np.asarray(self.label).ravel())
         self.set_weight(self.weight)
         self.set_group(self.group)
+        self.set_init_score(self.init_score)
         if self.free_raw_data:
             self.data = None
         return self
@@ -124,14 +161,80 @@ class Dataset:
         if self._handle is not None and group is not None:
             self._handle.metadata.set_query(np.asarray(group).ravel())
 
+    def set_init_score(self, init_score) -> None:
+        """Starting raw scores of the rows ([N], or class major [K * N])."""
+        self.init_score = init_score
+        if self._handle is not None and init_score is not None:
+            self._handle.metadata.set_init_score(
+                np.asarray(init_score).ravel())
+
+    def set_label(self, label) -> None:
+        self.label = label
+        if self._handle is not None and label is not None:
+            self._handle.metadata.set_label(np.asarray(label).ravel())
+
+    def get_label(self):
+        if self._handle is not None and self._handle.metadata.label is not None:
+            return self._handle.metadata.label
+        return self.label
+
+    def get_weight(self):
+        return self.weight
+
     def get_group(self):
         return self.group
+
+    def get_init_score(self):
+        return self.init_score
 
     def num_data(self) -> int:
         return self.construct()._handle.num_data
 
     def num_feature(self) -> int:
         return self.construct()._handle.num_total_features
+
+    def subset(self, used_indices: Sequence[int], params=None) -> "Dataset":
+        """Rows ``used_indices`` in this dataset's bin space, with their
+        labels, weights, groups and init scores (reference package:
+        basic.py ``subset``); needs the raw data (``free_raw_data=False``),
+        kept sparse when it is."""
+        self.construct()
+        if self.data is None:
+            raise LightGBMError("Cannot subset: raw data was freed; "
+                                "use free_raw_data=False")
+        idx = np.asarray(used_indices)
+        if self._matrix_cache is None:
+            self._matrix_cache = (self.data.tocsr()
+                                  if _is_scipy_sparse(self.data)
+                                  else np.asarray(self.data, np.float64))
+        sub = Dataset(self._matrix_cache[idx], reference=self,
+                      params=params or self.params,
+                      free_raw_data=self.free_raw_data)
+        if self.label is not None:
+            sub.label = np.asarray(self.label)[idx]
+        if self.weight is not None:
+            sub.weight = np.asarray(self.weight)[idx]
+        if self.init_score is not None:
+            K = max(1, len(np.ravel(self.init_score))
+                    // self._handle.num_data)
+            sub.init_score = np.asarray(self.init_score).ravel().reshape(
+                K, -1)[:, idx].ravel()
+        if self.group is not None:
+            sizes = np.asarray(self.group).ravel()
+            qid = np.repeat(np.arange(len(sizes)), sizes)[idx]
+            _, counts = np.unique(qid, return_counts=True)
+            sub.group = counts
+        sub.used_indices = idx
+        return sub
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the constructed dataset to ``filename``, a numpy archive
+        either package loads (``io/dataset_io.py``); ``Dataset(filename)``
+        reads it back."""
+        self.construct()
+        from .io.dataset_io import save_dataset
+        save_dataset(self._handle, filename)
+        return self
 
 
 class Booster:
@@ -178,7 +281,7 @@ class Booster:
         if data._handle is None:
             data.reference = self.train_set
             data.construct()
-        elif data._handle.bin_mappers is not self.train_set._handle.bin_mappers:
+        elif not _same_bin_mappers(data._handle, self.train_set._handle):
             raise LightGBMError("Cannot add validation data, since it has "
                                 "different bin mappers with training data; "
                                 "construct it with reference=train_set")
@@ -186,17 +289,58 @@ class Booster:
         self.valid_sets.append(data)
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; True = no further splits possible."""
-        return self._gbdt.train_one_iter()
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; True = no further splits possible.
+        ``fobj(raw_scores, train_set) -> (grad, hess)`` supplies custom
+        gradients (class major for K trees an iteration)."""
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("Resetting the training set is not "
+                                "supported; create a new Booster instead")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = fobj(self._raw_train_score(), self.train_set)
+        return self._gbdt.train_one_iter(np.asarray(grad), np.asarray(hess))
 
-    def eval_train(self) -> List:
-        return [(self._train_data_name,) + e[1:]
-                for e in self._gbdt.eval_results(include_train=True)
-                if e[0] == "training"]
+    def _raw_train_score(self) -> np.ndarray:
+        """Raw training scores as f64: [N], or [N, K]."""
+        return self._gbdt._train_score.cpu().numpy().astype(np.float64)
 
-    def eval_valid(self) -> List:
-        return self._gbdt.eval_results(include_train=False)
+    def eval_train(self, feval=None) -> List:
+        return [e for e in self._eval_all(feval)
+                if e[0] == self._train_data_name]
+
+    def eval_valid(self, feval=None) -> List:
+        return [e for e in self._eval_all(feval, include_train=False)
+                if e[0] != self._train_data_name]
+
+    def _eval_all(self, feval=None, include_train: bool = True) -> List:
+        """Every metric entry, then ``feval``'s: a function of (predictions,
+        dataset) returning (name, value, higher_is_better) or a list of
+        them, given converted predictions as the reference gives them."""
+        out = [((self._train_data_name if e[0] == "training" else e[0]),)
+               + tuple(e[1:])
+               for e in self._gbdt.eval_results(include_train=include_train)]
+        if feval is None:
+            return out
+
+        def run(score, dataset, tag):
+            obj = self._gbdt.objective
+            preds = (np.asarray(obj.convert_output(score)) if obj is not None
+                     else score)
+            res = feval(preds, dataset)
+            if res is None:
+                return
+            for name, value, hib in (res if isinstance(res, list)
+                                     else [res]):
+                out.append((tag, name, value, hib))
+        if include_train:
+            run(self._raw_train_score(), self.train_set,
+                self._train_data_name)
+        for i, vds in enumerate(self.valid_sets):
+            run(self._gbdt._valid_scores[i].cpu().numpy().astype(np.float64),
+                vds, self._gbdt.valid_names[i])
+        return out
 
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration()
@@ -221,31 +365,34 @@ class Booster:
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, start_iteration: int = 0,
                 **kwargs) -> np.ndarray:
-        """Predictions for a dense matrix: probabilities, raw margins
-        (``raw_score``) or leaf indices (``pred_leaf``).  ``kwargs`` are
-        parameters for this call only, such as ``pred_early_stop``,
+        """Predictions for a dense or scipy sparse matrix (a narrower
+        sparse one has implicit zero columns): probabilities, raw margins
+        (``raw_score``) or leaf indices (``pred_leaf``).
+        ``kwargs`` are parameters for this call only, such as
+        ``pred_early_stop``,
         ``pred_early_stop_freq`` and ``pred_early_stop_margin``.  Without
         ``num_iteration`` the best iteration of early stopping is used,
         else every tree."""
         if pred_contrib:
             refuse("pred_contrib (TreeSHAP)", "the rest of queue 1: explain")
-        if hasattr(data, "tocsr"):
-            refuse("sparse input", "the rest of queue 1")
-        mat = np.asarray(data, dtype=np.float64)
-        if mat.ndim != 2 or mat.shape[1] != self.num_feature():
-            raise LightGBMError(
-                f"The number of features in data ({mat.shape[-1]}) is not the "
-                f"same as it was in training data ({self.num_feature()})")
         if num_iteration is None:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
-        if pred_leaf:
-            return self._gbdt.predict_leaf(mat, num_iteration,
-                                           start_iteration)
         config = self.config
         if kwargs:
             config = copy.copy(config)
             config.update(kwargs)
+        sparse = _is_scipy_sparse(data)
+        mat = data if sparse else np.asarray(data, dtype=np.float64)
+        n_feat = self.num_feature()
+        if mat.ndim != 2 or (mat.shape[1] > n_feat if sparse
+                             else mat.shape[1] != n_feat):
+            raise LightGBMError(
+                f"The number of features in data ({mat.shape[-1]}) is not the "
+                f"same as it was in training data ({n_feat})")
+        if pred_leaf:
+            return self._gbdt.predict_leaf(mat, num_iteration,
+                                           start_iteration)
         return self._gbdt.predict(mat, num_iteration, raw_score,
                                   start_iteration, config=config)
 
@@ -285,5 +432,6 @@ class Booster:
         self.params.update(params)
         self.config.update(params)
         if self._gbdt.train_ds is not None:
+            self._gbdt.config = self.config
             self._gbdt.shrinkage_rate = float(self.config.learning_rate)
         return self

@@ -2,19 +2,23 @@
 lightgbm_tpu/boosting/gbdt.py).
 
 Each iteration computes the objective's gradients once from the training
-score ([N], or [N, K] for K trees an iteration), refreshes the bagging
-mask, and for each class grows a tree with the wave grower (K1 on the
-card), refits its leaves for the percentile objectives (a host step),
-shrinks it, and adds it to the training and validation scores — all on
-the training device.  Bagging masks are drawn on the host
-from numpy's generator seeded with ``bagging_seed``, as in the reference,
-so both packages draw the same rows.  The trees are kept as host ``Tree``
-objects for prediction and model text (reference: GBDT::TrainOneIter,
-gbdt.cpp:368-449); ``PredictorBase`` predicts from them, on the host or
-through the stacked forest on the device.
+score ([N], or [N, K] for K trees an iteration), or takes custom ones,
+refreshes the bagging mask, and for each class grows a tree with the
+wave grower (K1 on the card) or the serial grower (K2 on the card;
+forced splits, CEGB, by-node sampling, all-wide columns), refits its
+leaves for the percentile objectives (a host step), shrinks it, and adds
+it to the training and validation scores — all on the training device.
+Scores may start from init scores or from an init model's forest.
+Bagging masks are drawn on the host from numpy's generator seeded with
+``bagging_seed``, as in the reference, so both packages draw the same
+rows. The trees are kept as host ``Tree`` objects for prediction and
+model text (reference: GBDT::TrainOneIter, gbdt.cpp:368-449);
+``PredictorBase`` predicts from them, on the host or through the stacked
+forest on the device.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import List, Optional, Tuple
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.forest import forest_leaf_fn, forest_predict_fn, stack_forest
+from ..core.grower import CegbConfig, build_grow_fn
 from ..core.meta import (SplitConfig, _padded_bin_width, build_device_meta,
                          padded_phys_width)
 from ..core.predict import predict_leaf_bins
@@ -29,10 +34,16 @@ from ..core.splitter import bitset_words
 from ..core.tree import Tree, tree_depth
 from ..core.wave_grower import MixedWidth, build_wave_grow_fn
 from ..io.binning import BIN_CATEGORICAL
+from ..io.forced_splits import load_forced_splits
 from ..utils import log
 from ..utils.timetag import sync, timetag
 
 K_EPSILON = 1e-15
+
+
+def _is_sparse(X) -> bool:
+    """A scipy sparse matrix."""
+    return hasattr(X, "tocsr") and hasattr(X, "toarray")
 
 
 class PredictorBase:
@@ -47,11 +58,21 @@ class PredictorBase:
     (``core/forest.py``), in the training bin space when a dataset is
     attached and otherwise in a bin space rebuilt from the model's own
     thresholds (``serve/packing.py``); smaller inputs walk the value-space
-    trees on the host, as the JAX package routes them."""
+    trees on the host, as the JAX package routes them.
+
+    A scipy sparse input is never densified: block by block of rows, only
+    the columns the window's trees split on are gathered into a dense
+    [rows, used columns] matrix, and the trees, their split features
+    renumbered to those columns, walk it by the same routing (on the
+    device in the bin space rebuilt from their thresholds).  A matrix
+    narrower than the model has implicit zero columns, as LibSVM input
+    does."""
 
     # device prediction pays off above this many rows x trees; below it
     # host numpy wins on binning and launch overhead
     _DEVICE_PREDICT_MIN_WORK = 2_000_000
+    # cells of one gathered block of sparse rows (128 MB of f64)
+    _SPARSE_BLOCK_CELLS = 1 << 24
 
     def _iter_window(self, num_iteration: Optional[int],
                      start_iteration: int = 0) -> Tuple[int, int]:
@@ -61,33 +82,89 @@ class PredictorBase:
             else min(start_iteration + num_iteration, n_iters)
         return start_iteration, stop
 
-    def _use_device(self, n_rows: int, start: int, stop: int) -> bool:
+    def _use_device(self, n_rows: int, start: int, stop: int,
+                    sparse: bool = False) -> bool:
         """The JAX package's routing: enough work, and a bin space to walk
-        in (the training one, or a model with a declared feature space)."""
+        in (the training one, a model with a declared feature space, or,
+        for sparse input, the columns the window's trees split on)."""
+        space = (len(self._sparse_window(start, stop)[0]) > 0 if sparse
+                 else self.train_ds is not None or self.num_features > 0)
         return (n_rows * max(stop - start, 0) * self.num_tpi
-                >= self._DEVICE_PREDICT_MIN_WORK and stop > start
-                and (self.train_ds is not None or self.num_features > 0))
+                >= self._DEVICE_PREDICT_MIN_WORK and stop > start and space)
 
-    def predict_raw(self, X: np.ndarray, num_iteration: Optional[int] = None,
+    def _sparse_window(self, start: int, stop: int):
+        """(used, trees) of a window, for sparse input: the sorted columns
+        its trees split on, and its trees with their split features
+        renumbered to positions in ``used``; cached per window."""
+        key = (start, stop, len(self.models))
+        if getattr(self, "_sparse_key", None) != key:
+            K = self.num_tpi
+            trees = self.models[start * K:stop * K]
+            used = np.unique(np.concatenate(
+                [t.split_feature[:max(t.num_leaves - 1, 0)] for t in trees]
+                + [np.zeros(0, np.int64)]).astype(np.int64))
+            col_of = np.zeros(1 + max([int(np.max(t.split_feature))
+                                       for t in trees
+                                       if len(t.split_feature)] + [0]),
+                              np.int64)
+            col_of[used] = np.arange(len(used))
+            renumbered = []
+            for t in trees:
+                t = copy.copy(t)
+                t.split_feature = col_of[t.split_feature]
+                renumbered.append(t)
+            self._sparse_cache = (used, renumbered)
+            self._sparse_key = key
+        return self._sparse_cache
+
+    def _sparse_blocks(self, X, used: np.ndarray):
+        """Dense [rows, len(used)] f64 blocks of a sparse matrix's columns
+        ``used`` (zero past its width), at most ``_SPARSE_BLOCK_CELLS``
+        cells each; one empty block for no rows."""
+        csr = X.tocsr()
+        in_range = used[used < csr.shape[1]]
+        rows = max(256, self._SPARSE_BLOCK_CELLS // max(len(used), 1))
+        for r0 in range(0, max(csr.shape[0], 1), rows):
+            part = csr[r0:r0 + rows]
+            block = np.zeros((part.shape[0], len(used)))
+            block[:, :len(in_range)] = part[:, in_range].toarray()
+            yield block
+
+    def predict_raw(self, X, num_iteration: Optional[int] = None,
                     start_iteration: int = 0,
                     early_stop: Optional[dict] = None) -> np.ndarray:
-        """Raw margins [N, K]."""
-        X = np.ascontiguousarray(X, dtype=np.float64)
-        K = self.num_tpi
+        """Raw margins [N, K] of a dense or scipy sparse matrix."""
         start, stop = self._iter_window(num_iteration, start_iteration)
+        if _is_sparse(X):
+            used, trees = self._sparse_window(start, stop)
+            dev = self._use_device(X.shape[0], start, stop, sparse=True)
+            return np.concatenate([
+                self._predict_raw_device(b, start, stop, early_stop,
+                                         sparse=True) if dev
+                else self._host_raw(b, trees, early_stop)
+                for b in self._sparse_blocks(X, used)], axis=0)
+        X = np.ascontiguousarray(X, dtype=np.float64)
         if self._use_device(X.shape[0], start, stop):
             return self._predict_raw_device(X, start, stop, early_stop)
+        K = self.num_tpi
+        return self._host_raw(X, self.models[start * K:stop * K], early_stop)
+
+    def _host_raw(self, X: np.ndarray, trees: List[Tree],
+                  early_stop: Optional[dict] = None) -> np.ndarray:
+        """The value-space trees (K an iteration, in order) walked on the
+        host: raw margins [N, K]."""
+        K = self.num_tpi
         out = np.zeros((X.shape[0], K))
         active = None
         if early_stop is not None:
             active = np.ones(X.shape[0], dtype=bool)
-        for i, it in enumerate(range(start, stop)):
+        for i in range(len(trees) // K):
             Xa = X if active is None else X[active]
             for k in range(K):
                 if active is None:
-                    out[:, k] += self.models[it * K + k].predict(X)
+                    out[:, k] += trees[i * K + k].predict(X)
                 else:
-                    out[active, k] += self.models[it * K + k].predict(Xa)
+                    out[active, k] += trees[i * K + k].predict(Xa)
             if active is not None and \
                     (i + 1) % early_stop["round_period"] == 0:
                 if early_stop["kind"] == "binary":
@@ -135,31 +212,48 @@ class PredictorBase:
 
     def predict_leaf(self, X, num_iteration=None,
                      start_iteration: int = 0) -> np.ndarray:
-        """Leaf index of every row in every tree of the window, [N, T]."""
-        X = np.ascontiguousarray(X, dtype=np.float64)
-        K = self.num_tpi
+        """Leaf index of every row in every tree of the window, [N, T], of
+        a dense or scipy sparse matrix."""
         start, stop = self._iter_window(num_iteration, start_iteration)
+        if _is_sparse(X):
+            used, trees = self._sparse_window(start, stop)
+            dev = self._use_device(X.shape[0], start, stop, sparse=True)
+            return np.concatenate([
+                self._predict_leaf_device(b, start, stop, sparse=True) if dev
+                else self._host_leaf(b, trees)
+                for b in self._sparse_blocks(X, used)], axis=0)
+        X = np.ascontiguousarray(X, dtype=np.float64)
         if self._use_device(X.shape[0], start, stop):
             return self._predict_leaf_device(X, start, stop)
-        cols = [self.models[it * K + k].predict_leaf(X)
-                for it in range(start, stop) for k in range(K)]
+        K = self.num_tpi
+        return self._host_leaf(X, self.models[start * K:stop * K])
+
+    @staticmethod
+    def _host_leaf(X: np.ndarray, trees: List[Tree]) -> np.ndarray:
+        cols = [t.predict_leaf(X) for t in trees]
         return np.stack(cols, axis=1) if cols else np.zeros((X.shape[0], 0))
 
     # ------------------------------------------------------------------
     # Device prediction: the training bin space when a dataset is
     # attached, else one rebuilt from the model (serve/packing.py).
     # ------------------------------------------------------------------
-    def _forest_device(self, start: int, stop: int):
+    def _forest_device(self, start: int, stop: int, sparse: bool = False):
         """(space, meta, forest) of the window, cached per window: the
         model-derived bin space (None for the training one), the meta the
-        walk reads, and the stacked forest on ``device``."""
-        key = (start, stop, len(self.models))
+        walk reads, and the stacked forest on ``device``.  ``sparse``: the
+        window's renumbered trees in the space of their used columns."""
+        key = (start, stop, len(self.models), sparse)
         if getattr(self, "_forest_key", None) != key:
             from ..serve.packing import ServeBinSpace
             K = self.num_tpi
-            trees = self.models[start * K:stop * K]
-            space = (None if self.train_ds is not None
-                     else ServeBinSpace(trees, self.num_features, self.device))
+            if sparse:
+                used, trees = self._sparse_window(start, stop)
+                space = ServeBinSpace(trees, len(used), self.device)
+            else:
+                trees = self.models[start * K:stop * K]
+                space = (None if self.train_ds is not None
+                         else ServeBinSpace(trees, self.num_features,
+                                            self.device))
             arrays_np = (self._tree_arrays_np if space is None
                          else space.tree_arrays_np)
             forest = stack_forest(
@@ -205,20 +299,21 @@ class PredictorBase:
         return out
 
     def _predict_raw_device(self, X: np.ndarray, start: int, stop: int,
-                            early_stop: Optional[dict] = None) -> np.ndarray:
+                            early_stop: Optional[dict] = None,
+                            sparse: bool = False) -> np.ndarray:
         """Walk the whole window on the device at once (the replacement of
         the reference's per-row Predictor, predictor.hpp:28-271)."""
-        space, meta, forest = self._forest_device(start, stop)
+        space, meta, forest = self._forest_device(start, stop, sparse)
         bins = self._device_bins(X, space)
         with timetag("predict (forest scan)"):
             out = sync(forest_predict_fn(meta, self.num_tpi, early_stop)(
                 forest, bins))
         return out.cpu().numpy().astype(np.float64)
 
-    def _predict_leaf_device(self, X: np.ndarray, start: int,
-                             stop: int) -> np.ndarray:
+    def _predict_leaf_device(self, X: np.ndarray, start: int, stop: int,
+                             sparse: bool = False) -> np.ndarray:
         """Leaf indices of the whole window, walked on the device."""
-        space, meta, forest = self._forest_device(start, stop)
+        space, meta, forest = self._forest_device(start, stop, sparse)
         bins = self._device_bins(X, space)
         with timetag("predict (leaf scan)"):
             out = sync(forest_leaf_fn(meta)(forest, bins))
@@ -287,9 +382,12 @@ class GBDT(PredictorBase):
         self.objective = objective
         self.metrics = list(metrics)
         self.shrinkage_rate = float(config.learning_rate)
-        self.num_tpi = self.num_class = objective.num_tree_per_iteration
+        self.num_tpi = self.num_class = (
+            objective.num_tree_per_iteration if objective is not None
+            else max(1, config.num_class))
         N = train_ds.num_data
-        objective.init(train_ds.metadata, N, self.device)
+        if objective is not None:
+            objective.init(train_ds.metadata, N, self.device)
         for m in self.metrics:
             m.init(train_ds.metadata, N, self.device)
         self.meta, self.B = build_device_meta(train_ds, config, self.device)
@@ -300,13 +398,27 @@ class GBDT(PredictorBase):
             for i in range(train_ds.num_features))
         self.split_cfg = SplitConfig.from_config(config)
         self._init_grower(config, train_ds)
-        self._train_score = self._zero_score(N)
+        self._train_score = self._init_score(train_ds)
+        self._has_init_score = train_ds.metadata.init_score is not None
         self._bag_mask = torch.ones(N, dtype=torch.float32, device=self.device)
         self._bag_mask_host = np.ones(N, dtype=bool)
         self._rng = np.random.default_rng(config.bagging_seed)
         self._feat_rng = np.random.default_rng(config.feature_fraction_seed)
-        self.class_need_train = [objective.class_need_train(k)
-                                 for k in range(self.num_tpi)]
+        self.class_need_train = [
+            objective.class_need_train(k) if objective is not None else True
+            for k in range(self.num_tpi)]
+
+    def _init_score(self, ds) -> torch.Tensor:
+        """A dataset's starting scores: its init scores (class major [K·N]
+        -> [N, K], reference package: gbdt.py:643-646), else zeros."""
+        init = ds.metadata.init_score
+        if init is None:
+            return self._zero_score(ds.num_data)
+        K = self.num_tpi
+        arr = np.asarray(init, np.float64).reshape(K, ds.num_data).T
+        arr = arr[:, 0] if K == 1 else arr
+        return torch.as_tensor(np.ascontiguousarray(
+            arr.astype(np.float32))).to(self.device)
 
     def _zero_score(self, n: int) -> torch.Tensor:
         """Raw scores of n rows: [n] for one tree an iteration, else
@@ -323,27 +435,104 @@ class GBDT(PredictorBase):
         score[:, k] += delta
         return score
 
+    def _cegb_config(self, config, train_ds):
+        """CEGB penalties per inner feature, or None (reference package:
+        gbdt.py ``_init_grower``)."""
+        cl = list(config.cegb_penalty_feature_coupled or [])
+        ll = list(config.cegb_penalty_feature_lazy or [])
+        if not (config.cegb_penalty_split > 0 or cl or ll):
+            return None
+
+        def to_inner(lst, name):
+            if not lst:
+                return None
+            if len(lst) != train_ds.num_total_features:
+                log.fatal(f"{name} should be the same size as feature "
+                          "number.")
+            return tuple(float(lst[int(train_ds.real_feature_idx[i])])
+                         for i in range(train_ds.num_features))
+        return CegbConfig(
+            tradeoff=float(config.cegb_tradeoff),
+            penalty_split=float(config.cegb_penalty_split),
+            coupled=to_inner(cl, "cegb_penalty_feature_coupled"),
+            lazy=to_inner(ll, "cegb_penalty_feature_lazy"))
+
     def _init_grower(self, config, train_ds) -> None:
-        """The wave grower and its device bins (reference package: gbdt.py
-        ``_init_grower``'s wave branch).  Physical columns of more than
-        256 bins make the dataset mixed-width: the narrow ones go to K1 as
-        uint8, the wide ones to the side-pass as int32.  Quantized modes
-        with bundles or mixed widths fall back to 2xbf16, as in the
-        reference."""
+        """The grower and its device bins (reference package: gbdt.py
+        ``_init_grower``).  The wave grower takes the data unless the
+        serial grower must: forced splits, lazy CEGB penalties, by-node
+        sampling, or every physical column wider than 256 bins (the split
+        and coupled CEGB penalties ride the wave).  With both widths the
+        wave grower is mixed-width: the narrow columns go to K1 as uint8,
+        the wide ones to the side-pass as int32.  Quantized modes with
+        bundles or mixed widths fall back to 2xbf16, as in the reference;
+        the serial grower sums f32 histograms in every mode, as the
+        reference package's XLA grower does."""
         X = train_ds.X_bin
+        cegb = self._cegb_config(config, train_ds)
+        forced = load_forced_splits(config.forcedsplits_filename, train_ds,
+                                    self.split_cfg.num_leaves)
+        bf = float(config.feature_fraction_bynode)
+        bynode = bf if bf < 1.0 else None
+        phys_bins = np.asarray(train_ds.phys_max_bins())
+        wide = phys_bins > 256
+        narrow_all = X.dtype == np.uint8 and self.B_phys <= 256
+        hist_mode = config.hist_mode()
+        serial = False
+        if not narrow_all and not (~wide).any():
+            log.info("every physical column has more than 256 bins: using "
+                     "the serial grower")
+            serial = True
+        if forced is not None:
+            log.info("forcedsplits_filename set: using the serial grower "
+                     "(the wave grower splits many leaves per pass and "
+                     "cannot follow a BFS prescription)")
+            serial = True
+        if cegb is not None and cegb.lazy is not None:
+            log.warning("cegb_penalty_feature_lazy needs per-row state; "
+                        "using the serial grower")
+            serial = True
+        if bynode is not None:
+            log.info("feature_fraction_bynode set: using the serial grower "
+                     "(per-node masks need the one-split-at-a-time loop)")
+            serial = True
+        self.uses_wave = not serial
+        self._bynode_on = bynode is not None
+        self._cegb_state = None
+        if cegb is not None:
+            coupled0 = np.zeros(train_ds.num_features, np.float32)
+            if cegb.coupled is not None:
+                coupled0 = cegb.tradeoff * np.asarray(cegb.coupled,
+                                                      np.float32)
+            rows0 = (torch.ones((train_ds.num_features, train_ds.num_data),
+                                dtype=torch.uint8, device=self.device)
+                     if cegb.lazy is not None else None)
+            self._cegb_state = [torch.as_tensor(coupled0).to(self.device),
+                                rows0]
+        if serial:
+            if hist_mode in ("int16", "int8"):
+                log.info("tpu_hist_dtype=%s is a wave-grower mode; the "
+                         "serial grower sums f32 histograms", hist_mode)
+            self.hist_mode = "highest"
+            xbt = X.T
+            narrow_idx, wide_idx = np.flatnonzero(~wide), np.flatnonzero(wide)
+            self._bins_fm = tuple(
+                torch.as_tensor(np.ascontiguousarray(
+                    xbt[idx]).astype(dt)).to(self.device) if len(idx)
+                else None
+                for idx, dt in ((narrow_idx, np.uint8), (wide_idx, np.int32)))
+            self._grow = build_grow_fn(
+                self.meta, self.split_cfg, self.B, phys_bins,
+                B_phys=self.B_phys, bundled=self._bundled, cegb=cegb,
+                forced=forced, bynode=bynode)
+            return
         mixed = None
-        if X.dtype != np.uint8 or self.B_phys > 256:
-            phys_bins = np.asarray(train_ds.phys_max_bins())
-            wide = phys_bins > 256
-            if not (~wide).any():
-                log.refuse("a dataset whose every column has more than 256 "
-                           "bins", "the rest of queue 1: the serial grower")
+        if not narrow_all:
             mixed = MixedWidth(
                 narrow_idx=np.flatnonzero(~wide).astype(np.int32),
                 wide_idx=np.flatnonzero(wide).astype(np.int32),
                 B_narrow=_padded_bin_width(int(phys_bins[~wide].max())))
         self._wave_mixed = mixed
-        hist_mode = config.hist_mode()
         if (mixed is not None or self._bundled) \
                 and hist_mode in ("int16", "int8"):
             log.info("tpu_hist_dtype=%s needs the pure-kernel un-bundled "
@@ -367,7 +556,7 @@ class GBDT(PredictorBase):
             gain_gate=float(config.tpu_wave_gain_gate),
             fused_sibling=bool(config.tpu_fused_sibling),
             quant_seed=int(config.seed), B_phys=self.B_phys,
-            bundled=self._bundled, mixed=mixed)
+            bundled=self._bundled, mixed=mixed, cegb=cegb)
 
     def _device_phys_bins(self, X_bin: np.ndarray) -> torch.Tensor:
         """A binned matrix of this dataset's layout on the device, row
@@ -387,7 +576,7 @@ class GBDT(PredictorBase):
             m.init(valid_ds.metadata, valid_ds.num_data, self.device)
             ms.append(m)
         bins = self._device_phys_bins(valid_ds.X_bin)
-        score = self._zero_score(valid_ds.num_data)
+        score = self._init_score(valid_ds)
         for k, c in self._constants:
             score = self._add_to_class(score, k, c)
         grown = [i for i, lv in enumerate(self._leaf_f32) if lv is not None]
@@ -407,12 +596,13 @@ class GBDT(PredictorBase):
 
     @property
     def objective_string(self) -> str:
-        return self.objective.to_model_string()
+        return ("custom" if self.objective is None
+                else self.objective.to_model_string())
 
     def _boost_from_average(self, k: int) -> float:
         """Class k's starting score, added in the first iteration
         (reference: gbdt.cpp:344-367)."""
-        if self.models:
+        if self.models or self._has_init_score or self.objective is None:
             return 0.0
         if not (self.config.boost_from_average
                 or self.train_ds.num_features == 0):
@@ -479,15 +669,24 @@ class GBDT(PredictorBase):
             mask[self._feat_rng.permutation(F)[:cnt]] = True
         return torch.as_tensor(mask).to(self.device)
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration; True when training should stop (no
         class has a splittable leaf).  Gradients come once from the score
         at the iteration's start, so class k's tree does not see the trees
-        of classes < k (reference package: gbdt.py:1552-1760)."""
+        of classes < k (reference package: gbdt.py:1530-1760), or from the
+        caller: ``gradients`` / ``hessians`` of K·N values, class major
+        (no boost from average then, as in the reference)."""
         t0 = time.perf_counter()
         K = self.num_tpi
-        init_scores = [self._boost_from_average(k) for k in range(K)]
-        g, h = self.objective.get_gradients(self._train_score)
+        if gradients is None or hessians is None:
+            init_scores = [self._boost_from_average(k) for k in range(K)]
+            if self.objective is None:
+                log.fatal("no objective: pass gradients and hessians "
+                          "(fobj)")
+            g, h = self.objective.get_gradients(self._train_score)
+        else:
+            init_scores = [0.0] * K
+            g, h = (self._custom_grad(v) for v in (gradients, hessians))
         g, h = self._sample(self.iter_, g, h)
         feature_mask = self._feature_mask()
         first = len(self.models) < K
@@ -497,8 +696,14 @@ class GBDT(PredictorBase):
                                             h[:, k].contiguous())
             nl = 1
             if self.class_need_train[k] and self.train_ds.num_features > 0:
+                kw = {}
+                if self._cegb_state is not None:
+                    kw["cegb_state"] = self._cegb_state
+                if not self.uses_wave:
+                    kw["tree_seed"] = self.iter_ * K + k
                 arrs, leaf_id, stats = self._grow(self._bins_fm, gk, hk,
-                                                  self._bag_mask, feature_mask)
+                                                  self._bag_mask, feature_mask,
+                                                  **kw)
                 nl = int(arrs.num_leaves)
             if nl > 1:
                 grown_any = True
@@ -526,11 +731,57 @@ class GBDT(PredictorBase):
         self.iter_ += 1
         return False
 
+    def _custom_grad(self, values) -> torch.Tensor:
+        """Custom gradients or hessians (K·N, class major) as the grower
+        takes them: [N], or [N, K]."""
+        K, N = self.num_tpi, self.train_ds.num_data
+        arr = np.asarray(values, np.float32).reshape(K, N).T
+        arr = arr[:, 0] if K == 1 else arr
+        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+
+    def load_initial_models(self, models: List[Tree]) -> None:
+        """Continued training (reference: Boosting::LoadFileToBoosting +
+        GBDT::ResetTrainingData, boosting.cpp:35-69; reference package:
+        gbdt.py ``load_initial_models``): seed the forest with an existing
+        one and add its trees to the training and validation scores in
+        order, tree by tree, as f32 leaf values; the leaves come from one
+        walk of the stacked forest on the device.  Its trees may have more
+        leaves than this run's ``num_leaves``."""
+        K = self.num_tpi
+        if len(models) % K != 0:
+            log.fatal(f"init model has {len(models)} trees, not a multiple "
+                      f"of num_tree_per_iteration={K}")
+        grown = [i for i, t in enumerate(models) if t.num_leaves > 1]
+        if grown:
+            forest = stack_forest(
+                [self._tree_arrays_np(models[i]) for i in grown],
+                np.zeros(len(grown), np.int32), self.device)
+            walk = forest_leaf_fn(self.meta, phys=self._bundled)
+            # leaves [trees, rows] of the training set, then each valid set
+            leaves = [walk(forest, b) for b in [self._device_phys_bins(
+                self.train_ds.X_bin)] + self._valid_bins]
+        row = {i: r for r, i in enumerate(grown)}
+        for i, tree in enumerate(models):
+            k = i % K
+            lv = torch.as_tensor(tree.leaf_value[:tree.num_leaves].astype(
+                np.float32)).to(self.device)
+            if tree.num_leaves <= 1:
+                self._add_constant(k, float(lv[0]))
+                self._leaf_f32.append(None)
+                continue
+            scores = [self._train_score] + self._valid_scores
+            scores = [self._add_to_class(sc, k, lv[lf[row[i]]])
+                      for sc, lf in zip(scores, leaves)]
+            self._train_score, self._valid_scores = scores[0], scores[1:]
+            self._leaf_f32.append(lv)
+        self.models.extend(models)
+        self.iter_ = len(self.models) // K
+
     def _add_tree(self, k: int, arrs, leaf_id, stats,
                   init_score: float) -> None:
         """Refit (percentile objectives), shrink and add class k's grown
         tree to the training and validation scores."""
-        if self.objective.is_renew_tree_output:
+        if self.objective is not None and self.objective.is_renew_tree_output:
             arrs = self._renew_tree_output(arrs, leaf_id, k)
         lr = self.shrinkage_rate
         arrs = arrs._replace(leaf_value=arrs.leaf_value * lr,

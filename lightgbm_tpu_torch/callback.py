@@ -1,7 +1,6 @@
 """Training callbacks (counterpart of lightgbm_tpu/callback.py:
 ``CallbackEnv``, ``EarlyStopException``, ``print_evaluation``,
-``record_evaluation``, ``early_stopping``; ``reset_parameter`` waits with
-learning-rate schedules, ROADMAP.md port queue).
+``record_evaluation``, ``reset_parameter``, ``early_stopping``).
 
 The public contract is the reference's callback bus (reference:
 python-package/lightgbm/callback.py — ``CallbackEnv`` fields, the factory
@@ -96,6 +95,47 @@ class _RecordEvaluation:
 def record_evaluation(eval_result: Dict) -> Callable:
     """Create a callback recording evaluation history into ``eval_result``."""
     return _RecordEvaluation(eval_result)
+
+
+class _ResetParameter:
+    """Applies per-iteration parameter schedules (lists or callables)
+    before each iteration (reference package: callback.py:103-140)."""
+
+    order = 10
+    before_iteration = True
+
+    def __init__(self, schedules: Dict[str, Any]):
+        self.schedules = schedules
+
+    def _value_at(self, key: str, value, step: int, total: int):
+        if isinstance(value, list):
+            if len(value) != total:
+                raise ValueError(f"Length of list {key!r} has to equal to "
+                                 "'num_boost_round'.")
+            return value[step]
+        if callable(value):
+            return value(step)
+        raise ValueError(f"Schedule for {key!r} must be a list or a "
+                         "callable")
+
+    def __call__(self, env: CallbackEnv) -> None:
+        step = env.iteration - env.begin_iteration
+        total = env.end_iteration - env.begin_iteration
+        changed = {}
+        for key, sched in self.schedules.items():
+            new = self._value_at(key, sched, step, total)
+            if env.params.get(key) != new:
+                changed[key] = new
+        if changed:
+            if env.model is not None:
+                env.model.reset_parameter(changed)
+            env.params.update(changed)
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """A callback that resets parameters on a schedule each iteration: a
+    list of one value per round, or a function of the round."""
+    return _ResetParameter(kwargs)
 
 
 @dataclass

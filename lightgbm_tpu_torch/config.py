@@ -129,14 +129,7 @@ _OBJECTIVE_ALIASES = {
 # Parameters of the reference whose non-default value changes what is
 # trained but which this slice does not implement: canonical name ->
 # (the reference default, the ROADMAP.md item that brings it).
-_SERIAL = "the rest of queue 1: the serial grower"
 _REFUSED: Dict[str, tuple] = {
-
-    "feature_fraction_bynode": (1.0, _SERIAL),
-    "forcedsplits_filename": ("", _SERIAL),
-    "cegb_penalty_split": (0.0, _SERIAL),
-    "cegb_penalty_feature_lazy": ([], _SERIAL),
-    "cegb_penalty_feature_coupled": ([], _SERIAL),
     "num_machines": (1, "the rest of queue 1: parallel and fleet planes"),
     "tpu_wave_overlap": (False, "the rest of queue 1: overlapped waves"),
     "tpu_fused_grad": (True, "the rest of queue 1: unfused gradients"),
@@ -194,6 +187,7 @@ class Config:
     max_bin_by_feature: List[int] = field(default_factory=list)
     forcedsplits_filename: str = ""
     forcedbins_filename: str = ""
+    cegb_tradeoff: float = 1.0
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
     cegb_penalty_feature_coupled: List[float] = field(default_factory=list)
@@ -211,11 +205,13 @@ class Config:
     input_model: str = ""
     output_result: str = "LightGBM_predict_result.txt"
     initscore_filename: str = ""
+    valid_data_initscores: List[str] = field(default_factory=list)
     enable_bundle: bool = True
     max_conflict_rate: float = 0.0
     use_missing: bool = True
     zero_as_missing: bool = False
     two_round: bool = False
+    save_binary: bool = False
     header: bool = False
     label_column: str = ""
     weight_column: str = ""
@@ -332,6 +328,8 @@ class Config:
             log.fatal("bagging_fraction should be in (0.0, 1.0]")
         if not (0.0 < self.feature_fraction <= 1.0):
             log.fatal("feature_fraction should be in (0.0, 1.0]")
+        if not (0.0 < self.feature_fraction_bynode <= 1.0):
+            log.fatal("feature_fraction_bynode should be in (0.0, 1.0]")
         if self.num_leaves < 2:
             log.fatal("num_leaves should be >= 2")
         if not (1 < self.max_bin <= 65535):

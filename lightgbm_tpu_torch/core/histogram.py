@@ -6,9 +6,12 @@ lightgbm_tpu/core/histogram.py).
 uses (reference: src/treelearner/ocl/histogram256.cl:350 workgroup
 atomics).  The wave grower's histograms come from ``ops/hist_wave.py``
 (K1), and, for columns wider than K1's 256 bins, from ``hist_wave_side``,
-the wide-column side-pass.  Under EFB, ``expand_bundled`` and
-``fix_default_bins`` turn physical-column histograms into per-feature
-ones; both are sized by the histogram, not by the data.
+the wide-column side-pass.  The serial grower's leaf histograms come
+from K2 (``ops/hist_channels.py hist_channels_fm``) for columns of up to
+256 bins and from ``hist_fixed_point`` above that.  Under EFB,
+``expand_bundled`` and ``fix_default_bins`` turn physical-column
+histograms into per-feature ones; both are sized by the histogram, not by
+the data.
 """
 from __future__ import annotations
 
@@ -33,6 +36,43 @@ def hist_scatter(bins, g, h, mask, B: int):
     out.index_add_(0, flat.reshape(-1),
                    ghc[:, None, :].expand(N, F, 3).reshape(-1, 3))
     return out.reshape(F, B, 3)
+
+
+_FIXED_BITS = 61     # n values of up to 2 * amax sum below 2^62
+
+
+def hist_fixed_point(bins_fm, g, h, mask, B: int):
+    """Single-leaf histogram of wide columns (more than 256 bins, beyond
+    K2), repeatable on the card: f32 [F, B, 3] of (sum g*mask, sum h*mask,
+    sum mask) for int bins [F, N] (feature major).
+
+    The JAX package computes this histogram in XLA (``hist_scatter``).  A
+    float ``index_add_`` on a CUDA tensor adds by atomics in no fixed
+    order, so here g and h are fixed point, as K1's float sums are
+    (``csrc/hist_wave.cu``): a power-of-two scale 2^k a channel from max
+    |g*mask| and |h*mask| over the rows, with k chosen so that N values of
+    up to twice that maximum sum below 2^62; each value is rounded once to
+    the nearest int64, the sums are integer adds (order-free), and the
+    count is an integer sum.  Each sum goes back through f64 (times 2^-k,
+    rounded to f32 once)."""
+    hist_fixed_point.calls += 1
+    F, N = bins_fm.shape
+    dev = bins_fm.device
+    gh = torch.stack([g * mask, h * mask], 1).float()            # [N, 2]
+    amax = (gh.abs().amax(0) if N else
+            torch.zeros(2, dtype=torch.float32, device=dev))
+    lg = 0 if N <= 1 else (N - 1).bit_length()                  # ceil log2
+    k = (_FIXED_BITS - lg - torch.frexp(amax).exponent).double()  # [2]
+    src = torch.cat([torch.round(torch.ldexp(gh.double(), k)).long(),
+                     mask.long()[:, None]], 1)                   # [N, 3]
+    acc = torch.zeros((F, B, 3), dtype=torch.int64, device=dev)
+    for f in range(F):
+        acc[f].index_add_(0, bins_fm[f].long(), src)
+    return torch.cat([torch.ldexp(acc[..., :2].double(), -k),
+                      acc[..., 2:].double()], -1).float()
+
+
+hist_fixed_point.calls = 0        # leaf histograms taken (any device)
 
 
 def hist_subtract(parent, child):

@@ -286,12 +286,15 @@ def _cat_winner_bitset(cat: dict, f_best, B: int):
 
 def best_split(hist, sum_g, sum_h, cnt, meta: DeviceMeta, cfg: SplitConfig,
                min_constraint, max_constraint, feature_mask=None,
-               has_cat=None) -> BestSplit:
+               has_cat=None, penalty_sub=None) -> BestSplit:
     """Best (feature, threshold or category set) split of each leaf.
 
     hist: f32 [..., F, B, 3]; sum_g/sum_h/cnt and the monotone window
     min/max_constraint: f32 tensors of the batch shape ``[...]``.
-    feature_mask: optional bool [F] (feature_fraction sampling).
+    feature_mask: optional bool [F] or [..., F] (feature_fraction and
+    by-node sampling).  penalty_sub: optional f32 [..., F] gain penalty
+    per feature, subtracted after the scan (CEGB's DeltaGain, reference:
+    cost_effective_gradient_boosting.hpp:50-61).
     has_cat: whether any feature is categorical (None reads it from
     ``meta``, a device read; the grower knows it on the host)."""
     if has_cat is None:
@@ -377,6 +380,9 @@ def best_split(hist, sum_g, sum_h, cnt, meta: DeviceMeta, cfg: SplitConfig,
         feat_gain = torch.where(meta.is_categorical, cat_gain, feat_gain)
     if feature_mask is not None:
         feat_gain = torch.where(feature_mask, feat_gain,
+                                torch.full_like(feat_gain, NEG_INF))
+    if penalty_sub is not None:
+        feat_gain = torch.where(feat_gain > NEG_INF, feat_gain - penalty_sub,
                                 torch.full_like(feat_gain, NEG_INF))
 
     f_best = torch.argmax(feat_gain, -1)                         # [...]

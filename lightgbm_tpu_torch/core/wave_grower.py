@@ -43,6 +43,13 @@ only at split-scan time, ``hist * [s_g, s_h, 1]``, as in the reference
 and break the bit-identity of the fused and unfused siblings).  They
 need the pure-kernel, unbundled path (the trainer falls back to 2xbf16
 otherwise, as the reference does).
+
+CEGB (``cegb``, split and coupled penalties; the lazy ones need per-row
+state and take the serial grower): each scan subtracts ``tradeoff x
+penalty_split x leaf count`` plus the pending coupled penalties from a
+feature's gain, and a commit zeroes its feature's coupled penalty, so the
+children scanned after a phase see every feature the phase used; leaves
+scanned earlier keep their cached splits, as in the reference package.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from ..convert import tree_arrays_from_numpy
 from ..ops.hist_wave import C_MAX, resolve_mode, hist_wave, \
     wave_capacity_max
 from ..ops.quant import QUANT_MODES, QUANT_QMAX, SEED_H_XOR, stochastic_round
-from .grower import _empty_tree, decode_feature_col, go_left_bins
+from .grower import CegbConfig, _empty_tree, decode_feature_col, go_left_bins
 from .histogram import (expand_bundled, fix_default_bins, hist_subtract,
                         hist_wave_side)
 from .meta import DeviceMeta, SplitConfig
@@ -192,11 +199,14 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                        gain_gate: float = 0.0,
                        fused_sibling: bool = True, packed: bool = True,
                        quant_seed: int = 0, B_phys: int = None,
-                       bundled: bool = False, mixed: MixedWidth = None):
-    """``grow(bins_fm, g, h, sample_mask, feature_mask)`` with K1 on the
-    bins' device.  Returns ``(TreeArrays, leaf_id, (waves, rows))``:
-    tensors on that device, then the K1 launches taken and the rows they
-    histogrammed.
+                       bundled: bool = False, mixed: MixedWidth = None,
+                       cegb: CegbConfig = None):
+    """``grow(bins_fm, g, h, sample_mask, feature_mask, cegb_state=None)``
+    with K1 on the bins' device.  Returns ``(TreeArrays, leaf_id, (waves,
+    rows))``: tensors on that device, then the K1 launches taken and the
+    rows they histogrammed.  With ``cegb``, ``cegb_state[0]`` is the f32
+    [F] tensor of pending coupled penalties (tradeoff x penalty), kept by
+    the trainer across trees and zeroed in place as features are used.
 
     ``gain_gate`` commits only leaves whose gain is at least ``gain_gate``
     times the phase's best ready gain (0 = split everything positive, 1 =
@@ -225,6 +235,10 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
     if mixed is not None and not (len(mixed.narrow_idx)
                                   and len(mixed.wide_idx)):
         raise ValueError("mixed needs both narrow and wide columns")
+    if cegb is not None and cegb.lazy is not None:
+        raise ValueError("cegb_penalty_feature_lazy needs per-row state the "
+                         "wave path does not carry; use the serial grower")
+    split_pen = float(cegb.tradeoff * cegb.penalty_split) if cegb else 0.0
     B_phys = B if B_phys is None else int(B_phys)
     B_kern = int(mixed.B_narrow) if mixed is not None else B_phys
     lanes = 2 if packed else 3
@@ -246,15 +260,18 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
               and int(st.tree.num_leaves) < L and st.pend_cnt < P)
         return leaf, ok
 
-    def commit(st: _LeafState, leaf: int):
-        """Commit ``leaf``'s cached best split into the host state; returns
-        its (leaf, new, feature, threshold, default_left, bitset)."""
+    def commit(st: _LeafState, leaf: int, coupled):
+        """Commit ``leaf``'s cached best split into the host state (and
+        zero its feature's pending coupled penalty); returns its (leaf,
+        new, feature, threshold, default_left, bitset)."""
         tr = st.tree
         new = int(tr.num_leaves)
         k = new - 1
         f, t, dl = int(st.best_feat[leaf]), int(st.best_thr[leaf]), \
             bool(st.best_dl[leaf])
         cb = st.best_cb[leaf].copy()
+        if coupled is not None:
+            coupled[f] = 0.0
         lg, lh, lc = st.best_lg[leaf], st.best_lh[leaf], st.best_lc[leaf]
         pg, ph, pc = st.g[leaf], st.h[leaf], st.c[leaf]
         rg, rh, rc = pg - lg, ph - lh, pc - lc
@@ -299,10 +316,10 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.pend_cnt += 1
         return leaf, new, f, t, dl, cb
 
-    def scan_children(st, hist, cand, feature_mask, scales):
+    def scan_children(st, hist, cand, feature_mask, scales, coupled):
         """Best splits of one wave's children, copied to the host state in
         one read; ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit
-        histograms."""
+        histograms; ``coupled`` (CEGB) is the pending coupled penalties."""
         dev = hist.device
         cand_t = torch.as_tensor(cand, dtype=torch.int64).to(dev)
 
@@ -311,9 +328,13 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         hist_c = hist[cand_t]
         if scales is not None:
             hist_c = hist_c * scales
-        bs = best_split(hist_c, col(st.g), col(st.h), col(st.c), meta,
+        cnt = col(st.c)
+        pen = (cnt[:, None] * split_pen + coupled[None, :]
+               if coupled is not None else None)
+        bs = best_split(hist_c, col(st.g), col(st.h), cnt, meta,
                         cfg, col(st.min_c), col(st.max_c),
-                        feature_mask=feature_mask, has_cat=has_cat)
+                        feature_mask=feature_mask, has_cat=has_cat,
+                        penalty_sub=pen)
         gain = bs.gain
         if cfg.max_depth > 0:
             gain = torch.where(col(st.depth) < cfg.max_depth, gain,
@@ -375,7 +396,7 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             hw.device)]
 
     def wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv, cv, feature_mask,
-             scales):
+             scales, coupled):
         """One K1 launch over the pending leaves + their children's scans.
         Returns the number of rows histogrammed."""
         dev = hist.device
@@ -435,11 +456,17 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.pend_large[:] = -1
         st.pend_cnt = 0
         scan_children(st, hist, np.concatenate([smalls, larges]),
-                      feature_mask, scales)
+                      feature_mask, scales, coupled)
         return n_rows
 
-    def grow(bins_fm, g, h, sample_mask, feature_mask):
+    def grow(bins_fm, g, h, sample_mask, feature_mask, cegb_state=None):
         dev = g.device
+        coupled = None
+        if cegb is not None:
+            if cegb_state is None:
+                cegb_state = [torch.zeros(int(meta.num_bins.shape[0]),
+                                          dtype=torch.float32, device=dev)]
+            coupled = cegb_state[0]
         N = g.shape[0]
         F = int(meta.num_bins.shape[0])
         gv = (g * sample_mask).float()
@@ -488,11 +515,11 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                 leaf, ok = pick_split(st, phase_max)
                 if not ok:
                     break       # the state is unchanged: no later step can
-                splits.append(commit(st, leaf))
+                splits.append(commit(st, leaf, coupled))
             leaf_id = apply_splits(leaf_id, bins_rm, splits)
             if st.pend_cnt > 0:
                 n_rows += wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv,
-                               cv, feature_mask, scales)
+                               cv, feature_mask, scales, coupled)
                 n_waves += 1
 
         tr = st.tree._replace(

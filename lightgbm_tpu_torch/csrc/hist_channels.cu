@@ -2,7 +2,7 @@
 //
 //   out[f, b, c] = sum_r gh[r, c] * (bins[f, r] == b)
 //
-// over bins [F, N] u8 and gh [N, C] f32 (C a multiple of 128), in f32.
+// over bins [F, N] u8 and gh [N, C] f32 (C a multiple of kCh = 32), in f32.
 //
 // Replaces lightgbm_tpu/ops/pallas_hist.py _hist_kernel /
 // hist_pallas_channels (and the single-leaf form hist_pallas_fm).  The

@@ -114,17 +114,24 @@ def build_bundles(mappers, used_features: np.ndarray, sample: np.ndarray,
     """The bundle mapping from the bin-finding row sample.  ``mappers``:
     every column's ``BinMapper``; ``used_features``: the original indices
     of the non-trivial features (inner order); ``sample``: [S, P] raw
-    values."""
+    values, a dense array or a scipy sparse matrix (only its stored
+    entries can be non-default, so the masks come from its CSC columns)."""
     F = len(used_features)
     nbins = [mappers[int(j)].num_bin for j in used_features]
     if F < 2:
         return BundleInfo.identity(np.asarray(nbins))
     S = sample.shape[0]
+    sample_csc = sample.tocsc() if hasattr(sample, "tocsc") else None
     idxs, rates = [], []
     for j in used_features:
         m = mappers[int(j)]
-        fb = m.value_to_bin(sample[:, int(j)])
-        nz_idx = np.flatnonzero(np.asarray(fb) != m.default_bin)
+        if sample_csc is not None:
+            lo, hi = sample_csc.indptr[int(j)], sample_csc.indptr[int(j) + 1]
+            fb = np.asarray(m.value_to_bin(sample_csc.data[lo:hi]))
+            nz_idx = np.asarray(sample_csc.indices[lo:hi][fb != m.default_bin])
+        else:
+            fb = m.value_to_bin(sample[:, int(j)])
+            nz_idx = np.flatnonzero(np.asarray(fb) != m.default_bin)
         idxs.append(nz_idx)
         rates.append(1.0 - float(len(nz_idx)) / max(S, 1))
 

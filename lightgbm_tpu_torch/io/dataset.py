@@ -1,5 +1,6 @@
 """Binned dataset (counterpart of lightgbm_tpu/io/dataset.py): dense
-matrices of numerical and categorical features.
+matrices and scipy sparse ones (never densified) of numerical and
+categorical features.
 
 ``X_bin[num_data, num_phys_features]`` holds the bin of every used
 (non-trivial) feature, or, where Exclusive Feature Bundling packs sparse
@@ -26,9 +27,9 @@ from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN, BinMapper
 
 
 class Metadata:
-    """Labels, sample weights and query boundaries of the rows (reference:
-    Metadata, dataset.h:41-250; reference package: io/dataset.py
-    ``Metadata``).  Init scores are not in the port yet."""
+    """Labels, sample weights, query boundaries and init scores of the rows
+    (reference: Metadata, dataset.h:41-250; reference package:
+    io/dataset.py ``Metadata``)."""
 
     def __init__(self, num_data: int = 0):
         self.num_data = num_data
@@ -36,6 +37,7 @@ class Metadata:
         self.weights: Optional[np.ndarray] = None        # float32 [num_data]
         self.query_boundaries: Optional[np.ndarray] = None  # int32 [Q + 1]
         self.query_weights: Optional[np.ndarray] = None  # float32 [Q]
+        self.init_score: Optional[np.ndarray] = None     # float64 [K * N]
 
     def set_label(self, label) -> None:
         label = np.ascontiguousarray(label, dtype=np.float32).ravel()
@@ -67,6 +69,17 @@ class Metadata:
         else:
             log.fatal("Initial sizes of queries do not sum to num_data")
         self._update_query_weights()
+
+    def set_init_score(self, init_score) -> None:
+        """Starting raw scores, class major ([K * num_data])."""
+        if init_score is None:
+            self.init_score = None
+            return
+        init_score = np.ascontiguousarray(init_score,
+                                          dtype=np.float64).ravel()
+        log.check(len(init_score) % self.num_data == 0,
+                  "init_score length must be a multiple of num_data")
+        self.init_score = init_score
 
     def _update_query_weights(self) -> None:
         """A query's weight is the mean weight of its rows."""
@@ -146,19 +159,7 @@ class BinnedDataset:
         if n == 0:
             log.fatal("Cannot construct a Dataset from an empty matrix (0 rows)")
         if reference is not None:
-            log.check(p == reference.num_total_features,
-                      "validation data has a different number of features")
-            ds = cls()
-            ds.num_data = n
-            ds.num_total_features = p
-            ds.metadata = Metadata(n)
-            ds.bin_mappers = reference.bin_mappers
-            ds.used_feature_map = reference.used_feature_map
-            ds.real_feature_idx = reference.real_feature_idx
-            ds.bin_offsets = reference.bin_offsets
-            ds.feature_names = reference.feature_names
-            ds.max_bin = reference.max_bin
-            ds.bundle = reference.bundle
+            ds = cls._like(reference, n, p)
             ds._binarize(data)
             return ds
 
@@ -166,7 +167,22 @@ class BinnedDataset:
         sample_indices = (np.arange(n, dtype=np.int64) if sample_cnt >= n
                           else Random(config.data_random_seed).sample(
                               n, sample_cnt).astype(np.int64))
-        sample = data[sample_indices]
+        ds = cls.from_sample(data[sample_indices], n, config,
+                             categorical_features, feature_names)
+        ds._binarize(data)
+        return ds
+
+    @classmethod
+    def from_sample(cls, sample, num_data: int, config: Config,
+                    categorical_features: Sequence[int] = (),
+                    feature_names: Optional[List[str]] = None
+                    ) -> "BinnedDataset":
+        """Mappers, used features and bundles from a row sample (dense, or
+        scipy sparse: only its stored entries are read), ``X_bin`` not yet
+        built (reference package: dataset.py ``from_sample``; reference:
+        DatasetLoader::ConstructFromSampleData, dataset_loader.cpp:574)."""
+        n, p = int(num_data), sample.shape[1]
+        sample_csc = sample.tocsc() if hasattr(sample, "tocsc") else None
         ds = cls()
         ds.num_data = n
         ds.num_total_features = p
@@ -189,7 +205,12 @@ class BinnedDataset:
                       "max_bin_by_feature values should be greater than 1")
         with timetag("bin finding"):
             for j in range(p):
-                col = sample[:, j]
+                if sample_csc is not None:
+                    # only stored entries can be non-zero
+                    lo, hi = sample_csc.indptr[j], sample_csc.indptr[j + 1]
+                    col = np.asarray(sample_csc.data[lo:hi], np.float64)
+                else:
+                    col = sample[:, j]
                 # drop "zero" values (|v| <= kZeroThreshold); NaN compares
                 # False, so NaNs stay for the missing-type decision
                 non_zero = col[~((col > -1e-35) & (col <= 1e-35))]
@@ -210,12 +231,99 @@ class BinnedDataset:
             # can pack hundreds of features a column (the reference's rule)
             wide = len(ds.real_feature_idx) > 2048
             bundle = build_bundles(ds.bin_mappers, ds.real_feature_idx,
-                                   sample, n, config.max_conflict_rate,
+                                   sample if sample_csc is None
+                                   else sample_csc, n,
+                                   config.max_conflict_rate,
                                    max_bins_per_group=4096 if wide else 256)
             if not bundle.is_trivial:
                 ds.bundle = bundle
-        ds._binarize(data)
         return ds
+
+    @classmethod
+    def from_csr(cls, X, config: Config,
+                 categorical_features: Sequence[int] = (),
+                 feature_names: Optional[List[str]] = None,
+                 reference: Optional["BinnedDataset"] = None
+                 ) -> "BinnedDataset":
+        """Construct from a scipy sparse matrix without densifying it
+        (reference package: dataset.py ``from_csr``): bins from the stored
+        entries of the sampled rows, per CSC column; EFB over the sparse
+        columns; ``X_bin`` starts at each column's default bin and the
+        stored non-default bins are scattered into it.  Peak memory is a
+        CSC copy and the binned matrix."""
+        import scipy.sparse as sp
+        X = X.tocsr() if not sp.isspmatrix_csr(X) else X
+        n, p = X.shape
+        if n == 0:
+            log.fatal("Cannot construct a Dataset from an empty matrix (0 rows)")
+        if reference is not None:
+            ds = cls._like(reference, n, p)
+        else:
+            sample_cnt = min(config.bin_construct_sample_cnt, n)
+            sample_indices = (np.arange(n, dtype=np.int64) if sample_cnt >= n
+                              else Random(config.data_random_seed).sample(
+                                  n, sample_cnt).astype(np.int64))
+            ds = cls.from_sample(X[sample_indices], n, config,
+                                 categorical_features, feature_names)
+        with timetag("binarize"):
+            ds._binarize_csc(X.tocsc())
+        return ds
+
+    @classmethod
+    def _like(cls, reference: "BinnedDataset", n: int,
+              p: int) -> "BinnedDataset":
+        """An empty dataset of n rows in ``reference``'s bin space."""
+        log.check(p == reference.num_total_features,
+                  "validation data has a different number of features")
+        ds = cls()
+        ds.num_data = n
+        ds.num_total_features = p
+        ds.metadata = Metadata(n)
+        ds.bin_mappers = reference.bin_mappers
+        ds.used_feature_map = reference.used_feature_map
+        ds.real_feature_idx = reference.real_feature_idx
+        ds.bin_offsets = reference.bin_offsets
+        ds.feature_names = reference.feature_names
+        ds.max_bin = reference.max_bin
+        ds.bundle = reference.bundle
+        return ds
+
+    def _alloc_X(self) -> None:
+        """The binned matrix of ``num_data`` rows, to fill by chunks."""
+        cols, dtype = self._bin_matrix_spec()
+        self.X_bin = np.zeros((self.num_data, cols), dtype=dtype)
+
+    def _binarize_csc(self, X_csc, row0: Optional[int] = None) -> None:
+        """Scatter the stored non-default bins into the physical matrix
+        (reference package: dataset.py ``_binarize_csc``): a column alone
+        starts at its feature's default bin (the bin of an implicit 0.0), a
+        bundle column at physical bin 0 (every member at its default).
+        With ``row0`` the rows fill ``X_bin[row0:]`` of an allocated
+        matrix (``_alloc_X``)."""
+        used = self.real_feature_idx
+        groups = (self.bundle.groups if self.bundle is not None
+                  else [[i] for i in range(len(used))])
+        if row0 is None:
+            self._alloc_X()
+            row0 = 0
+        X = self.X_bin[row0:row0 + X_csc.shape[0]]
+        dtype = X.dtype
+        indptr, indices, data = X_csc.indptr, X_csc.indices, X_csc.data
+        for gp, members in enumerate(groups):
+            for inner in members:
+                j = int(used[inner])
+                m = self.bin_mappers[j]
+                lo, hi = indptr[j], indptr[j + 1]
+                fb = np.asarray(m.value_to_bin(
+                    np.asarray(data[lo:hi], np.float64)))
+                if len(members) == 1:
+                    if m.default_bin:
+                        X[:, gp] = m.default_bin
+                    X[indices[lo:hi], gp] = fb.astype(dtype)
+                    continue
+                nz = fb != m.default_bin
+                off = self.bundle.feat_offset[inner]
+                X[indices[lo:hi][nz], gp] = (off + fb[nz]).astype(dtype)
 
     def _finalize_features(self) -> None:
         used = [j for j, m in enumerate(self.bin_mappers) if not m.is_trivial]
@@ -253,7 +361,7 @@ class BinnedDataset:
         return self.inner_to_mapper(inner).value_to_bin(
             data[:, int(self.real_feature_idx[inner])])
 
-    def _binarize(self, data: np.ndarray) -> None:
+    def _binarize(self, data: np.ndarray, row0: Optional[int] = None) -> None:
         """Bin every row into ``X_bin`` (reference: dataset.py
         ``_binarize_chunk`` / ``_binarize_bundled_chunk``).  With the
         native library each numerical column of a uint8 matrix is binned
@@ -264,8 +372,12 @@ class BinnedDataset:
         ``io/bundling.py encode_column``."""
         from .bundling import encode_column
         used = self.real_feature_idx
-        cols, dtype = self._bin_matrix_spec()
-        X = np.empty((self.num_data, cols), dtype=dtype)
+        if row0 is None:
+            self._alloc_X()
+            row0 = 0
+        n = len(data)
+        X = self.X_bin[row0:row0 + n]
+        dtype = X.dtype
         fast = _native.lib() is not None and dtype == np.uint8
         groups = (self.bundle.groups if self.bundle is not None
                   else [[i] for i in range(len(used))])
@@ -276,7 +388,7 @@ class BinnedDataset:
                         self.bundle, members,
                         [self._feature_bins(data, i) for i in members],
                         [self.inner_to_mapper(i).default_bin
-                         for i in members], self.num_data, dtype)
+                         for i in members], n, dtype)
                     continue
                 inner = members[0]
                 m = self.inner_to_mapper(inner)
@@ -288,7 +400,6 @@ class BinnedDataset:
                         m.missing_type, m.num_bin, X[:, gp])
                 else:
                     X[:, gp] = self._feature_bins(data, inner)
-        self.X_bin = X
 
 
 def _load_forced_bins(path: str, num_features: int,

@@ -67,6 +67,9 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
                       i64),
         "csv_count_lines": ([ctypes.c_void_p, i64], i64),
         "csv_line_offsets": ([ctypes.c_void_p, i64, pi64, i64], i64),
+        "libsvm_parse": ([ctypes.c_void_p, i64, pd, pi64, pi64, pi32, pd,
+                          i64, i64, ctypes.POINTER(i64),
+                          ctypes.POINTER(i64)], i64),
     }
     for name, (args, res) in sigs.items():
         fn = getattr(L, name)
@@ -180,3 +183,32 @@ def csv_line_offsets(buf, offset: int = 0, length: Optional[int] = None):
     out = np.empty(n, np.int64)
     m = L.csv_line_offsets(addr, length, out, n)
     return out[:m]
+
+
+def libsvm_parse(buf, offset: int = 0, length: Optional[int] = None):
+    """Parse LibSVM lines (``label [qid:Q] idx:val ...``) of
+    ``buf[offset:offset+length]`` -> (labels f64 [n], qids i64 [n] (-1:
+    none), indptr i64 [n+1], indices i32 [nnz], values f64 [nnz], largest
+    feature index).  None on malformed input (the caller falls back to the
+    Python parser)."""
+    view, addr, length = _window(buf, offset, length)
+    L = lib()
+    max_rows = L.csv_count_lines(addr, length)
+    # a pair holds one ':' and a qid token one more: the colon count
+    # bounds the stored entries
+    max_nnz = int(np.count_nonzero(view == ord(":")))
+    labels = np.empty(max_rows, np.float64)
+    qids = np.empty(max_rows, np.int64)
+    indptr = np.empty(max_rows + 1, np.int64)
+    idx = np.empty(max(max_nnz, 1), np.int32)
+    vals = np.empty(max(max_nnz, 1), np.float64)
+    nnz_out = ctypes.c_int64(0)
+    mf_out = ctypes.c_int64(-1)
+    n = L.libsvm_parse(addr, length, labels, qids, indptr, idx, vals,
+                       max_rows, max_nnz, ctypes.byref(nnz_out),
+                       ctypes.byref(mf_out))
+    if n < 0:
+        return None
+    nnz = nnz_out.value
+    return (labels[:n], qids[:n], indptr[:n + 1], idx[:nnz], vals[:nnz],
+            int(mf_out.value))

@@ -501,3 +501,93 @@ int64_t csv_line_offsets(const char* buf, int64_t len, int64_t* out,
 }
 
 }  // extern "C"
+
+extern "C" {
+
+// LibSVM parser: "label [qid:Q] idx:val idx:val ..." lines -> CSR triplets
+// (the reference parses this via Common::Split + Atof in
+// dataset_loader.cpp's sparse path; MSLR-WEB30K ships this format with qid:
+// tokens; copied from lightgbm_tpu/native/binning_native.cpp).  buf must end
+// at a line boundary.  Serial by design — CSR output needs sequential nnz
+// offsets; the field parse reuses the Clinger fast path.  Returns rows
+// parsed, or -(line+1) on a malformed line.  qids[r] = -1 when the line has
+// no qid token.  *out_nnz gets the pair count, *max_feat the largest feature
+// index seen.
+int64_t libsvm_parse(const char* buf, int64_t len, double* labels,
+                     int64_t* qids, int64_t* indptr, int32_t* out_idx,
+                     double* out_val, int64_t max_rows, int64_t max_nnz,
+                     int64_t* out_nnz, int64_t* max_feat) {
+    int64_t row = 0, nnz = 0, mf = -1;
+    const char* p = buf;
+    const char* bend = buf + len;
+    indptr[0] = 0;
+    while (p < bend) {
+        const char* nl = static_cast<const char*>(memchr(p, '\n', bend - p));
+        const char* end = nl ? nl : bend;
+        while (end > p && (end[-1] == '\r' || end[-1] == ' ')) --end;
+        while (p < end && (*p == ' ' || *p == '\t')) ++p;
+        if (p >= end) {  // blank line: tolerated at EOF only
+            p = nl ? nl + 1 : bend;
+            if (p < bend) return -(row + 1);
+            break;
+        }
+        if (row >= max_rows) return -(row + 1);
+        // label = first whitespace-delimited token
+        const char* fe = p;
+        while (fe < end && *fe != ' ' && *fe != '\t') ++fe;
+        labels[row] = parse_field(p, fe);
+        // a NaN label — garbage OR a literal na/nan token — would
+        // silently train on NaN targets; reject the chunk
+        // unconditionally so the lenient Python fallback surfaces the
+        // real error (feature VALUES stay NaN-tolerant — "na" there is
+        // a missing value)
+        if (std::isnan(labels[row]))
+            return -(row + 1);
+        qids[row] = -1;
+        p = fe;
+        while (p < end) {
+            while (p < end && (*p == ' ' || *p == '\t')) ++p;
+            if (p >= end) break;
+            const char* tokend = p;
+            while (tokend < end && *tokend != ' ' && *tokend != '\t')
+                ++tokend;
+            const char* colon = static_cast<const char*>(
+                memchr(p, ':', tokend - p));
+            if (!colon) return -(row + 1);
+            if (colon - p == 3 && p[0] == 'q' && p[1] == 'i' && p[2] == 'd') {
+                char* ep = nullptr;
+                char tmp[32];
+                size_t ql = static_cast<size_t>(tokend - colon - 1);
+                if (ql == 0 || ql >= sizeof(tmp)) return -(row + 1);
+                memcpy(tmp, colon + 1, ql);
+                tmp[ql] = '\0';
+                qids[row] = strtoll(tmp, &ep, 10);
+                if (ep == tmp || *ep != '\0') return -(row + 1);
+            } else {
+                if (nnz >= max_nnz) return -(row + 1);
+                char* ep = nullptr;
+                char tmp[24];
+                size_t il = static_cast<size_t>(colon - p);
+                if (il == 0 || il >= sizeof(tmp)) return -(row + 1);
+                memcpy(tmp, p, il);
+                tmp[il] = '\0';
+                int64_t idx = strtoll(tmp, &ep, 10);
+                if (ep == tmp || *ep != '\0' || idx < 0 || idx > INT32_MAX)
+                    return -(row + 1);
+                out_idx[nnz] = static_cast<int32_t>(idx);
+                out_val[nnz] = parse_field(colon + 1, tokend);
+                if (idx > mf) mf = idx;
+                ++nnz;
+            }
+            p = tokend;
+        }
+        ++row;
+        indptr[row] = nnz;
+        p = nl ? nl + 1 : bend;
+    }
+    *out_nnz = nnz;
+    *max_feat = mf;
+    return row;
+}
+
+}  // extern "C"

@@ -37,7 +37,10 @@ NO_OBJECTIVE = ("none", "null", "custom", "na", "")
 
 def create_objective(config) -> Objective:
     """The training objective (reference: src/objective/
-    objective_function.cpp:15-50)."""
+    objective_function.cpp:15-50); None for ``objective=none``, where the
+    caller supplies gradients (``fobj``)."""
+    if config.objective in NO_OBJECTIVE:
+        return None
     if config.objective not in _OBJECTIVES:
         log.fatal(f"Unknown objective type name: {config.objective}")
     return _OBJECTIVES[config.objective](config)

@@ -4,9 +4,12 @@ PyTorch version (counterpart of lightgbm_tpu/ops/pallas_hist.py
 ``hist_pallas_fm`` / ``hist_pallas``).
 
 ``out[f, b, c] = sum_r gh[r, c] * (bins[f, r] == b)`` in f32, for bins
-[F, N] u8 and gh [N, C] f32 with C a multiple of 128; rows whose bin is
->= B add nothing.  Nothing on the training path calls it, as in the JAX
-package.
+[F, N] u8 and gh [N, C] f32 with C a multiple of 32 (the kernel's work
+item; the Pallas kernel's lane group is 128); rows whose bin is >= B add
+nothing.  The serial grower (``core/grower.py build_grow_fn``) calls its
+single-leaf form ``hist_channels_fm`` at C = 32 for every leaf histogram
+of columns of up to 256 bins, as the JAX package's ``hist_pallas_fm``
+serves its serial grower.
 
 On Hopper (``csrc/hist_channels.cu``) a block takes work items of (row
 chunk, 32 channels, 4 features) and keeps the item's [4][B][32] f32
@@ -29,7 +32,7 @@ import torch
 
 from . import build as _build
 
-GROUP = 128                  # C must be a multiple of this
+GROUP = 32                   # C must be a multiple of this
 _ITEM_FEATURES = 4           # features of a work item (kFeat in the source)
 _ITEM_CHANNELS = 32          # channels of a work item (kCh)
 _MIN_CHUNK_ROWS = 4096
@@ -69,7 +72,7 @@ def geometry(sms: int, smem: int, F: int, N: int, C: int):
 def hist_channels(bins_fm, gh, B: int):
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  bins_fm: uint8 [F, N]; gh: f32 [N, C],
-    C a multiple of 128; B <= 256.  Returns f32 [F, B, C]."""
+    C a multiple of 32; B <= 256.  Returns f32 [F, B, C]."""
     if bins_fm.device.type == "cpu":
         return hist_channels_plain(bins_fm, gh, B)
     if not bins_fm.is_cuda:
@@ -109,8 +112,8 @@ hist_channels.launches = 0
 
 def hist_channels_fm(bins_fm, g, h, mask, B: int):
     """Single-leaf histogram from feature-major bins: f32 [F, B, 3] of
-    (sum g*mask, sum h*mask, sum mask) through K2's first channel group
-    (``hist_pallas_fm``)."""
+    (sum g*mask, sum h*mask, sum mask) through K2 at one channel group of
+    32, three of them used (``hist_pallas_fm``, which pads to 128)."""
     N = bins_fm.shape[1]
     gh = torch.zeros((N, GROUP), dtype=torch.float32, device=bins_fm.device)
     gh[:, 0] = g * mask

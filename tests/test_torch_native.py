@@ -177,19 +177,20 @@ def test_load_text_weight_and_group_columns(tmp_path, header):
 
 
 def test_load_text_refusals(tmp_path):
+    """What load_text still refuses: a missing data file, a ``name:``
+    column without a header, a missing init-score file.  (LibSVM files,
+    two_round and the .weight/.query/.init sidecars load since the eighth
+    slice: tests/test_torch_libsvm.py.)"""
+    from lightgbm_tpu_torch.io.text_loader import load_init_scores
     cfg = Config()
-    svm = tmp_path / "data.svm"
-    svm.write_text("1 0:0.5 3:1.2\n0 1:0.7\n")
-    with pytest.raises(LightGBMError, match="libsvm"):
-        load_text(str(svm), cfg)
+    with pytest.raises(LightGBMError, match="does not exist"):
+        load_text(str(tmp_path / "absent.tsv"), cfg)
     dense = tmp_path / "data.tsv"
     dense.write_text("1\t0.5\t2.0\n0\t0.1\t3.0\n")
-    with pytest.raises(LightGBMError, match="two_round"):
-        load_text(str(dense), Config.from_params({"two_round": True}))
-    (tmp_path / "data.tsv.query").write_text("2\n")
-    with pytest.raises(LightGBMError, match="ROADMAP"):
-        load_text(str(dense), cfg)
-    (tmp_path / "data.tsv.query").unlink()
+    with pytest.raises(LightGBMError, match="not found in header"):
+        load_text(str(dense), Config.from_params(
+            {"label_column": "name:target"}))
+    with pytest.raises(LightGBMError, match="does not exist"):
+        load_init_scores(str(dense), str(tmp_path / "absent.init"))
     (tmp_path / "data.tsv.weight").write_text("1\n2\n")
-    with pytest.raises(LightGBMError, match="weights"):
-        load_text(str(dense), cfg)
+    assert load_text(str(dense), cfg)[2].tolist() == [1.0, 2.0]
