@@ -148,6 +148,41 @@ after phase 8 on phase 4's Dataset, and after phase 9), labelled (a)-(f):
    and ``save_binary=true``; ``input_model`` continuation; training from
    the ``<data>.bin`` file gives the text's trees.
 
+The ninth slice's phases, run after phase 8 on phase 4's Dataset and
+booster (TreeSHAP's multiclass case in phase 12):
+
+15. DART (``drop_rate`` 0.1, ``skip_drop`` 0, ``drop_seed`` 37: trees
+   dropped in most iterations) 5 rounds twice, one digest, train AUC >
+   0.7, the stacked-forest prediction of every row within 1e-4 of the
+   host walk after the rescales; ``xgboost_dart_mode`` 3 rounds;
+16. RF (``bagging_fraction`` 0.632 every iteration, ``feature_fraction``
+   0.8) 5 rounds twice, one digest, the prediction the average of the
+   trees;
+17. TreeSHAP: ``pred_contrib`` on 100,000 rows of the main path's model
+   (6 trees: phase 4's profiled iteration added one) and on 5,000 of the
+   multiclass one (42 trees, paths ~3x as deep) through the batched
+   torch pass (``explain/``): the call and the pass by CUDA events, rows/s,
+   P and L, the bound from ``ops/treeshap.py shap_cost`` (FP32 peak, the
+   slots the pass runs), local accuracy within 1e-4, the f64 host
+   recursion within 1e-5 on 200 rows (all the main path's trees, the
+   multiclass model's first iteration) and on 50 (the multiclass model's
+   last iteration);
+18. checkpoint and resume: a crash (an injected ``raise`` at the device
+   step of iteration 7) of a 10-round 2xbf16 + bagging run with a
+   checkpoint every 3 rounds, resumed with the same directory: model text
+   byte-equal to the uninterrupted run's; the same for DART (6 rounds,
+   crash at 4) and int16 + bagging; the time to write and to resume one
+   checkpoint;
+19. the device guard: a transient fault retried (the main path's model),
+   a fatal one under ``tpu_on_device_error=abort`` raising
+   DeviceWedgedError with the boundary checkpoint left;
+20. the oracles: ``tpu_batched_split_apply=false`` and
+   ``tpu_fused_grad=false`` grow the main path's trees; ``tpu_wave_overlap``
+   on and its ``serial`` oracle grow one model; s/iter of each;
+21. ``task=convert_model``: the CLI writes the main path's model as C,
+   the host C compiler builds it, and it scores 1,000 rows within 1e-10 of
+   ``predict(raw_score=True)``.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all, by layout and by sibling form (fused or not); K2 its
@@ -156,8 +191,10 @@ of its model text (equal digests, equal trees).  Prints a
 ``{"kernels": [...]}`` line (``launches`` from each kernel's path,
 ``training_path_launches`` over the three training phases,
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
-and errors), a ``{"pair_pass": {...}}`` line (the lambdarank pair pass,
-torch, with its bound) and, last, the device line
+and errors, K1's launches on the DART, RF, overlap and resume paths), a
+``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
+bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
+``shap_cost`` bound) and, last, the device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
 lightgbm_tpu.
 """
@@ -176,6 +213,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # same sheet, f32 outside the tensor cores
+F64_OPS_PER_S = 34e12            # same sheet, f64 outside the tensor cores
 REPS = 25
 # f32 sums of the same values in another order: per cell the difference
 # is bounded by a few ulps of the sum of magnitudes in that cell
@@ -1172,13 +1210,19 @@ def multiclass_phase(lt, hw, hc, res, kind, card):
     if ran["predict"] != 1 or err > 1e-6 or prob.shape != (COVTYPE_ROWS, 7):
         raise AssertionError("multiclass device predict disagrees with the "
                              "host walk")
+    # the first iteration's trees on 200 rows, the last's (the deepest
+    # paths) on 50
+    last = bst._gbdt.current_iteration()
+    shap = treeshap_phase(bst, X, "multiclass", SHAP_MULTICLASS_ROWS,
+                          [(SHAP_ORACLE_ROWS, (0, 1)), (50, (last - 1, last))],
+                          kind, card)
     _, ova_counts, ova, _ = train_phase(
         lt, hw, hc, "multiclassova path",
         {**params, "objective": "multiclassova"}, ds, kind, card, rounds=2,
         layout="k1_unfused")
     if not all(math.isfinite(v) for v in ova["multi_error"]):
         raise AssertionError(f"multiclassova multi_error {ova}")
-    return runs[0][1]
+    return runs[0][1], shap
 
 
 RANK_ROWS = 2_270_296            # MSLR-WEB30K fold 1's training rows
@@ -1410,9 +1454,16 @@ def serial_phase(lt, hw, hc, params, ds, X, y, kind, card):
             side_err = float((side()[..., :3] - fixed).abs().max())
             hist_fixed_point.calls, hist_wave_side.calls = calls
             del wide_rm, leaf0
+            # its bound: the bins as uint16 (the dataset's X_bin) and the
+            # int64 fixed-point g and h read once, the f32 histogram
+            # written once
+            Fw, n = wide.shape
+            wide_bound = bound(n * Fw * 2 + n * 16 + Fw * gb.B_phys * 3 * 4,
+                               0)["bound_ms"]
             print(f"{name}: wide histogram of the root leaf ({wide.shape[1]:,}"
                   f" rows x {wide.shape[0]} columns x {gb.B_phys} bins) "
-                  f"{wide_ms:.3f} ms (CUDA events, median of 5); the "
+                  f"{wide_ms:.3f} ms (CUDA events, median of 5), bound "
+                  f"{wide_bound:.4f} ms (bytes); the "
                   f"side-pass hist_wave_side in its place {side_ms:.3f} ms "
                   f"(median of 3), max |side-pass - fixed point| "
                   f"{side_err:.3g}; "
@@ -1422,7 +1473,7 @@ def serial_phase(lt, hw, hc, params, ds, X, y, kind, card):
         profile_iteration(runs[0][0], runs[0][3], kind, card)
         out.append(runs[0][1])
         del runs
-    return out[0], out[1], wide_ms, side_ms
+    return out[0], out[1], wide_ms, side_ms, wide_bound
 
 
 def cegb_wave_phase(lt, hw, hc, params, ds, kind, card):
@@ -1766,6 +1817,415 @@ def cli_more_phase(lt, kind, card, rows=200_000):
         raise AssertionError("the CLI's LibSVM runs disagree")
 
 
+# ---- the ninth slice: DART, RF, TreeSHAP, checkpoints, the guard, the
+# oracles, convert_model (phases 15-21) --------------------------------------
+SCRATCH = os.path.join(HERE, "build", "chip_smoke")
+# drop_rate 0.1 with skip_drop 0 runs the drop step every iteration; with
+# five trees the default drop_seed (4) happens to drop none, seed 37 drops
+# 1, 0, 2, 1 trees in iterations 1-4 (and 1 in iteration 5)
+DART = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.0,
+        "drop_seed": 37}
+SHAP_ROWS = 100_000              # rows of the TreeSHAP pass on the card
+SHAP_ORACLE_ROWS = 200           # rows held against the f64 recursion
+# 20x fewer rows for the multiclass model: 7x the trees and paths ~3x as
+# deep (P 29 against 11) as the main path's, so ~20x the work a row
+SHAP_MULTICLASS_ROWS = 5_000
+CONVERT_ROWS = 1_000
+
+
+def trees_digest(bst) -> str:
+    """The digest of the model text before its parameters block: equal
+    trees under different parameter lists (the oracles' knobs)."""
+    text = bst.model_to_string().split("\nparameters:")[0]
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def host_raw(bst, X):
+    """Raw scores of the host walk of every tree (f64), [n, K]."""
+    g = bst._gbdt
+    return g._host_raw(np.ascontiguousarray(X, np.float64), g.models)
+
+
+def dart_rf_phase(lt, hw, hc, params, ds, X, kind, card):
+    """(15) DART: drop_rate 0.1, skip_drop 0 (a drop every iteration after
+    the first), 5 rounds twice, one digest, train AUC > 0.7, the stacked-
+    forest prediction of every row within 1e-4 of the host walk on the
+    first rows after the rescales; xgboost_dart_mode 3 rounds.  (16) RF:
+    bagging 0.632 every iteration, feature_fraction 0.8, 5 rounds twice,
+    one digest, the prediction the average of the trees (host walk 1e-12,
+    device walk 1e-5).  Returns the first runs' counts and s/iter."""
+    from lightgbm_tpu_torch.core import forest
+    n = PREDICT_CHECK_ROWS
+    out = {}
+    dart = {**params, **DART}
+    runs = [train_phase(lt, hw, hc, f"DART path (run {i + 1})", dart, ds,
+                        kind, card) for i in range(2)]
+    bst, counts, curves, iter_ms = runs[0]
+    drops = bst._gbdt.drops
+    digests = [model_digest(r[0]) for r in runs]
+    before = dict(forest.calls)
+    raw = bst.predict(X, raw_score=True)
+    ran = forest.calls["predict"] - before["predict"]
+    err = float(np.abs(raw[:n] - host_raw(bst, X[:n])[:, 0]).max())
+    print(f"DART: {iter_ms / 1e3:.4f} s/iter, trees dropped per iteration "
+          f"{drops}, K1 launches {counts['k1']}, digests {digests}, train "
+          f"AUC {curves['auc'][-1]:.4f}; stacked-forest predict (calls "
+          f"{ran}) vs host walk after the rescales {err:.3g} (tol 1e-4) "
+          f"[{kind}, {card}]", flush=True)
+    if (digests[0] != digests[1] or curves["auc"][-1] <= 0.7 or ran != 1
+            or err > 1e-4 or sum(drops[1:]) == 0):
+        raise AssertionError("DART path failed its checks")
+    out["dart"] = (counts, iter_ms)
+    del runs, bst
+    xgb, xcounts, _, xms = train_phase(
+        lt, hw, hc, "DART xgboost_dart_mode", {**dart,
+                                               "xgboost_dart_mode": True},
+        ds, kind, card, rounds=3)
+    print(f"DART xgboost_dart_mode: {xms / 1e3:.4f} s/iter, drops "
+          f"{xgb._gbdt.drops}, K1 launches {xcounts['k1']} [{kind}, {card}]",
+          flush=True)
+    del xgb
+    rf = {**params, "boosting": "rf", "bagging_fraction": 0.632,
+          "bagging_freq": 1, "feature_fraction": 0.8}
+    runs = [train_phase(lt, hw, hc, f"RF path (run {i + 1})", rf, ds, kind,
+                        card) for i in range(2)]
+    bst, counts, curves, iter_ms = runs[0]
+    digests = [model_digest(r[0]) for r in runs]
+    mean = np.mean([t.predict(X[:n]) for t in bst._gbdt.models], axis=0)
+    host_err = float(np.abs(bst.predict(X[:n], raw_score=True) - mean).max())
+    before = dict(forest.calls)
+    raw = bst.predict(X, raw_score=True)
+    ran = forest.calls["predict"] - before["predict"]
+    dev_err = float(np.abs(raw[:n] - mean).max())
+    print(f"RF: {iter_ms / 1e3:.4f} s/iter, K1 launches {counts['k1']}, "
+          f"digests {digests}, train AUC {curves['auc'][-1]:.4f}; prediction "
+          f"vs the average of the trees: host {host_err:.3g} (tol 1e-12), "
+          f"stacked forest (calls {ran}) {dev_err:.3g} (tol 1e-5) "
+          f"[{kind}, {card}]", flush=True)
+    if (digests[0] != digests[1] or host_err > 1e-12 or dev_err > 1e-5
+            or ran != 1):
+        raise AssertionError("RF path failed its checks")
+    out["rf"] = (counts, iter_ms)
+    return out
+
+
+def treeshap_phase(bst, X, name, rows, oracle_checks, kind, card):
+    """(17) ``pred_contrib`` through the batched TreeSHAP pass on the card
+    (``explain/``): the whole call by CUDA events, the pass alone (median
+    of 3), its bound: ``ops/treeshap.py shap_cost`` summed over the trees,
+    each at the path slots the pass runs for it (its ``max_slots``: the
+    pass stops there, where ``shap_cost`` at the stacked P counts every
+    padded slot), its FLOPs over the card's FP32 CUDA-core peak or its
+    bytes over the memory rate, whichever is larger (the bound at the FP64
+    peak, which stages 3-4 run at, is printed beside it); local accuracy
+    (the contributions sum to the raw score within 1e-4); the f64 host
+    recursion within 1e-5 for each (rows, (start, stop) iterations or
+    None for all) of ``oracle_checks``.  Returns the treeshap line's
+    entry."""
+    import torch
+    from lightgbm_tpu_torch.core.shap import predict_contrib as oracle
+    from lightgbm_tpu_torch.explain import kernel
+    from lightgbm_tpu_torch.ops.treeshap import shap_cost
+    g = bst._gbdt
+    K, F = g.num_tpi, X.shape[1]
+    Xs = np.ascontiguousarray(X[:rows])
+    calls0 = kernel.calls["shap"]
+    contrib, call_ms = timed(lambda: bst.predict(Xs, pred_contrib=True))
+    launches = kernel.calls["shap"] - calls0
+    space, fst, explain, fn = g._contrib_cache
+    bins = torch.from_numpy(space.bin_matrix(Xs)).to(fst.split_feature.device)
+    pass_ms = cuda_ms(lambda: fn(fst, explain, bins), reps=3)
+    T, L, P = explain.path_node.shape
+    runs = [shap_cost(rows, 1, L, int(s), F, K) for s in explain.max_slots]
+    flops, nbytes = sum(r[0] for r in runs), sum(r[1] for r in runs)
+    padded_flops = shap_cost(rows, T, L, P, F, K)[0]
+    b = bound(nbytes, flops)
+    b64 = bound(nbytes, flops * F32_OPS_PER_S / F64_OPS_PER_S)
+    raw = bst.predict(Xs, raw_score=True).reshape(rows, K)
+    acc = float(np.abs(contrib.reshape(rows, K, F + 1).sum(-1) - raw).max())
+    err, checked, host_s = 0.0, [], 0.0
+    for n_rows, window in oracle_checks:
+        start, stop = window or (0, g.current_iteration())
+        dev = g._predict_contrib_device(Xs[:n_rows], start, stop)
+        t0 = time.perf_counter()
+        host = oracle(g, Xs[:n_rows], stop - start, start)
+        host_s += time.perf_counter() - t0
+        e = float(np.abs(dev - host).max())
+        err = max(err, e)
+        checked.append({"rows": n_rows, "window": [start, stop],
+                        "max_abs_err": e})
+    entry = {"name": f"treeshap ({name})", "route": "torch",
+             "source": "lightgbm_tpu_torch/explain/kernel.py",
+             "replaces": "lightgbm_tpu/explain/kernel.py:38 (XLA, no "
+                         "pallas_call)",
+             "launches": launches, "rows": rows, "trees": T, "L": L, "P": P,
+             "slots_run": int(explain.max_slots.sum()),
+             "call_ms": call_ms, "ms": pass_ms,
+             "rows_per_s": rows / pass_ms * 1e3,
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "bound_fp64_peak_ms": b64["bound_ms"],
+             "shap_flops": flops, "shap_flops_padded_P": padded_flops,
+             "shap_bytes": nbytes, "local_accuracy": acc,
+             "oracle": checked, "max_abs_err": err, "library_ms": None}
+    where = ", ".join(f"{c['rows']} rows of iterations "
+                      f"[{c['window'][0]}, {c['window'][1]}) "
+                      f"{c['max_abs_err']:.3g}" for c in checked)
+    print(f"TreeSHAP ({name}): {rows:,} rows x {T} trees, L {L}, P {P} "
+          f"({entry['slots_run']} slots run over the trees): pred_contrib "
+          f"call {call_ms:.2f} ms, the pass {pass_ms:.2f} ms "
+          f"({rows / pass_ms * 1e3:,.0f} rows/s), shap_cost bound "
+          f"{b['bound_ms']:.4f} ms (by {b['bound_by']}, FP32 peak; "
+          f"{b64['bound_ms']:.4f} ms at the FP64 peak; {flops:.4g} FLOPs "
+          f"for the slots run, {padded_flops:.4g} at the stacked P), "
+          f"{pass_ms / b['bound_ms']:.1f}x the bound, device passes "
+          f"{launches}; local accuracy {acc:.3g} (tol 1e-4); vs the f64 "
+          f"recursion: {where} (tol 1e-5; host {host_s:.1f} s) "
+          f"[{kind}, {card}]", flush=True)
+    if launches != 1 or acc > 1e-4 or err > 1e-5 \
+            or contrib.shape != (rows, K * (F + 1)):
+        raise AssertionError(f"TreeSHAP ({name}) failed its checks")
+    return entry
+
+
+def resume_case(lt, hw, hc, name, params, ds, rounds, crash, kind, card):
+    """One crash and resume: the uninterrupted run writes model text A
+    with checkpoints every 3 rounds into a fresh directory; the directory
+    is emptied, an injected ``raise`` at the device step of iteration
+    ``crash`` ends the next run (DeviceWedgedError), and a rerun with the
+    same directory resumes from its newest checkpoint and must write A
+    byte for byte.  Returns (counts of the crashed and resumed runs, the
+    checkpoints left by the crash, seconds of each run)."""
+    import shutil
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.robust.watchdog import DeviceWedgedError
+    d = os.path.join(SCRATCH, "ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    p = {**params, "tpu_checkpoint_dir": d, "tpu_checkpoint_freq": 3}
+    t0 = time.perf_counter()
+    text = lt.train(p, ds, rounds, device=DEV).model_to_string()
+    straight_s = time.perf_counter() - t0
+    shutil.rmtree(d)
+    reset_counts(hw, hc)
+    faults.configure(f"device_execute:raise@iter={crash}")
+    t0 = time.perf_counter()
+    try:
+        lt.train(p, ds, rounds, device=DEV)
+        raise AssertionError(f"{name}: the injected fault did not end the "
+                             "run")
+    except DeviceWedgedError:
+        pass
+    finally:
+        faults.disarm()
+    crash_s = time.perf_counter() - t0
+    left = sorted(os.listdir(d))
+    t0 = time.perf_counter()
+    again = lt.train(p, ds, rounds, device=DEV).model_to_string()
+    resume_s = time.perf_counter() - t0
+    counts = read_counts(hw, hc)
+    equal = again == text
+    print(f"resume ({name}): crash at iteration {crash} left {left}; "
+          f"resumed model text byte-equal to the uninterrupted run's: "
+          f"{equal}; runs {straight_s:.2f} s straight, {crash_s:.2f} s to "
+          f"the crash, {resume_s:.2f} s resumed; K1 launches (crash + "
+          f"resume) {counts['k1']} [{kind}, {card}]", flush=True)
+    if not equal:
+        raise AssertionError(f"resume ({name}): model text differs")
+    shutil.rmtree(d)
+    return counts, left, (straight_s, crash_s, resume_s)
+
+
+def resume_phase(lt, hw, hc, params, ds, kind, card):
+    """(18) Checkpoint and resume on the headline rows: 2xbf16 with
+    bagging 0.8, 10 rounds, a crash at iteration 7; DART, 6 rounds, a
+    crash at iteration 4 (DART cannot roll back a half-applied iteration,
+    so it resumes from the periodic checkpoint at 3); int16 with bagging,
+    10 rounds (the stochastic rounding's seed survives); the time to write
+    one checkpoint and to resume from it.  Returns the 2xbf16 counts."""
+    import shutil
+    from lightgbm_tpu_torch.robust.checkpoint import CheckpointManager
+    bag = {**params, "bagging_fraction": 0.8, "bagging_freq": 1}
+    counts, left, _ = resume_case(lt, hw, hc, "2xbf16 + bagging", bag, ds,
+                                  10, 7, kind, card)
+    if left != ["ckpt_00000003", "ckpt_00000006", "ckpt_00000007"]:
+        raise AssertionError(f"unexpected checkpoints {left}")
+    resume_case(lt, hw, hc, "DART", {**params, **DART}, ds, 6, 4, kind, card)
+    resume_case(lt, hw, hc, "int16 + bagging",
+                {**bag, "tpu_hist_dtype": "int16"}, ds, 10, 7, kind, card)
+    d = os.path.join(SCRATCH, "ckpt_timing")
+    shutil.rmtree(d, ignore_errors=True)
+    p = {**bag, "tpu_checkpoint_dir": d}
+    bst = lt.train(p, ds, 3, device=DEV)
+    mgr = CheckpointManager.from_config(bst.config)
+    t0 = time.perf_counter()
+    path = mgr.save(bst, 3)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    fresh = lt.Booster(params=p, train_set=ds, device=DEV)
+    t0 = time.perf_counter()
+    mgr.resume(fresh, mgr.peek())
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    print(f"checkpoint of 3 trees of 255 leaves at {ds.num_data():,} rows: "
+          f"write "
+          f"{save_ms:.1f} ms ({size:,} bytes), resume {resume_ms:.1f} ms "
+          f"[{kind}, {card}]", flush=True)
+    if model_digest(fresh) != model_digest(bst):
+        raise AssertionError("a resumed booster's model differs")
+    shutil.rmtree(d)
+    return counts
+
+
+def guard_phase(lt, params, ds, digest, kind, card):
+    """(19) The device guard: a transient fault at the device step of
+    iteration 2 is retried and the model is the main path's (digest); a
+    fatal one under ``tpu_on_device_error=abort`` raises DeviceWedgedError
+    and leaves the boundary checkpoint of iteration 2."""
+    import shutil
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.robust.watchdog import DeviceWedgedError
+    faults.configure("device_execute:transient@iter=2")
+    try:
+        bst = lt.train(params, ds, 5, device=DEV)
+    finally:
+        fired = faults.fired_counts()
+        faults.disarm()
+    retries = bst._gbdt._guard.retry_count
+    same = model_digest(bst) == digest
+    d = os.path.join(SCRATCH, "ckpt_abort")
+    shutil.rmtree(d, ignore_errors=True)
+    faults.configure("device_execute:raise@iter=2")
+    try:
+        lt.train({**params, "tpu_on_device_error": "abort",
+                  "tpu_checkpoint_dir": d, "tpu_checkpoint_freq": 0},
+                 ds, 5, device=DEV)
+        raise AssertionError("the fatal fault did not raise")
+    except DeviceWedgedError as exc:
+        wedged = str(exc)
+    finally:
+        faults.disarm()
+    left = sorted(os.listdir(d))
+    print(f"device guard: transient at iteration 2 fired {fired}, retried "
+          f"{retries}x, model = main path's: {same}; fatal under abort: "
+          f"DeviceWedgedError ({wedged[:60]}...), checkpoints {left} "
+          f"[{kind}, {card}]", flush=True)
+    if not same or retries != 1 or left != ["ckpt_00000002"]:
+        raise AssertionError("the device guard failed its checks")
+    shutil.rmtree(d)
+
+
+def oracle_phase(lt, hw, hc, params, ds, main_trees, main_ms, kind, card):
+    """(20) The oracles on the headline rows, 5 rounds each:
+    ``tpu_batched_split_apply=false`` and ``tpu_fused_grad=false`` grow the
+    main path's trees (trees digest); ``tpu_wave_overlap`` "on" (the
+    parameter) and "serial" (the grower's argument) one model between
+    them.  s/iter of each beside the main path's.  Returns the overlap
+    path's counts."""
+    from lightgbm_tpu_torch.core.wave_grower import build_wave_grow_fn
+    out = {"off": main_ms}
+    for knob in ({"tpu_batched_split_apply": False},
+                 {"tpu_fused_grad": False}):
+        name = ", ".join(f"{k}={v}" for k, v in knob.items())
+        bst, _, _, ms = train_phase(lt, hw, hc, f"oracle {name}",
+                                    {**params, **knob}, ds, kind, card)
+        out[name] = ms
+        if trees_digest(bst) != main_trees:
+            raise AssertionError(f"oracle {name}: other trees than the main "
+                                 "path's")
+        print(f"oracle {name}: trees digest {trees_digest(bst)} = main "
+              f"path's; {ms / 1e3:.4f} s/iter [{kind}, {card}]", flush=True)
+    over = {**params, "tpu_wave_overlap": True}
+    on, counts_on, _, on_ms = train_phase(lt, hw, hc, "overlap on", over,
+                                          ds, kind, card)
+    reset_counts(hw, hc)
+    serial = lt.Booster(params=dict(over), train_set=ds, device=DEV)
+    g = serial._gbdt
+    g._grow = build_wave_grow_fn(**{**g.wave_kw, "overlap": "serial"})
+    for _ in range(5):
+        serial.update()
+    counts_serial = read_counts(hw, hc)
+    serial_ms = float(np.median(g.iter_seconds[1:])) * 1e3
+    out.update(on=on_ms, serial=serial_ms)
+    print(f"overlap: digests on {model_digest(on)} / serial "
+          f"{model_digest(serial)}; s/iter off {main_ms / 1e3:.4f}, on "
+          f"{on_ms / 1e3:.4f}, serial {serial_ms / 1e3:.4f}; K1 launches on "
+          f"{counts_on['k1']}, serial {counts_serial['k1']}; s/iter by "
+          f"oracle {json.dumps({k: v / 1e3 for k, v in out.items()})} "
+          f"[{kind}, {card}]", flush=True)
+    if model_digest(on) != model_digest(serial) or counts_serial["k1"] == 0:
+        raise AssertionError("overlap on and serial grew other trees")
+    return counts_on
+
+
+_C_HARNESS = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#ifdef __cplusplus
+extern "C"
+#endif
+void PredictRaw(const double* row, double* output);
+int main(int argc, char** argv) {
+  int n = atoi(argv[2]), f = atoi(argv[3]), k = atoi(argv[4]);
+  FILE* fh = fopen(argv[1], "rb");
+  double* row = (double*)malloc(sizeof(double) * f);
+  double* out = (double*)malloc(sizeof(double) * k);
+  for (int i = 0; i < n; ++i) {
+    if (fread(row, sizeof(double), f, fh) != (size_t)f) return 1;
+    PredictRaw(row, out);
+    for (int j = 0; j < k; ++j) printf("%.17g\n", out[j]);
+  }
+  return 0;
+}
+"""
+
+
+def convert_phase(bst, X, kind, card):
+    """(21) ``task=convert_model``: the CLI converts the main path's model
+    file to C; the host C compiler (the one nvcc calls) builds it with a
+    small reader, which scores rows within 1e-10 of
+    ``predict(raw_score=True)``."""
+    import shutil
+    d = os.path.join(SCRATCH, "convert")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    model = os.path.join(d, "model.txt")
+    bst.save_model(model)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                    "task=convert_model", f"input_model={model}",
+                    f"convert_model={os.path.join(d, 'model.c')}"],
+                   check=True, env=env, timeout=300)
+    convert_s = time.perf_counter() - t0
+    cc = shutil.which("gcc") or shutil.which("cc") or shutil.which("g++")
+    if cc is None:
+        raise AssertionError("no host C compiler found")
+    rows = np.ascontiguousarray(X[:CONVERT_ROWS], np.float64)
+    rows.tofile(os.path.join(d, "rows.bin"))
+    with open(os.path.join(d, "main.c"), "w") as fh:
+        fh.write(_C_HARNESS)
+    exe = os.path.join(d, "score")
+    t0 = time.perf_counter()
+    lang = ["-x", "c++"] if cc.endswith("++") else []
+    subprocess.run([cc, "-O1", *lang, "-o", exe, os.path.join(d, "model.c"),
+                    os.path.join(d, "main.c"), "-lm"], check=True,
+                   timeout=600)
+    build_s = time.perf_counter() - t0
+    out = subprocess.run([exe, os.path.join(d, "rows.bin"), str(len(rows)),
+                          str(rows.shape[1]), "1"], check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    got = np.asarray(out.split(), np.float64)
+    err = float(np.abs(got - bst.predict(rows, raw_score=True)).max())
+    size = os.path.getsize(os.path.join(d, "model.c"))
+    print(f"convert_model: CLI {convert_s:.2f} s ({size:,} bytes of C), "
+          f"{os.path.basename(cc)} build {build_s:.2f} s, {len(rows):,} rows "
+          f"scored within {err:.3g} of predict(raw_score=True) (tol 1e-10) "
+          f"[{kind}, {card}]", flush=True)
+    if got.shape != (len(rows),) or err > 1e-10:
+        raise AssertionError("the converted model scores differently")
+    shutil.rmtree(d)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1868,6 +2328,7 @@ def main() -> int:
     if auc[-1] <= 0.7:
         raise AssertionError(f"train AUC {auc[-1]} <= 0.7")
     digest = model_digest(bst)
+    main_trees = trees_digest(bst)   # before the profiled 6th iteration
     again = train_phase(lt, hw, hc, "main path (repeat)", params, ds, kind,
                         card)[0]
     print(f"main path repeat: model digests {digest} / {model_digest(again)}"
@@ -1914,8 +2375,22 @@ def main() -> int:
         raise AssertionError("model text is incomplete or not finite")
     predict_phase(lt, bst, X, kind, card)
 
+    # ---- 15-21: DART, RF, TreeSHAP, resume, the guard, the oracles,
+    # convert_model ---------------------------------------------------------
+    t_slice = time.perf_counter()
+    slice_counts = dart_rf_phase(lt, hw, hc, params, ds, X, kind, card)
+    shap_main = treeshap_phase(bst, X, "main path", SHAP_ROWS,
+                               [(SHAP_ORACLE_ROWS, None)], kind, card)
+    counts_resume = resume_phase(lt, hw, hc, params, ds, kind, card)
+    guard_phase(lt, params, ds, digest, kind, card)
+    counts_overlap = oracle_phase(lt, hw, hc, params, ds, main_trees,
+                                  iter_ms, kind, card)
+    convert_phase(bst, X, kind, card)
+    print(f"phases 15-21: {time.perf_counter() - t_slice:.1f} s "
+          f"[{kind}, {card}]", flush=True)
+
     # ---- (a)-(b) the serial grower; (d) the training API ------------------
-    counts_serial, counts_wide, wide_ms, side_ms = serial_phase(
+    counts_serial, counts_wide, wide_ms, side_ms, wide_bound = serial_phase(
         lt, hw, hc, params, ds, X, y, kind, card)
     counts_cegb = cegb_wave_phase(lt, hw, hc, params, ds, kind, card)
     api_phase(lt, params, ds, X, y, kind, card)
@@ -1931,7 +2406,7 @@ def main() -> int:
     counts_mixed = mixed_phase(lt, hw, hc, params, kind, card)
 
     # ---- 12. multiclass; 13. lambdarank; 14. regression --------------------
-    counts_multi = multiclass_phase(lt, hw, hc, res, kind, card)
+    counts_multi, shap_multi = multiclass_phase(lt, hw, hc, res, kind, card)
     counts_rank, pair = rank_phase(lt, hw, hc, res, kind, card)
     counts_reg = regression_phase(lt, hw, hc, kind, card)
 
@@ -1965,7 +2440,11 @@ def main() -> int:
               ["k1", "k1_ragged", "k1_high_ids_2xbf16", "k1_skew",
                "k1_skew_one_slot"],
               skewed=skewed("k1_skew", "k1_skew_one_slot"),
-              cegb_wave_path_launches=counts_cegb["k1_packed"]),
+              cegb_wave_path_launches=counts_cegb["k1_packed"],
+              dart_path_launches=slice_counts["dart"][0]["k1_packed"],
+              rf_path_launches=slice_counts["rf"][0]["k1_packed"],
+              overlap_path_launches=counts_overlap["k1_packed"],
+              resume_path_launches=counts_resume["k1_packed"]),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
@@ -2004,6 +2483,7 @@ def main() -> int:
               ["k2_c32"], bound_3_channels_ms=used3["bound_ms"],
               all_wide_path_launches=counts_wide["k2"],
               wide_histogram_root_ms=wide_ms,
+              wide_histogram_bound_ms=wide_bound,
               side_pass_in_its_place_root_ms=side_ms),
     ]
     for k in kernels:
@@ -2012,6 +2492,7 @@ def main() -> int:
                     "library_ms")):
             raise AssertionError(f"non-finite kernel numbers: {k}")
     print(json.dumps({"pair_pass": pair}), flush=True)
+    print(json.dumps({"treeshap": [shap_main, shap_multi]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

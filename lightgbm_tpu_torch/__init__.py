@@ -4,7 +4,7 @@ It trains GBDTs of every objective of the JAX package: host binning
 (through a g++-built native loop where it loads; dense, scipy sparse and
 LibSVM input; numerical and categorical features, EFB bundles, bins
 wider than 255; binary dataset files), gradients (or custom ones), bagging
-and GOSS, the wave-scheduled grower whose per-wave histograms come from a
+GOSS, DART and random forests, the wave-scheduled grower whose per-wave histograms come from a
 hand-written CUDA kernel (``ops/hist_wave.py``, ``csrc/hist_wave.cu``) in
 the float and the quantized int16/int8 modes (columns wider than 256 bins
 on a PyTorch side-pass), the serial grower (forced splits, CEGB, by-node
@@ -12,11 +12,15 @@ sampling, all-wide columns) whose leaf histograms come from the second
 kernel (``ops/hist_channels.py``, ``csrc/hist_channels.cu``), the split
 scan (numerical and categorical), the score update, init scores and
 continued training, callbacks (learning-rate schedules included), early
-stopping and cross-validation (``cv``).  It saves and loads
+stopping and cross-validation (``cv``), checkpoints with bit-exact resume
+and a guard around the device steps (``robust/``).  It saves and loads
 LightGBM model text (categorical trees included; a loaded model's
 objective converts its output) and predicts on the host or, for large
-inputs, through the stacked forest on the device (``core/forest.py``).  ``python -m
-lightgbm_tpu_torch`` is the CLI (``task=train``, ``task=predict``).
+inputs, through the stacked forest on the device (``core/forest.py``);
+it explains predictions by TreeSHAP (``pred_contrib``: ``explain/`` on the
+device, ``core/shap.py`` on the host) and writes a model as C code
+(``model_to_if_else``).  ``python -m lightgbm_tpu_torch`` is the CLI
+(``task=train``, ``task=predict``, ``task=convert_model``).
 It imports torch and numpy (scipy for sparse input), never jax or
 lightgbm_tpu.  Anything
 outside the port raises ``LightGBMError`` naming the ROADMAP.md item that

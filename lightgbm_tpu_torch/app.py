@@ -8,7 +8,9 @@ snapshots, :221-247 Predict).  Arguments are ``key=value`` pairs; a
 ``config=FILE`` pair loads a LightGBM .conf file, and pairs on the command
 line win over the file's (reference: config.cpp Config::Set ordering).
 Training and prediction run on the card unless ``device_type=cpu``.
-``input_model`` continues a model's forest in ``task=train``; init scores
+``task=convert_model`` writes ``input_model`` as standalone C scoring
+code to ``convert_model``.  ``input_model`` continues a model's forest in
+``task=train``; init scores
 come from ``initscore_filename`` (``valid_data_initscores`` for the valid
 sets) or a ``<data>.init`` file; ``two_round=true`` bins the data while
 streaming the file; ``save_binary=true`` writes the training set's binned
@@ -35,7 +37,6 @@ _UNPORTED_TASKS = {
     "serve": "forest predict and serving: serve/",
     "online": "the rest of queue 1: online and serve",
     "refit": "the rest of queue 1: online and serve",
-    "convert_model": "model_to_if_else and convert_model",
 }
 
 
@@ -136,8 +137,6 @@ def run_predict(cfg: Config, params: Dict) -> None:
     the JAX package's CLI sends such work to its serving session."""
     if not cfg.input_model:
         log.fatal("task=predict needs input_model (alias: model_file)")
-    if cfg.predict_contrib:
-        log.refuse("predict_contrib", "the rest of queue 1: explain")
     bst = Booster(model_file=cfg.input_model, device=cfg.device_type)
     # prediction-time knobs come from the CLI's config, not the model's
     bst.reset_parameter({"pred_early_stop": cfg.pred_early_stop,
@@ -148,10 +147,22 @@ def run_predict(cfg: Config, params: Dict) -> None:
         else None
     pred = np.atleast_1d(bst.predict(
         X, num_iteration=num_it, raw_score=bool(cfg.predict_raw_score),
-        pred_leaf=bool(cfg.predict_leaf_index)))
+        pred_leaf=bool(cfg.predict_leaf_index),
+        pred_contrib=bool(cfg.predict_contrib)))
     fmt = "%d" if pred.dtype.kind in "iu" else "%.18g"
     np.savetxt(cfg.output_result, pred, fmt=fmt, delimiter="\t")
     log.info("Finished prediction; results saved to %s", cfg.output_result)
+
+
+def run_convert_model(cfg: Config) -> None:
+    """task=convert_model: a model file as standalone C scoring code
+    (reference: Application::ConvertModel, application.cpp:233-241)."""
+    if not cfg.input_model:
+        log.fatal("task=convert_model needs input_model")
+    bst = Booster(model_file=cfg.input_model, device=cfg.device_type)
+    with open(cfg.convert_model, "w") as fh:
+        fh.write(bst.model_to_if_else())
+    log.info("Finished converting model; code saved to %s", cfg.convert_model)
 
 
 def main(argv=None) -> None:
@@ -163,7 +174,10 @@ def main(argv=None) -> None:
         run_train(cfg, params)
     elif task in ("predict", "prediction", "test"):
         run_predict(cfg, params)
+    elif task == "convert_model":
+        run_convert_model(cfg)
     elif task in _UNPORTED_TASKS:
         log.refuse(f"task={task}", _UNPORTED_TASKS[task])
     else:
-        log.fatal(f"Unknown task {task!r} (supported: train, predict)")
+        log.fatal(f"Unknown task {task!r} (supported: train, predict, "
+                  "convert_model)")

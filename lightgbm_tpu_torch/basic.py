@@ -16,7 +16,7 @@ from .config import Config
 from .io.dataset import BinnedDataset
 from .metric import create_metrics
 from .objective import create_objective
-from .utils.log import LightGBMError, refuse
+from .utils.log import LightGBMError
 
 
 def parse_categorical_spec(spec: str) -> list:
@@ -33,6 +33,14 @@ def parse_categorical_spec(spec: str) -> list:
 
 def _is_scipy_sparse(data) -> bool:
     return hasattr(data, "toarray") and hasattr(data, "tocsr")
+
+
+def _padded_dense(mat, n_feat: int) -> np.ndarray:
+    """A scipy sparse matrix as dense f64 [rows, n_feat] (implicit zero
+    columns past its width)."""
+    out = np.zeros((mat.shape[0], n_feat))
+    out[:, :mat.shape[1]] = mat.toarray()
+    return out
 
 
 def _same_bin_mappers(a: BinnedDataset, b: BinnedDataset) -> bool:
@@ -367,14 +375,14 @@ class Booster:
                 **kwargs) -> np.ndarray:
         """Predictions for a dense or scipy sparse matrix (a narrower
         sparse one has implicit zero columns): probabilities, raw margins
-        (``raw_score``) or leaf indices (``pred_leaf``).
+        (``raw_score``), leaf indices (``pred_leaf``) or SHAP
+        contributions (``pred_contrib``: [n, F+1], the last column the
+        expected value; [n, K*(F+1)] for K classes).
         ``kwargs`` are parameters for this call only, such as
         ``pred_early_stop``,
         ``pred_early_stop_freq`` and ``pred_early_stop_margin``.  Without
         ``num_iteration`` the best iteration of early stopping is used,
         else every tree."""
-        if pred_contrib:
-            refuse("pred_contrib (TreeSHAP)", "the rest of queue 1: explain")
         if num_iteration is None:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
@@ -393,6 +401,11 @@ class Booster:
         if pred_leaf:
             return self._gbdt.predict_leaf(mat, num_iteration,
                                            start_iteration)
+        if pred_contrib:
+            if sparse:
+                mat = _padded_dense(mat, n_feat)
+            return self._gbdt.predict_contrib(mat, num_iteration,
+                                              start_iteration)
         return self._gbdt.predict(mat, num_iteration, raw_score,
                                   start_iteration, config=config)
 
@@ -419,6 +432,13 @@ class Booster:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
         return dump_model(self._gbdt, num_iteration, start_iteration)
+
+    def model_to_if_else(self, num_iteration: Optional[int] = None) -> str:
+        """Standalone C scoring code of the forest, the CLI's
+        ``task=convert_model`` output (reference: GBDT::ModelToIfElse,
+        gbdt_model_text.cpp:88-270)."""
+        from .io.model_json import model_to_if_else
+        return model_to_if_else(self._gbdt, num_iteration)
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:

@@ -19,6 +19,7 @@ forest on the device.
 from __future__ import annotations
 
 import copy
+import os
 import time
 from typing import List, Optional, Tuple
 
@@ -73,6 +74,10 @@ class PredictorBase:
     _DEVICE_PREDICT_MIN_WORK = 2_000_000
     # cells of one gathered block of sparse rows (128 MB of f64)
     _SPARSE_BLOCK_CELLS = 1 << 24
+    # TreeSHAP is O(leaves x depth^2) Python work a row-tree on the host,
+    # so the device pass pays off far below the predict threshold;
+    # LGBM_TPU_CONTRIB_MIN_WORK overrides it (0 sends everything there)
+    _DEVICE_CONTRIB_MIN_WORK = 50_000
 
     def _iter_window(self, num_iteration: Optional[int],
                      start_iteration: int = 0) -> Tuple[int, int]:
@@ -242,7 +247,8 @@ class PredictorBase:
         model-derived bin space (None for the training one), the meta the
         walk reads, and the stacked forest on ``device``.  ``sparse``: the
         window's renumbered trees in the space of their used columns."""
-        key = (start, stop, len(self.models), sparse)
+        key = (start, stop, len(self.models), sparse,
+               getattr(self, "_model_version", 0))
         if getattr(self, "_forest_key", None) != key:
             from ..serve.packing import ServeBinSpace
             K = self.num_tpi
@@ -319,6 +325,67 @@ class PredictorBase:
             out = sync(forest_leaf_fn(meta)(forest, bins))
         return np.ascontiguousarray(out.cpu().numpy().T)
 
+    def predict_contrib(self, X, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> np.ndarray:
+        """SHAP contributions of each row, [n, F+1] (the last column is
+        the expected value) or [n, K*(F+1)] for K trees an iteration
+        (reference package: gbdt.py ``predict_contrib``).  Inputs of
+        ``_DEVICE_CONTRIB_MIN_WORK`` rows x trees x classes or more take
+        the batched pass on ``device`` (``explain/``); smaller ones the
+        host recursion (``core/shap.py``), its oracle.  A model without
+        cover counts raises on either path."""
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        start, stop = self._iter_window(num_iteration, start_iteration)
+        work = X.shape[0] * max(stop - start, 0) * self.num_tpi
+        try:
+            min_work = int(os.environ.get("LGBM_TPU_CONTRIB_MIN_WORK", "")
+                           or self._DEVICE_CONTRIB_MIN_WORK)
+        except ValueError:
+            min_work = self._DEVICE_CONTRIB_MIN_WORK
+        ready = stop > start and (self.train_ds is not None
+                                  or self.num_features > 0)
+        if work >= min_work and ready:
+            return self._predict_contrib_device(X, start, stop)
+        from ..core.shap import predict_contrib as host_contrib
+        return host_contrib(self, X, num_iteration, start_iteration)
+
+    def _predict_contrib_device(self, X: np.ndarray, start: int,
+                                stop: int) -> np.ndarray:
+        """The batched TreeSHAP pass over the window, always in the bin
+        space rebuilt from the model (``ServeBinSpace``): the contribution
+        columns are original feature indices, and the training bin space
+        rewrites nodes on features trivial in the dataset, which would
+        break the path enumeration (the JAX package's reason too)."""
+        from ..explain import forest_shap_fn, stack_explain
+        from ..serve.packing import ServeBinSpace
+        K = self.num_tpi
+        F = (int(self.train_ds.num_total_features)
+             if self.train_ds is not None else int(self.num_features))
+        key = (start, stop, len(self.models),
+               getattr(self, "_model_version", 0))
+        if getattr(self, "_contrib_key", None) != key:
+            trees = self.models[start * K:stop * K]
+            space = ServeBinSpace(trees, F, self.device)
+            trees_np = [space.tree_arrays_np(t, with_counts=True)
+                        for t in trees]
+            class_ids = np.asarray([k for _ in range(start, stop)
+                                    for k in range(K)], np.int32)
+            # the counts ride only in the path metadata
+            forest = stack_forest(trees_np, class_ids, self.device,
+                                  min_words=space.min_words)
+            explain = stack_explain(trees_np, F, self.device)
+            self._contrib_cache = (space, forest, explain,
+                                   forest_shap_fn(space.meta, K, F))
+            self._contrib_key = key
+        space, forest, explain, fn = self._contrib_cache
+        with timetag("predict (bin input)"):
+            bins = torch.from_numpy(space.bin_matrix(X)).to(self.device)
+        with timetag("predict (treeshap)"):
+            out = sync(fn(forest, explain, bins)).cpu().numpy()
+        out = out.astype(np.float64)
+        return (out.reshape(X.shape[0], K * (F + 1)) if K > 1
+                else out[:, 0, :])
+
     # ------------------------------------------------------------------
     @property
     def num_trees(self) -> int:
@@ -364,6 +431,7 @@ class GBDT(PredictorBase):
         self.valid_metrics: List[list] = []
         self._valid_scores: List[torch.Tensor] = []
         self._valid_bins: List[torch.Tensor] = []
+        self._valid_ds: list = []
         # what the scores were built from, for replaying them onto a valid
         # set attached later: the (class, constant) pairs added, and each
         # tree's shrunk f32 leaf values as added (None for a constant tree)
@@ -374,6 +442,12 @@ class GBDT(PredictorBase):
         self.iter_seconds: List[float] = []  # host clock per iteration,
         #                                      device work included
         self.renew_seconds: List[float] = []  # host leaf refit per tree
+        self.num_init_iteration = 0   # iterations seeded by init_model
+        self._train_bins = None       # row-major training bins on device
+        self._guard = None            # robust/watchdog.py DeviceGuard
+        self._ckpt_hook = None        # engine-installed: checkpoint on a
+        #                               fatal device error
+        self._boundary = None         # iteration-boundary snapshot
 
     def init(self, config, train_ds, objective, metrics, device) -> None:
         self.device = torch.device(device)
@@ -407,6 +481,13 @@ class GBDT(PredictorBase):
         self.class_need_train = [
             objective.class_need_train(k) if objective is not None else True
             for k in range(self.num_tpi)]
+        from ..robust.watchdog import DeviceGuard
+        self._guard = DeviceGuard(
+            policy=config.tpu_on_device_error,
+            retries=config.tpu_device_retries,
+            stall_timeout_s=config.tpu_wedge_timeout_s,
+            enabled=config.tpu_watchdog, seed=int(config.seed),
+            on_fatal=self._device_fatal_hook)
 
     def _init_score(self, ds) -> torch.Tensor:
         """A dataset's starting scores: its init scores (class major [K·N]
@@ -549,14 +630,26 @@ class GBDT(PredictorBase):
                     xbt[mixed.narrow_idx]).astype(np.uint8)).to(self.device),
                 torch.as_tensor(np.ascontiguousarray(
                     xbt[mixed.wide_idx]).astype(np.int32)).to(self.device))
-        self._grow = build_wave_grow_fn(
-            self.meta, self.split_cfg, self.B,
+        # the grower's arguments, kept so that a caller can rebuild it
+        # with one changed (the overlap oracle "serial" is a grower
+        # argument, as in the JAX package)
+        self.wave_kw = dict(
+            meta=self.meta, cfg=self.split_cfg, B=self.B,
             wave_capacity=int(config.tpu_wave_capacity),
             highest=hist_mode,
             gain_gate=float(config.tpu_wave_gain_gate),
             fused_sibling=bool(config.tpu_fused_sibling),
             quant_seed=int(config.seed), B_phys=self.B_phys,
-            bundled=self._bundled, mixed=mixed, cegb=cegb)
+            bundled=self._bundled, mixed=mixed, cegb=cegb,
+            batched_apply=bool(config.tpu_batched_split_apply),
+            overlap="on" if config.tpu_wave_overlap else "off")
+        self._grow = build_wave_grow_fn(**self.wave_kw)
+
+    def _train_bins_dev(self) -> torch.Tensor:
+        """The training set's row-major bins on the device, made once."""
+        if self._train_bins is None:
+            self._train_bins = self._device_phys_bins(self.train_ds.X_bin)
+        return self._train_bins
 
     def _device_phys_bins(self, X_bin: np.ndarray) -> torch.Tensor:
         """A binned matrix of this dataset's layout on the device, row
@@ -575,6 +668,7 @@ class GBDT(PredictorBase):
             m = type(proto)(self.config)
             m.init(valid_ds.metadata, valid_ds.num_data, self.device)
             ms.append(m)
+        self._prepare_replay()
         bins = self._device_phys_bins(valid_ds.X_bin)
         score = self._init_score(valid_ds)
         for k, c in self._constants:
@@ -593,6 +687,11 @@ class GBDT(PredictorBase):
         self.valid_metrics.append(ms)
         self._valid_scores.append(score)
         self._valid_bins.append(bins)
+        self._valid_ds.append(valid_ds)
+
+    def _prepare_replay(self) -> None:
+        """Bring the replay state (``_constants``, ``_leaf_f32``) up to
+        date before a late valid set replays it (DART rescales trees)."""
 
     @property
     def objective_string(self) -> str:
@@ -678,12 +777,16 @@ class GBDT(PredictorBase):
         (no boost from average then, as in the reference)."""
         t0 = time.perf_counter()
         K = self.num_tpi
+        if self._ckpt_hook is not None and self._guard.active:
+            self._snapshot_boundary()
         if gradients is None or hessians is None:
             init_scores = [self._boost_from_average(k) for k in range(K)]
             if self.objective is None:
                 log.fatal("no objective: pass gradients and hessians "
                           "(fobj)")
-            g, h = self.objective.get_gradients(self._train_score)
+            g, h = self._guard.run(
+                lambda: self.objective.get_gradients(self._train_score),
+                point="gradients", iteration=self.iter_)
         else:
             init_scores = [0.0] * K
             g, h = (self._custom_grad(v) for v in (gradients, hessians))
@@ -692,18 +795,9 @@ class GBDT(PredictorBase):
         first = len(self.models) < K
         grown_any = False
         for k in range(K):
-            gk, hk = (g, h) if K == 1 else (g[:, k].contiguous(),
-                                            h[:, k].contiguous())
             nl = 1
             if self.class_need_train[k] and self.train_ds.num_features > 0:
-                kw = {}
-                if self._cegb_state is not None:
-                    kw["cegb_state"] = self._cegb_state
-                if not self.uses_wave:
-                    kw["tree_seed"] = self.iter_ * K + k
-                arrs, leaf_id, stats = self._grow(self._bins_fm, gk, hk,
-                                                  self._bag_mask, feature_mask,
-                                                  **kw)
+                arrs, leaf_id, stats = self._grow_tree(k, g, h, feature_mask)
                 nl = int(arrs.num_leaves)
             if nl > 1:
                 grown_any = True
@@ -731,6 +825,22 @@ class GBDT(PredictorBase):
         self.iter_ += 1
         return False
 
+    def _grow_tree(self, k: int, g, h, feature_mask):
+        """Class k's tree from the grower, a guarded device step: (tree
+        arrays, leaf ids, stats)."""
+        K = self.num_tpi
+        gk, hk = (g, h) if K == 1 else (g[:, k].contiguous(),
+                                        h[:, k].contiguous())
+        kw = {}
+        if self._cegb_state is not None:
+            kw["cegb_state"] = self._cegb_state
+        if not self.uses_wave:
+            kw["tree_seed"] = self.iter_ * K + k
+        return self._guard.run(
+            lambda: self._grow(self._bins_fm, gk, hk, self._bag_mask,
+                               feature_mask, **kw),
+            point="device_execute", iteration=self.iter_)
+
     def _custom_grad(self, values) -> torch.Tensor:
         """Custom gradients or hessians (K·N, class major) as the grower
         takes them: [N], or [N, K]."""
@@ -739,35 +849,44 @@ class GBDT(PredictorBase):
         arr = arr[:, 0] if K == 1 else arr
         return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
 
-    def load_initial_models(self, models: List[Tree]) -> None:
+    def load_initial_models(self, models: List[Tree],
+                            replay_scores: bool = True) -> None:
         """Continued training (reference: Boosting::LoadFileToBoosting +
         GBDT::ResetTrainingData, boosting.cpp:35-69; reference package:
         gbdt.py ``load_initial_models``): seed the forest with an existing
         one and add its trees to the training and validation scores in
         order, tree by tree, as f32 leaf values; the leaves come from one
         walk of the stacked forest on the device.  Its trees may have more
-        leaves than this run's ``num_leaves``."""
+        leaves than this run's ``num_leaves``.  ``replay_scores=False``
+        leaves the scores alone, for a checkpoint's resume, which
+        restores them verbatim."""
         K = self.num_tpi
         if len(models) % K != 0:
             log.fatal(f"init model has {len(models)} trees, not a multiple "
                       f"of num_tree_per_iteration={K}")
         grown = [i for i, t in enumerate(models) if t.num_leaves > 1]
-        if grown:
+        if grown and replay_scores:
             forest = stack_forest(
                 [self._tree_arrays_np(models[i]) for i in grown],
                 np.zeros(len(grown), np.int32), self.device)
             walk = forest_leaf_fn(self.meta, phys=self._bundled)
             # leaves [trees, rows] of the training set, then each valid set
-            leaves = [walk(forest, b) for b in [self._device_phys_bins(
-                self.train_ds.X_bin)] + self._valid_bins]
+            leaves = [walk(forest, b)
+                      for b in [self._train_bins_dev()] + self._valid_bins]
         row = {i: r for r, i in enumerate(grown)}
         for i, tree in enumerate(models):
             k = i % K
             lv = torch.as_tensor(tree.leaf_value[:tree.num_leaves].astype(
                 np.float32)).to(self.device)
             if tree.num_leaves <= 1:
-                self._add_constant(k, float(lv[0]))
+                if replay_scores:
+                    self._add_constant(k, float(lv[0]))
+                elif float(lv[0]) != 0.0:
+                    self._constants.append((k, float(lv[0])))
                 self._leaf_f32.append(None)
+                continue
+            if not replay_scores:
+                self._leaf_f32.append(lv)
                 continue
             scores = [self._train_score] + self._valid_scores
             scores = [self._add_to_class(sc, k, lv[lf[row[i]]])
@@ -776,6 +895,7 @@ class GBDT(PredictorBase):
             self._leaf_f32.append(lv)
         self.models.extend(models)
         self.iter_ = len(self.models) // K
+        self.num_init_iteration = self.iter_
 
     def _add_tree(self, k: int, arrs, leaf_id, stats,
                   init_score: float) -> None:
@@ -789,6 +909,16 @@ class GBDT(PredictorBase):
         self._train_score = self._add_to_class(
             self._train_score, k, arrs.leaf_value[leaf_id.long()])
         tree = Tree.from_device(arrs, self.train_ds, shrinkage=lr)
+        self._add_to_valid(arrs, tree, k)
+        if abs(init_score) > K_EPSILON:
+            tree.leaf_value = tree.leaf_value + init_score
+        self.models.append(tree)
+        self._leaf_f32.append(arrs.leaf_value)
+        self.wave_stats.append(stats)
+
+    def _add_to_valid(self, arrs, tree: Tree, k: int) -> None:
+        """Add a grown tree's leaf values (``arrs``, on the device) to
+        class k of every valid set's scores."""
         depth = tree_depth(tree.left_child, tree.right_child, tree.num_leaves)
         for i, vb in enumerate(self._valid_bins):
             leaf = predict_leaf_bins(arrs, vb, self.meta, depth,
@@ -796,11 +926,6 @@ class GBDT(PredictorBase):
                                      phys=self._bundled)
             self._valid_scores[i] = self._add_to_class(
                 self._valid_scores[i], k, arrs.leaf_value[leaf])
-        if abs(init_score) > K_EPSILON:
-            tree.leaf_value = tree.leaf_value + init_score
-        self.models.append(tree)
-        self._leaf_f32.append(arrs.leaf_value)
-        self.wave_stats.append(stats)
 
     def _renew_tree_output(self, arrs, leaf_id, k: int):
         """The percentile leaf refit of the L1-family objectives, on the
@@ -823,6 +948,123 @@ class GBDT(PredictorBase):
         lv[:nl][ok] = new_vals[ok]
         self.renew_seconds.append(time.perf_counter() - t0)
         return arrs._replace(leaf_value=torch.as_tensor(lv).to(self.device))
+
+    # ------------------------------------------------------------------
+    # Fault tolerance (robust/checkpoint.py, robust/watchdog.py)
+    # ------------------------------------------------------------------
+    # DART changes host trees in place before an iteration's growth, so a
+    # half-applied iteration cannot be rolled back
+    _boundary_rollback = True
+
+    def checkpoint_state(self):
+        """(meta, arrays) for a checkpoint: what a bit-exact resume needs
+        besides the forest (the model text).  The f32 scores are copied
+        verbatim (a replay would round in another order); the RNG states
+        make the next bagging and feature-fraction draws the
+        uninterrupted run's; CEGB's coupled (and lazy) penalty state
+        carries across trees."""
+        meta = {
+            "boosting": type(self).__name__.lower(),
+            "iteration": int(self.iter_),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "num_init_iteration": int(self.num_init_iteration),
+            "rng_state": self._rng.bit_generator.state,
+            "feat_rng_state": self._feat_rng.bit_generator.state,
+        }
+        arrays = {"train_score": self._train_score.cpu().numpy(),
+                  "bag_mask": np.asarray(self._bag_mask_host, np.bool_)}
+        for i, vs in enumerate(self._valid_scores):
+            arrays[f"valid_score_{i}"] = vs.cpu().numpy()
+        for i, t in enumerate(self._cegb_state or []):
+            if t is not None:
+                arrays[f"cegb_state_{i}"] = t.cpu().numpy()
+        return meta, arrays
+
+    def restore_checkpoint_state(self, meta: dict, arrays: dict) -> None:
+        """Inverse of :meth:`checkpoint_state`, after
+        ``load_initial_models(..., replay_scores=False)`` and after every
+        valid set is attached."""
+        want, have = meta.get("boosting", "gbdt"), type(self).__name__.lower()
+        if want != have:
+            log.warning("checkpoint was written by boosting=%s but this "
+                        "trainer is %s; resuming anyway", want, have)
+        self.iter_ = int(meta["iteration"])
+        self.shrinkage_rate = float(meta["shrinkage_rate"])
+        self.num_init_iteration = int(meta.get("num_init_iteration", 0))
+        self._rng.bit_generator.state = meta["rng_state"]
+        self._feat_rng.bit_generator.state = meta["feat_rng_state"]
+        self._train_score = torch.as_tensor(arrays["train_score"]).to(
+            self.device)
+        mask = np.asarray(arrays["bag_mask"], dtype=bool)
+        self._bag_mask_host = mask
+        self._bag_mask = torch.as_tensor(mask.astype(np.float32)).to(
+            self.device)
+        for i in range(len(self._valid_scores)):
+            if f"valid_score_{i}" in arrays:
+                self._valid_scores[i] = torch.as_tensor(
+                    arrays[f"valid_score_{i}"]).to(self.device)
+        for i in range(len(self._cegb_state or [])):
+            if f"cegb_state_{i}" in arrays:
+                self._cegb_state[i] = torch.as_tensor(
+                    arrays[f"cegb_state_{i}"]).to(self.device)
+
+    def _snapshot_boundary(self) -> None:
+        """The iteration-boundary state, so that a fatal error mid-
+        iteration checkpoints a consistent boundary, not a half-applied
+        iteration.  Scores and masks are replaced, never written in
+        place, so references suffice; CEGB's state is written in place
+        and is cloned."""
+        self._boundary = {
+            "iter": self.iter_,
+            "n_models": len(self.models),
+            "n_constants": len(self._constants),
+            "shrinkage": self.shrinkage_rate,
+            "rng": self._rng.bit_generator.state,
+            "feat_rng": self._feat_rng.bit_generator.state,
+            "bag_mask": self._bag_mask,
+            "bag_mask_host": self._bag_mask_host,
+            "train_score": self._train_score,
+            "valid_scores": list(self._valid_scores),
+            "cegb": [None if t is None else t.clone()
+                     for t in self._cegb_state or []],
+        }
+
+    def _rollback_to_boundary(self) -> bool:
+        """Restore the last boundary snapshot; False when there is none or
+        the booster cannot roll back (DART)."""
+        b = self._boundary
+        if b is None or not self._boundary_rollback:
+            return False
+        self.iter_ = b["iter"]
+        self.shrinkage_rate = b["shrinkage"]
+        self._rng.bit_generator.state = b["rng"]
+        self._feat_rng.bit_generator.state = b["feat_rng"]
+        self._bag_mask = b["bag_mask"]
+        self._bag_mask_host = b["bag_mask_host"]
+        self._train_score = b["train_score"]
+        self._valid_scores = list(b["valid_scores"])
+        if self._cegb_state is not None:
+            self._cegb_state[:] = b["cegb"]
+        del self.models[b["n_models"]:], self._leaf_f32[b["n_models"]:]
+        del self._constants[b["n_constants"]:]
+        return True
+
+    def _device_fatal_hook(self, reason: str, exc: BaseException) -> None:
+        """The guard's on_fatal: roll the half-applied iteration back to
+        its boundary and let the engine's hook checkpoint it."""
+        if self._ckpt_hook is None:
+            return
+        if not self._rollback_to_boundary():
+            log.warning("device wedge: no consistent iteration boundary to "
+                        "checkpoint (boosting=%s changes trees mid-"
+                        "iteration); the last periodic checkpoint stands",
+                        type(self).__name__.lower())
+            return
+        try:
+            self._ckpt_hook(reason)
+        except Exception as hook_exc:  # noqa: BLE001
+            log.warning("wedge checkpoint failed (%s: %s)",
+                        type(hook_exc).__name__, hook_exc)
 
     # ------------------------------------------------------------------
     def _tree_bin_space(self, tree: Tree):

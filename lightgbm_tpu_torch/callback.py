@@ -54,6 +54,9 @@ class _LogEvaluation:
 
     order = 10
     before_iteration = False
+    # display only: a checkpoint's resume replays the recorded eval
+    # history through the stateful callbacks, not through this one
+    skip_on_resume = True
 
     def __init__(self, period: int, show_stdv: bool):
         self.period = period

@@ -2,11 +2,11 @@
 
 The alias table and parsing pipeline are the reference package's (raw
 strings -> alias resolution -> typed ``Config`` fields -> consistency
-checks).  ``Config`` keeps only the fields this slice of the port reads,
-plus every parameter whose non-default value would change what is
-trained: those raise ``LightGBMError`` naming the ROADMAP item that will
-bring them, instead of being silently ignored.  Parameters the port does
-not know at all warn, as in the reference.
+checks).  ``Config`` has every field of the JAX package's, with its
+default: the port implements it, or accepts it where the JAX package
+gives it no effect either, or raises ``LightGBMError`` on a non-default
+value, naming the ROADMAP item that will bring it (``refused_item``).
+Only parameters neither package knows warn, as in the reference.
 """
 from __future__ import annotations
 
@@ -105,6 +105,10 @@ _ALIASES: Dict[str, str] = {
     "ndcg_eval_at": "eval_at", "ndcg_at": "eval_at", "map_eval_at": "eval_at",
     "map_at": "eval_at",
     "num_machine": "num_machines",
+    "local_port": "local_listen_port", "port": "local_listen_port",
+    "machine_list_file": "machine_list_filename",
+    "machine_list": "machine_list_filename", "mlist": "machine_list_filename",
+    "workers": "machines", "nodes": "machines",
 }
 
 _OBJECTIVE_ALIASES = {
@@ -126,16 +130,47 @@ _OBJECTIVE_ALIASES = {
     "none": "none", "null": "none", "custom": "none", "na": "none",
 }
 
-# Parameters of the reference whose non-default value changes what is
-# trained but which this slice does not implement: canonical name ->
-# (the reference default, the ROADMAP.md item that brings it).
-_REFUSED: Dict[str, tuple] = {
-    "num_machines": (1, "the rest of queue 1: parallel and fleet planes"),
-    "tpu_wave_overlap": (False, "the rest of queue 1: overlapped waves"),
-    "tpu_fused_grad": (True, "the rest of queue 1: unfused gradients"),
-    "tpu_batched_split_apply": (True,
-                                "the rest of queue 1: sequential split apply"),
+# Parameters of the JAX package whose non-default value changes what is
+# trained, predicted or written, but which the port does not implement
+# yet: canonical name -> the ROADMAP.md item that brings it.  Every other
+# field of the JAX package's ``Config`` is a field here too: implemented,
+# or accepted with no effect where the JAX package gives it none (the
+# field's comment says so).
+_SERVE = "forest predict and serving: serve/"
+_ONLINE = "the rest of queue 1: online and serve"
+_PARALLEL = "the rest of queue 1: parallel and fleet planes"
+_OBS = "Obs, tools and bindings"
+# tpu_on_device_error=fallback: a step that launched kernels on the card
+# never carries on on the CPU
+_FALLBACK = "CPU fallback of a failed device step"
+_REFUSED: Dict[str, str] = {
+    "num_machines": _PARALLEL, "local_listen_port": _PARALLEL,
+    "time_out": _PARALLEL, "machine_list_filename": _PARALLEL,
+    "machines": _PARALLEL, "tpu_mesh_shape": _PARALLEL,
+    "refit_decay_rate": _ONLINE, "tpu_refit_device": _ONLINE,
+    "tpu_explain": _SERVE, "tpu_explain_max_batch": _SERVE,
+    "tpu_explain_max_wait_ms": _SERVE,
+    "tpu_telemetry": _OBS, "tpu_health": _OBS, "tpu_profile": _OBS,
+    "tpu_xprof": _OBS, "tpu_xprof_iters": _OBS, "tpu_trace": _OBS,
+    "tpu_flight_len": _OBS, "tpu_train_metrics_port": _OBS,
+    "tpu_drift": _OBS, "tpu_quality_window": _OBS,
+    "tpu_quality_drop_warn": _OBS,
 }
+# whole families, by name prefix
+_REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL),
+                   ("tpu_serve", _SERVE), ("tpu_online", _ONLINE),
+                   ("tpu_drift_", _OBS))
+
+
+def refused_item(name: str) -> Optional[str]:
+    """The ROADMAP.md item a parameter waits for, or None when the port
+    runs every value of it."""
+    if name in _REFUSED:
+        return _REFUSED[name]
+    for prefix, item in _REFUSED_PREFIX:
+        if name.startswith(prefix):
+            return item
+    return None
 
 
 def parse_objective_alias(name: str) -> str:
@@ -147,7 +182,8 @@ def parse_objective_alias(name: str) -> str:
 class Config:
     """Typed parameter set; field names match the reference's."""
     # ---- Core ----
-    task: str = "train"                 # train, predict (the CLI, app.py)
+    config: str = ""                    # the CLI's config file (app.py)
+    task: str = "train"                 # train, predict, convert_model
     data: str = ""
     valid: List[str] = field(default_factory=list)
     objective: str = "regression"
@@ -156,6 +192,7 @@ class Config:
     learning_rate: float = 0.1
     num_leaves: int = 31
     tree_learner: str = "serial"
+    num_threads: int = 0                # no effect (as in the JAX package)
     seed: int = 0
     device_type: str = "cuda"           # cuda (alias gpu) or cpu
 
@@ -171,6 +208,12 @@ class Config:
     feature_fraction: float = 1.0
     feature_fraction_bynode: float = 1.0
     feature_fraction_seed: int = 2
+    drop_rate: float = 0.1              # DART (boosting/dart.py)
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    xgboost_dart_mode: bool = False
+    uniform_drop: bool = False
+    drop_seed: int = 4
     top_rate: float = 0.2               # GOSS: kept share by |g*h|
     other_rate: float = 0.1             # GOSS: drawn share of the rest
     min_data_per_group: int = 100       # categorical split search
@@ -178,6 +221,8 @@ class Config:
     cat_l2: float = 10.0
     cat_smooth: float = 10.0
     max_cat_to_onehot: int = 4
+    top_k: int = 20                     # voting parallel only: no effect on
+                                        # the serial learner
     max_delta_step: float = 0.0
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
@@ -187,6 +232,7 @@ class Config:
     max_bin_by_feature: List[int] = field(default_factory=list)
     forcedsplits_filename: str = ""
     forcedbins_filename: str = ""
+    refit_decay_rate: float = 0.9       # task=refit (refused)
     cegb_tradeoff: float = 1.0
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
@@ -199,6 +245,7 @@ class Config:
     max_bin: int = 255
     min_data_in_bin: int = 3
     bin_construct_sample_cnt: int = 200000
+    histogram_pool_size: float = -1.0   # no effect (as in the JAX package)
     data_random_seed: int = 1
     output_model: str = "LightGBM_model.txt"
     snapshot_freq: int = -1
@@ -206,8 +253,11 @@ class Config:
     output_result: str = "LightGBM_predict_result.txt"
     initscore_filename: str = ""
     valid_data_initscores: List[str] = field(default_factory=list)
+    pre_partition: bool = False         # no effect (as in the JAX package)
     enable_bundle: bool = True
     max_conflict_rate: float = 0.0
+    is_enable_sparse: bool = True       # no effect (as in the JAX package)
+    sparse_threshold: float = 0.8       # no effect (as in the JAX package)
     use_missing: bool = True
     zero_as_missing: bool = False
     two_round: bool = False
@@ -227,6 +277,11 @@ class Config:
     pred_early_stop: bool = False
     pred_early_stop_freq: int = 10
     pred_early_stop_margin: float = 10.0
+    predict_disable_shape_check: bool = False  # no effect: the JAX package
+                                        # reads it only as a keyword of its
+                                        # sklearn wrapper's predict
+    convert_model_language: str = ""    # task=convert_model writes C in
+                                        # any case, as the JAX package does
     convert_model: str = "gbdt_prediction.cpp"
 
     # ---- Objective ----
@@ -252,10 +307,24 @@ class Config:
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
 
-    # ---- Network ----
+    # ---- Network (refused: parallel and fleet planes) ----
     num_machines: int = 1
+    local_listen_port: int = 12400
+    time_out: int = 120
+    machine_list_filename: str = ""
+    machines: str = ""
+    tpu_fleet: int = 0
+    tpu_fleet_heartbeat_s: float = 30.0
+    tpu_fleet_transport: str = "auto"
+    tpu_fleet_dir: str = ""
+    tpu_fleet_port: int = 0
+    tpu_fleet_min_ranks: int = 1
+    tpu_fleet_heal: bool = True
+    tpu_fleet_max_recoveries: int = 2
 
     # ---- Device ----
+    gpu_platform_id: int = -1           # no effect (as in the JAX package)
+    gpu_device_id: int = -1             # no effect (as in the JAX package)
     gpu_use_dp: bool = False
     tpu_hist_dtype: str = "2xbf16"      # histogram input rounding of g/h:
                                         # 2xbf16 = hi/lo bf16 split, bf16
@@ -265,9 +334,102 @@ class Config:
     tpu_wave_capacity: int = 63         # leaves histogrammed per wave
     tpu_wave_gain_gate: float = 0.5     # split-phase commit throttle
     tpu_fused_sibling: bool = True      # siblings from the same launch
-    tpu_fused_grad: bool = True
-    tpu_batched_split_apply: bool = True
-    tpu_wave_overlap: bool = False
+    tpu_fused_grad: bool = True         # the port's gradients are always
+                                        # materialised (GBDT.train_one_iter):
+                                        # both values take that one path
+    tpu_rank_device_eval: bool = True   # NDCG: false = the host loop
+    tpu_rank_sharded_grad: bool = True  # no effect on the serial learner
+    tpu_batched_split_apply: bool = True  # false = one walk of all rows per
+                                        # split (the oracle); same trees
+    tpu_wave_overlap: bool = False      # defer each wave's split scan by
+                                        # one loop body (the grower's
+                                        # overlap="on"; its oracle
+                                        # "serial" is a grower argument,
+                                        # as in the JAX package)
+    tpu_block_rows: int = 1024          # the Pallas kernel's row tile; the
+                                        # port's K1 sums fixed point, which
+                                        # no tile changes
+    tpu_compile_cache_dir: str = ""     # no effect (as in the JAX package)
+    tpu_mesh_shape: str = ""
+    # observability (refused: Obs, tools and bindings), but for the two
+    # that only act with a refused one on
+    tpu_telemetry: str = ""
+    tpu_health: str = ""
+    tpu_fingerprint_freq: int = 1       # read only under tpu_health
+    tpu_profile: bool = False
+    tpu_xprof: bool = False
+    tpu_xprof_iters: int = 3
+    tpu_trace: bool = False
+    tpu_flight_len: int = 256
+    tpu_train_metrics_port: int = -1
+    tpu_straggler_factor: float = 2.0   # no effect in one process
+    tpu_straggler_iters: int = 3        # no effect in one process
+    # fault tolerance (robust/)
+    tpu_checkpoint_dir: str = ""        # "" = no checkpoints
+    tpu_checkpoint_freq: int = 100      # iterations between checkpoints
+    tpu_checkpoint_keep: int = 3        # newest checkpoints kept
+    tpu_on_device_error: str = "retry"  # retry or abort (fallback refused)
+    tpu_watchdog: bool = False          # guard every device step
+    tpu_device_retries: int = 3         # transient retries a step
+    tpu_wedge_timeout_s: float = 0.0    # stall deadline, 0 = automatic
+    # serving, online learning, ingestion, drift (refused)
+    tpu_serve_max_batch: int = 1024
+    tpu_serve_max_wait_ms: float = 2.0
+    tpu_serve_queue_depth: int = 8192
+    tpu_serve_host: str = "127.0.0.1"
+    tpu_serve_port: int = 0
+    tpu_serve_reprobe_s: float = 30.0
+    tpu_serve_slo_p99_ms: float = 250.0
+    tpu_serve_replicas: int = 2
+    tpu_serve_breaker_trip: int = 3
+    tpu_serve_breaker_backoff_s: float = 0.5
+    tpu_serve_canary_rows: int = 64
+    tpu_serve_canary_probes: int = 16
+    tpu_serve_canary_p99_ms: float = 0.0
+    tpu_serve_rollback_watch_s: float = 30.0
+    tpu_serve_rollback_error_rate: float = 0.5
+    tpu_serve_rollback_degraded: int = 2
+    tpu_serve_rollback_slo_burn: float = 0.0
+    tpu_serve_shed_low_frac: float = 0.5
+    tpu_serve_shed_normal_frac: float = 0.85
+    tpu_serve_retry_after_s: float = 1.0
+    tpu_serve_swap_warmup: bool = True
+    tpu_serve_aot: bool = True
+    tpu_serve_aot_dir: str = ""
+    tpu_serve_arena_bytes: int = 0
+    tpu_explain: bool = True
+    tpu_explain_max_batch: int = 256
+    tpu_explain_max_wait_ms: float = 5.0
+    tpu_refit_device: bool = True
+    tpu_online_mode: str = "refit"
+    tpu_online_window: int = 50000
+    tpu_online_refit_every: int = 5000
+    tpu_online_refit_every_s: float = 0.0
+    tpu_online_trees: int = 10
+    tpu_online_decay: float = -1.0
+    tpu_online_model: str = "default"
+    tpu_online_source: str = ""
+    tpu_online_follow: bool = False
+    tpu_online_dir: str = ""
+    tpu_ingest: bool = False
+    tpu_ingest_chunk_rows: int = 65536
+    tpu_ingest_memmap: str = ""
+    tpu_ingest_shards: int = 0
+    tpu_ingest_shard_id: int = -1
+    tpu_ingest_sample_seed: int = -1
+    tpu_drift: bool = True
+    tpu_quality_profile: bool = True    # the JAX package writes a quality
+                                        # sidecar beside a saved model; the
+                                        # port writes none yet (ROADMAP
+                                        # item 8), as false asks
+    tpu_drift_sample_rate: float = 0.05
+    tpu_drift_check_s: float = 30.0
+    tpu_drift_min_rows: int = 200
+    tpu_drift_psi_warn: float = 0.25
+    tpu_quality_window: int = 512
+    tpu_quality_drop_warn: float = 0.05
+    tpu_serve_rollback_on_drift: bool = False
+    is_parallel: bool = field(default=False, repr=False)  # derived
 
     @classmethod
     def from_params(cls, params: Optional[Dict[str, Any]]) -> "Config":
@@ -293,21 +455,44 @@ class Config:
     def _post_process(self) -> None:
         log.set_verbosity(self.verbosity)
         self.objective = parse_objective_alias(self.objective)
-        self.boosting = {"gbrt": "gbdt"}.get(self.boosting, self.boosting)
+        self.boosting = {"gbrt": "gbdt", "random_forest": "rf"}.get(
+            self.boosting, self.boosting)
         self.tree_learner = {"serial_tree_learner": "serial"}.get(
             self.tree_learner, self.tree_learner)
-        if self.boosting not in ("gbdt", "goss"):
-            log.fatal(f"boosting={self.boosting!r} is not in the PyTorch port "
-                      "yet (ROADMAP.md port queue: DART and RF: the rest of "
-                      "queue 1)")
-        for name, (default, item) in _REFUSED.items():
-            if getattr(self, name) != default:
-                log.fatal(f"{name}={getattr(self, name)!r} is not in the "
-                          f"PyTorch port yet (ROADMAP.md port queue: {item})")
+        self.is_parallel = (self.tree_learner != "serial"
+                            or self.num_machines > 1)
+        if self.boosting not in ("gbdt", "goss", "dart", "rf"):
+            log.fatal(f"Unknown boosting type {self.boosting}")
+        for f in dataclasses.fields(self):
+            item = refused_item(f.name)
+            if item is not None and getattr(self, f.name) != _default(f):
+                log.refuse(f"{f.name}={getattr(self, f.name)!r}", item)
         if self.tree_learner != "serial":
-            log.fatal(f"tree_learner={self.tree_learner!r} is not in the "
-                      "PyTorch port yet (ROADMAP.md port queue: the rest of "
-                      "queue 1: parallel and fleet planes)")
+            log.refuse(f"tree_learner={self.tree_learner!r}", _PARALLEL)
+        if self.boosting == "rf" and (self.bagging_freq <= 0 or not (
+                0.0 < self.bagging_fraction < 1.0)):
+            log.fatal("bagging_freq and bagging_fraction (in (0,1)) are "
+                      "required for rf")
+        if self.tpu_on_device_error == "fallback":
+            log.refuse("tpu_on_device_error='fallback'", _FALLBACK)
+        if self.tpu_on_device_error not in ("abort", "retry"):
+            log.fatal("tpu_on_device_error should be abort or retry")
+        if self.tpu_checkpoint_freq < 0:
+            log.fatal("tpu_checkpoint_freq should be >= 0")
+        if self.tpu_checkpoint_keep < 1:
+            log.fatal("tpu_checkpoint_keep should be >= 1")
+        if self.tpu_device_retries < 0:
+            log.fatal("tpu_device_retries should be >= 0")
+        if self.tpu_wedge_timeout_s < 0:
+            log.fatal("tpu_wedge_timeout_s should be >= 0")
+        if self.tpu_block_rows < 128 or self.tpu_block_rows % 128 != 0:
+            log.fatal("tpu_block_rows should be a positive multiple of 128")
+        if self.tpu_fingerprint_freq < 0:
+            log.fatal("tpu_fingerprint_freq should be >= 0")
+        if self.tpu_straggler_factor <= 1.0:
+            log.fatal("tpu_straggler_factor should be > 1")
+        if self.tpu_straggler_iters < 0:
+            log.fatal("tpu_straggler_iters should be >= 0")
         if self.objective in ("multiclass", "multiclassova") \
                 and self.num_class < 2:
             log.fatal(f"num_class must be >= 2 for objective {self.objective}")
@@ -357,14 +542,15 @@ class Config:
         return "2xbf16"
 
     def to_params(self) -> Dict[str, Any]:
-        out = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            default = (f.default if f.default is not dataclasses.MISSING
-                       else f.default_factory())
-            if v != default:
-                out[f.name] = v
-        return out
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if f.name != "is_parallel"
+                and getattr(self, f.name) != _default(f)}
+
+
+def _default(fld: dataclasses.Field):
+    return (fld.default if fld.default is not dataclasses.MISSING
+            else fld.default_factory())
 
 
 def _coerce(fld: dataclasses.Field, value: Any):

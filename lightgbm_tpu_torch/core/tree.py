@@ -144,6 +144,13 @@ class Tree:
                    internal_value=z_f, internal_count=z_i,
                    internal_weight=z_f)
 
+    def apply_shrinkage(self, rate: float) -> None:
+        """Scale the outputs in place (reference: Tree::Shrinkage,
+        tree.h:149-160; DART's rescales)."""
+        self.leaf_value = self.leaf_value * rate
+        self.internal_value = self.internal_value * rate
+        self.shrinkage *= rate
+
     @property
     def num_cat(self) -> int:
         return len(self.cat_boundaries) - 1

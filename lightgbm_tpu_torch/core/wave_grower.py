@@ -1,7 +1,8 @@
 """Wave-scheduled leaf-wise tree growth (counterpart of
 lightgbm_tpu/core/wave_grower.py: packed or triple layout, fused or
-unfused sibling, float or quantized histograms, eager schedule, batched
-split apply, EFB bundles, mixed-width columns, categorical splits).
+unfused sibling, float or quantized histograms, the eager or the deferred
+(overlap) schedule, batched or sequential split apply, EFB bundles,
+mixed-width columns, categorical splits).
 
 Growth alternates two phases until no ready leaf has positive gain and
 nothing is pending:
@@ -166,6 +167,45 @@ def build_split_apply_fn(meta_np: dict, L: int, bundled: bool = False,
     return apply
 
 
+def build_split_once_fn(meta_np: dict, bundled: bool = False,
+                        mixed: MixedWidth = None):
+    """The sequential oracle of ``build_split_apply_fn`` (reference
+    package: wave_grower.py ``_split_once``): ``apply(leaf_id, bins_fm,
+    split) -> leaf_id`` walks all N rows for ONE committed split, reading
+    its feature's (physical) row of the feature-major bins, as the
+    reference partitions one split at a time.  Same leaf ids, O(splits x
+    N) row reads a wave instead of O(N)."""
+    if mixed is not None:
+        pos, is_wide = _mixed_positions(mixed)
+
+    def apply(leaf_id, bins_fm, split):
+        leaf, new, f, t, dl, words = split
+        dev = leaf_id.device
+        phys = int(meta_np["feat2phys"][f]) if bundled else f
+        if mixed is None:
+            col = bins_fm[phys]
+        else:
+            col = bins_fm[1 if is_wide[phys] else 0][int(pos[phys])]
+        col = col.long()
+
+        def c(v):
+            return torch.as_tensor(np.asarray(v)).to(dev)
+        nb, db = c(meta_np["num_bins"][f]), c(meta_np["default_bins"][f])
+        if bundled:
+            col = decode_feature_col(col, c(meta_np["feat_offset"][f]), nb,
+                                     db)
+        word = c(np.asarray(words, np.int32))[
+            torch.clamp(col // 32, max=len(words) - 1)]
+        go = go_left_bins(col, c(np.int32(t)), c(bool(dl)),
+                          c(meta_np["missing_types"][f]), nb, db,
+                          c(bool(meta_np["is_categorical"][f])), word)
+        return torch.where((leaf_id == leaf) & ~go,
+                           torch.tensor(new, dtype=leaf_id.dtype, device=dev),
+                           leaf_id)
+
+    return apply
+
+
 class _LeafState:
     """The [L+1]-sized per-leaf state of one tree (slot L is scratch)."""
 
@@ -200,7 +240,8 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                        fused_sibling: bool = True, packed: bool = True,
                        quant_seed: int = 0, B_phys: int = None,
                        bundled: bool = False, mixed: MixedWidth = None,
-                       cegb: CegbConfig = None):
+                       cegb: CegbConfig = None, batched_apply: bool = True,
+                       overlap: str = "off"):
     """``grow(bins_fm, g, h, sample_mask, feature_mask, cegb_state=None)``
     with K1 on the bins' device.  Returns ``(TreeArrays, leaf_id, (waves,
     rows))``: tensors on that device, then the K1 launches taken and the
@@ -218,7 +259,17 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
     gradients' stochastic rounding (the hessians' seed is ``quant_seed ^
     0x9E3779B9``).  ``B`` is the features' padded bin width, ``B_phys``
     the physical columns' (``bundled``: ``bins_fm`` holds EFB columns);
-    with ``mixed`` set ``bins_fm`` is the (narrow, wide) pair."""
+    with ``mixed`` set ``bins_fm`` is the (narrow, wide) pair.
+
+    The two oracles of the reference package: ``batched_apply=False``
+    partitions the rows one committed split at a time
+    (``build_split_once_fn``) instead of once a phase, with the same
+    trees; ``overlap`` ("off", "on", "serial") is the double-buffered
+    schedule (``tpu_wave_overlap``): each wave's children are scanned one
+    loop body later, so a phase commits on gains one wave old.  "on"
+    scans them after the next wave's K1 launch is queued, "serial"
+    before it; both grow the same trees (different from "off").  The
+    scan waits for the launch on the card's one stream either way."""
     L = cfg.num_leaves
     packed, P, fused = effective_pipeline(wave_capacity, packed,
                                           fused_sibling, mixed is not None,
@@ -249,6 +300,9 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
     has_cat = bool(meta_np["is_categorical"].any())
     monotone = meta_np["monotone"]
     apply_splits = build_split_apply_fn(meta_np, L, bundled, mixed)
+    split_once = build_split_once_fn(meta_np, bundled, mixed)
+    if overlap not in ("off", "on", "serial"):
+        raise ValueError(f"overlap must be off, on or serial: {overlap!r}")
     if mixed is not None:
         inv_perm = np.argsort(np.concatenate([mixed.narrow_idx,
                                               mixed.wide_idx]))
@@ -397,8 +451,9 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
 
     def wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv, cv, feature_mask,
              scales, coupled):
-        """One K1 launch over the pending leaves + their children's scans.
-        Returns the number of rows histogrammed."""
+        """One K1 launch over the pending leaves, and their children's
+        scans unless the schedule defers them.  Returns the rows
+        histogrammed and the children (the deferred scan's queue)."""
         dev = hist.device
         n = st.pend_cnt
         smalls = st.pend_small[:n].copy()
@@ -455,9 +510,10 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         st.pend_small[:] = -1
         st.pend_large[:] = -1
         st.pend_cnt = 0
-        scan_children(st, hist, np.concatenate([smalls, larges]),
-                      feature_mask, scales, coupled)
-        return n_rows
+        cand = np.concatenate([smalls, larges])
+        if overlap == "off":
+            scan_children(st, hist, cand, feature_mask, scales, coupled)
+        return n_rows, cand
 
     def grow(bins_fm, g, h, sample_mask, feature_mask, cegb_state=None):
         dev = g.device
@@ -504,23 +560,39 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         bins_rm = (tuple(b.t().contiguous() for b in bins_fm)
                    if mixed is not None else bins_fm.t().contiguous())
         n_waves = n_rows = 0
+        queue = None            # children whose scan is deferred
         while True:
             ready = st.ready_gains(L)
             phase_max = ready.max()
             can_split = phase_max > 0.0 and int(st.tree.num_leaves) < L
-            if not (st.pend_cnt > 0 or can_split):
+            if not (st.pend_cnt > 0 or can_split or queue is not None):
                 break
+            deferred, queue = queue, None
             splits = []
             for _ in range(P):
                 leaf, ok = pick_split(st, phase_max)
                 if not ok:
                     break       # the state is unchanged: no later step can
-                splits.append(commit(st, leaf, coupled))
-            leaf_id = apply_splits(leaf_id, bins_rm, splits)
+                sp = commit(st, leaf, coupled)
+                if batched_apply:
+                    splits.append(sp)
+                else:
+                    leaf_id = split_once(leaf_id, bins_fm, sp)
+            if batched_apply:
+                leaf_id = apply_splits(leaf_id, bins_rm, splits)
+            if overlap == "serial" and deferred is not None:
+                scan_children(st, hist, deferred, feature_mask, scales,
+                              coupled)
             if st.pend_cnt > 0:
-                n_rows += wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv,
-                               cv, feature_mask, scales, coupled)
+                rows, cand = wave(st, hist, bins_fm, bins_rm, leaf_id, gv,
+                                  hv, cv, feature_mask, scales, coupled)
+                n_rows += rows
                 n_waves += 1
+                if overlap != "off":
+                    queue = cand
+            if overlap == "on" and deferred is not None:
+                scan_children(st, hist, deferred, feature_mask, scales,
+                              coupled)
 
         tr = st.tree._replace(
             leaf_value=st.out[:L].copy(),

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import collections
 import os
+import signal
+import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -36,7 +38,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
     replaces the objective, ``feval(preds, dataset)`` adds metrics,
     ``init_model`` (a Booster or a model file) continues its forest, and
     ``learning_rates`` (a list, one a round, or a function of the round)
-    schedules the shrinkage."""
+    schedules the shrinkage.
+
+    With ``tpu_checkpoint_dir`` set, a checkpoint is written every
+    ``tpu_checkpoint_freq`` rounds (``robust/checkpoint.py``), and a run
+    resumes from the newest valid one of the same config, which
+    supersedes ``init_model``; the recorded evaluations are replayed
+    through the stateful callbacks.  A fatal device error then leaves a
+    checkpoint of the last iteration boundary, and SIGTERM or SIGINT
+    finishes the round, checkpoints and exits (a second signal kills)."""
     params = dict(params or {})
     for alias in _ROUND_ALIASES:
         if alias in params:
@@ -49,8 +59,18 @@ def train(params: Dict[str, Any], train_set: Dataset,
                         f"met {type(train_set).__name__}")
     init_trees = _init_trees(init_model)
     booster = Booster(params=params, train_set=train_set, device=device)
+    from .robust.checkpoint import CheckpointManager
+    ckpt_mgr = CheckpointManager.from_config(booster.config)
+    ckpt_peeked = ckpt_mgr.peek(booster.config) if ckpt_mgr else None
     if init_trees:
-        booster._gbdt.load_initial_models(init_trees)
+        if ckpt_peeked is not None:
+            log.warning("init_model ignored: resuming from checkpoint %s (a "
+                        "checkpoint is this run's own progress and "
+                        "supersedes the init model; delete the checkpoint "
+                        "directory to restart from the init model)",
+                        ckpt_peeked[0])
+        else:
+            booster._gbdt.load_initial_models(init_trees)
     is_valid_contain_train = False
     train_data_name = "training"
     if isinstance(valid_sets, Dataset):
@@ -85,7 +105,97 @@ def train(params: Dict[str, Any], train_set: Dataset,
                        key=lambda c: getattr(c, "order", 0))
 
     evaluation_result_list: List = []
-    for i in range(num_boost_round):
+    eval_history: List = []
+    start_round = 0
+    stopped_in_replay = False
+    if ckpt_peeked is not None:
+        resume = ckpt_mgr.resume(booster, ckpt_peeked)
+        start_round = resume.iteration
+        eval_history = list(resume.eval_history)
+        # a learning-rate schedule compares against env.params
+        params["learning_rate"] = booster._gbdt.shrinkage_rate
+        try:
+            for it, entries in eval_history:
+                env = callback.CallbackEnv(
+                    model=booster, params=params, iteration=it,
+                    begin_iteration=0, end_iteration=num_boost_round,
+                    evaluation_result_list=entries)
+                for cb in cbs_after:
+                    if not getattr(cb, "skip_on_resume", False):
+                        cb(env)
+                evaluation_result_list = entries
+        except callback.EarlyStopException as es:
+            booster.best_iteration = es.best_iteration + 1
+            evaluation_result_list = es.best_score
+            stopped_in_replay = True
+
+    preempted: Dict[str, int] = {}
+    prev_handlers = _arm_signals(preempted) if ckpt_mgr else {}
+    completed = start_round
+    if ckpt_mgr is not None:
+        # checkpoints are numbered by this loop's rounds: under init_model
+        # the trainer's iteration count includes the seeded ones
+        num_init = booster._gbdt.iter_ - start_round
+        booster._gbdt._ckpt_hook = (
+            lambda reason: ckpt_mgr.save(
+                booster, booster._gbdt.iter_ - num_init, eval_history,
+                reason=reason))
+    try:
+        if not stopped_in_replay:
+            completed, evaluation_result_list = _boost(
+                booster, params, fobj, feval, num_boost_round, start_round,
+                cbs_before, cbs_after, is_valid_contain_train, ckpt_mgr,
+                eval_history, evaluation_result_list, preempted)
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+    if preempted:
+        ckpt_mgr.save(booster, completed, eval_history, reason="preempted")
+        sig = preempted["sig"]
+        log.warning("training preempted by signal %d at iteration %d; "
+                    "checkpoint written to %s: rerun with the same "
+                    "tpu_checkpoint_dir to resume", sig, completed,
+                    ckpt_mgr.dir)
+        if sig == signal.SIGINT:
+            raise KeyboardInterrupt
+        raise SystemExit(128 + sig)
+    booster.best_score = collections.defaultdict(collections.OrderedDict)
+    for ds_name, mname, value, _ in evaluation_result_list or []:
+        booster.best_score[ds_name][mname] = value
+    return booster
+
+
+def _arm_signals(preempted: Dict[str, int]) -> dict:
+    """SIGTERM and SIGINT finish the current round, then checkpoint; the
+    second signal takes the previous handler.  Only in the main thread."""
+    if threading.current_thread() is not threading.main_thread():
+        return {}
+    prev = {}
+
+    def on_signal(signum, frame):
+        preempted["sig"] = signum
+        for s, h in prev.items():
+            signal.signal(s, h)
+        log.warning("signal %d: finishing the current iteration, then "
+                    "checkpointing and exiting (send again to kill "
+                    "immediately)", signum)
+    for s in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[s] = signal.signal(s, on_signal)
+        except (ValueError, OSError):
+            prev.pop(s, None)
+    return prev
+
+
+def _boost(booster, params, fobj, feval, num_boost_round, start_round,
+           cbs_before, cbs_after, is_valid_contain_train, ckpt_mgr,
+           eval_history, evaluation_result_list, preempted):
+    """The boosting rounds from ``start_round``: (rounds completed, the
+    last evaluation list)."""
+    completed = start_round
+    for i in range(start_round, num_boost_round):
+        if preempted:
+            break
         for cb in cbs_before:
             cb(callback.CallbackEnv(model=booster, params=params, iteration=i,
                                     begin_iteration=0,
@@ -93,6 +203,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                     evaluation_result_list=None))
         if booster.update(fobj=fobj):
             break  # no leaf can split any more
+        completed = i + 1
         evaluation_result_list = []
         # evaluate only what something reads: attached valid sets, or the
         # training data asked for through valid_sets (a metric pass costs
@@ -111,10 +222,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
             booster.best_iteration = es.best_iteration + 1
             evaluation_result_list = es.best_score
             break
-    booster.best_score = collections.defaultdict(collections.OrderedDict)
-    for ds_name, mname, value, _ in evaluation_result_list or []:
-        booster.best_score[ds_name][mname] = value
-    return booster
+        if ckpt_mgr is not None:
+            eval_history.append((i, list(evaluation_result_list)))
+            if ckpt_mgr.should_save(i + 1):
+                ckpt_mgr.save(booster, i + 1, eval_history)
+    return completed, evaluation_result_list
 
 
 def _init_trees(init_model):

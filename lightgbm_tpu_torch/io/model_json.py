@@ -1,6 +1,6 @@
-"""Model dump to a JSON-ready dict (counterpart of
-lightgbm_tpu/io/model_json.py: ``dump_model``, ``tree_to_dict``,
-``node_to_dict``; ``model_to_if_else`` waits, ROADMAP.md port queue).
+"""Model dump to a JSON-ready dict, and the forest as C scoring code
+(counterpart of lightgbm_tpu/io/model_json.py: ``dump_model``,
+``tree_to_dict``, ``node_to_dict``, ``model_to_if_else``).
 
 The key set and nesting are the reference's (reference: GBDT::DumpModel
 src/boosting/gbdt_model_text.cpp:20-85, Tree::ToJSON / Tree::NodeToJSON
@@ -115,3 +115,75 @@ def dump_model(gbdt, num_iteration: Optional[int] = None,
         for i, v in enumerate(imp) if v > 0
     }
     return d
+
+
+# ----------------------------------------------------------------------
+# if-else code generation (reference: Tree::ToIfElse tree.cpp:323-420,
+# GBDT::ModelToIfElse gbdt_model_text.cpp:88-270).  Generates standalone
+# dependency-free C so the output compiles anywhere (the reference emits
+# code against its own headers; the traversal logic is identical).
+
+def _node_code(tree: Tree, index: int, indent: str) -> str:
+    if index < 0:
+        return f"{indent}return {float(tree.leaf_value[~index])!r};\n"
+    f = int(tree.split_feature[index])
+    out = f"{indent}fval = row[{f}];\n"
+    if tree.is_categorical(index):
+        cats = _node_cats(tree, index)
+        cond = " || ".join(f"ival == {c}" for c in cats) or "0"
+        out += (f"{indent}ival = (isnan(fval) || fval < 0) ? -1 : (int)fval;\n"
+                f"{indent}if ({cond}) {{\n")
+    else:
+        thr = _avoid_inf(tree.threshold[index])
+        mt = tree.missing_type(index)
+        dl = tree.default_left(index)
+        if mt == 0:
+            cond = f"fval <= {thr!r}"
+        elif mt == 1:  # Zero
+            if dl:
+                cond = f"fval <= {thr!r} || fabs(fval) < 1e-35 || isnan(fval)"
+            else:
+                cond = f"fval <= {thr!r} && fabs(fval) >= 1e-35 && !isnan(fval)"
+        else:          # NaN
+            cond = (f"fval <= {thr!r} || isnan(fval)" if dl
+                    else f"fval <= {thr!r} && !isnan(fval)")
+        out += f"{indent}if ({cond}) {{\n"
+    out += _node_code(tree, int(tree.left_child[index]), indent + "  ")
+    out += f"{indent}}} else {{\n"
+    out += _node_code(tree, int(tree.right_child[index]), indent + "  ")
+    out += f"{indent}}}\n"
+    return out
+
+
+def model_to_if_else(gbdt, num_iteration: Optional[int] = None) -> str:
+    """Standalone C source scoring the forest row-by-row (reference:
+    GBDT::ModelToIfElse, gbdt_model_text.cpp:88-270)."""
+    K = gbdt.num_tpi
+    models = list(gbdt.models)
+    n = len(models)
+    if num_iteration and num_iteration > 0:
+        n = min(num_iteration * K, n)
+    out = ["#include <math.h>", ""]
+    for i in range(n):
+        t = models[i]
+        out.append(f"static double PredictTree{i}(const double* row) {{")
+        if t.num_leaves <= 1:
+            out.append(f"  return {float(t.leaf_value[0])!r};")
+        else:
+            out.append("  double fval; int ival; (void)fval; (void)ival;")
+            out.append(_node_code(t, 0, "  ").rstrip("\n"))
+        out.append("}")
+        out.append("")
+    out.append(f"#define NUM_TREES {n}")
+    out.append(f"#define NUM_CLASS {K}")
+    out.append("typedef double (*TreeFn)(const double*);")
+    out.append("static const TreeFn PredictTreePtr[NUM_TREES] = {")
+    out.append("  " + ", ".join(f"PredictTree{i}" for i in range(n)))
+    out.append("};")
+    out.append("""
+void PredictRaw(const double* row, double* output) {
+  for (int k = 0; k < NUM_CLASS; ++k) output[k] = 0.0;
+  for (int i = 0; i < NUM_TREES; ++i)
+    output[i % NUM_CLASS] += PredictTreePtr[i](row);
+}""")
+    return "\n".join(out)

@@ -65,18 +65,21 @@ def ndcg_device(score: torch.Tensor, qb) -> torch.Tensor:
 class NDCGMetric(_RankMetric):
     """NDCG@k averaged over queries; label gain 2^l - 1 (reference:
     rank_metric.hpp:19-100, dcg_calculator.cpp).  Takes the score tensor
-    on the training device."""
+    on the training device, or with ``tpu_rank_device_eval=false`` the
+    host copy, for the per-query host loop."""
     name = "ndcg"
-    accepts_device_score = True
 
     def __init__(self, config):
         super().__init__(config)
+        self.accepts_device_score = bool(config.tpu_rank_device_eval)
         gains = config.label_gain or []
         self.label_gain = (np.asarray(gains, dtype=np.float64) if gains
                            else default_label_gain())
 
     def init(self, metadata, num_data, device="cpu"):
         super().init(metadata, num_data, device)
+        if not self.accepts_device_score:
+            return
         self._qblocks = build_query_blocks(
             self.query_boundaries, self.label, self.label_gain,
             eval_at=self.eval_at, query_weights=self.query_weights,

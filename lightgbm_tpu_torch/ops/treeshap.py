@@ -1,0 +1,46 @@
+"""Analytical cost of the TreeSHAP pass (counterpart of
+lightgbm_tpu/ops/treeshap.py ``shap_cost``).
+
+``explain/kernel.py`` evaluates, per tree, four dense stages over the
+[N rows, L leaves, P path slots] block: the one-fraction merge, EXTEND,
+UNWIND (each P steps of elementwise ops over the block) and the
+contribution scatter.  ``shap_cost`` counts that work, the JAX package's
+op tallies unchanged; PERF.md and ``chip_smoke.py`` state the pass's
+bound from it (FLOPs over the card's FP32 peak, bytes over its memory
+rate, the larger of the two).
+"""
+from __future__ import annotations
+
+# elementwise ops per [N, L, P] cell per scan step, by stage: the
+# AND-fold merge, the closed-form EXTEND update (2 mul + 2 fma + div),
+# and the branchy UNWIND step
+_MERGE_OPS = 3.0
+_EXTEND_OPS = 7.0
+_UNWIND_OPS = 10.0
+_SCATTER_OPS = 4.0   # contrib product + scatter-add, once per cell
+
+
+def shap_cost(N: int, T: int, L: int, P: int, F: int, K: int = 1):
+    """Analytical (FLOPs, HBM bytes) of ``forest_shap_fn`` over ``N``
+    rows, ``T`` trees of <= ``L`` leaves and path depth <= ``P``,
+    emitting [N, K, F+1] contributions.
+
+    FLOPs: the three P-step scans each touch the [N, L, P] block per
+    step (O(N L P^2) per tree — path decomposition recomputes shared
+    path prefixes, the price of exposing row x leaf parallelism), plus
+    the per-node decision pass and the scatter.  Bytes: the bins matrix
+    read once per tree scan step, the per-tree path metadata, and the
+    [N, K, F+1] accumulator round-trip per tree (the scan carries it in
+    registers/VMEM on TPU, but the model charges the conservative HBM
+    leg like the other cost models)."""
+    N, T, L, P, F, K = (float(N), float(T), float(L), float(P), float(F),
+                        float(K))
+    block = N * L * P
+    scans = (_MERGE_OPS + _EXTEND_OPS + _UNWIND_OPS) * block * P
+    decisions = 12.0 * N * max(L - 1.0, 1.0)   # split_decision op tally
+    flops = T * (scans + decisions + _SCATTER_OPS * block)
+    meta_bytes = L * P * (4 + 1 + 4 + 4 + 4)   # path/slot arrays per tree
+    nbytes = T * (N * F * 4.0          # bins re-read per scan step
+                  + meta_bytes
+                  + 2.0 * N * K * (F + 1.0) * 4.0)   # phi read+write
+    return flops, nbytes

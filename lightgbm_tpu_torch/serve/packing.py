@@ -1,6 +1,7 @@
 """Model-derived bin space: device prediction without training state
 (counterpart of lightgbm_tpu/serve/packing.py: ``collect_split_state``
-and ``ServeBinSpace``; ``pack`` waits for ``serve/``).
+and ``ServeBinSpace``, whose ``tree_arrays_np`` also packs the cover
+counts of TreeSHAP; ``pack`` waits for ``serve/``).
 
 The device walk (``core/forest.py``) runs in bin space, which a trained
 booster gets from its dataset's ``BinMapper``s.  A model loaded from text
@@ -117,9 +118,11 @@ class ServeBinSpace:
                 out[:, f] = self.mappers[f].value_to_bin(X[:, f])
         return out
 
-    def tree_arrays_np(self, tree) -> dict:
+    def tree_arrays_np(self, tree, with_counts: bool = False) -> dict:
         """Bin-space numpy arrays of one value-space host ``Tree``: the
-        unit ``core.forest.stack_forest`` batches."""
+        unit ``core.forest.stack_forest`` batches.  ``with_counts`` adds
+        the per-node data-cover counts TreeSHAP needs (model text carries
+        them, so a loaded model explains without training state)."""
         nl = tree.num_leaves
         nn = max(nl - 1, 0)
         sf = np.asarray(tree.split_feature[:nn], np.int32)
@@ -136,9 +139,14 @@ class ServeBinSpace:
                 m = self.mappers[int(sf[i])]
                 thr_bin[i] = int(m.value_to_bin(float(tree.threshold[i])))
                 dl[i] = tree.default_left(i)
-        return dict(
+        out = dict(
             split_feature=sf, threshold_bin=thr_bin, default_left=dl,
             left_child=np.asarray(tree.left_child[:nn], np.int32),
             right_child=np.asarray(tree.right_child[:nn], np.int32),
             leaf_value=np.asarray(tree.leaf_value[:nl], np.float32),
             num_leaves=np.int32(nl), cat_bitset=cat_bits)
+        if with_counts:
+            out["internal_count"] = np.asarray(tree.internal_count[:nn],
+                                               np.int32)
+            out["leaf_count"] = np.asarray(tree.leaf_count[:nl], np.int32)
+        return out

@@ -111,7 +111,7 @@ def test_cli_predict_leaf_and_early_stop(workdir, tmp_path):
 
 
 @pytest.mark.parametrize("task,item", [("serve", "serving"),
-                                       ("convert_model", "convert_model"),
+                                       ("online", "online"),
                                        ("refit", "online")])
 def test_unported_task_names_its_item(workdir, task, item):
     r = _run("lightgbm_tpu_torch",
@@ -157,3 +157,90 @@ def test_cli_weight_and_group_columns(tmp_path, objective, cols):
         return t.split("\nTree=0\n")[1].split("end of trees")[0]
     assert text.count("Tree=") == 4
     assert trees(bst.model_to_string()) == trees(text)
+
+
+def _fixture(name):
+    return os.path.join(REPO, "tests", "fixtures", name)
+
+
+_HARNESS = r"""
+#include <stdio.h>
+#include <stdlib.h>
+void PredictRaw(const double* row, double* output);
+int main(int argc, char** argv) {
+  int n = atoi(argv[2]), f = atoi(argv[3]), k = atoi(argv[4]);
+  FILE* fh = fopen(argv[1], "rb");
+  double* row = malloc(sizeof(double) * f);
+  double* out = malloc(sizeof(double) * k);
+  for (int i = 0; i < n; ++i) {
+    if (fread(row, sizeof(double), f, fh) != (size_t)f) return 1;
+    PredictRaw(row, out);
+    for (int j = 0; j < k; ++j) printf("%.17g\n", out[j]);
+  }
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("model,rows", [
+    ("ref_binary_model.txt", "binary_test_rows.npy"),
+    ("ref_cat_model.txt", "cat_rows.npy")])
+def test_model_to_if_else_matches_reference_and_compiles(tmp_path, model,
+                                                         rows):
+    """The C code generator: the JAX package's string for the same model
+    file, byte for byte; compiled with the host C compiler, it scores
+    rows within 1e-10 of ``predict(raw_score=True)``."""
+    pytest.importorskip("jax")
+    import shutil
+
+    import lightgbm_tpu
+    bst = lt.Booster(model_file=_fixture(model), device="cpu")
+    code = bst.model_to_if_else()
+    assert code == lightgbm_tpu.Booster(
+        model_file=_fixture(model)).model_to_if_else()
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        pytest.skip("no C compiler on this machine to build the code")
+    X = np.load(_fixture(rows))
+    X = X[:, 1:] if X.shape[1] == bst.num_feature() + 1 else X
+    X = np.ascontiguousarray(X[:200], np.float64)
+    (tmp_path / "model.c").write_text(code)
+    (tmp_path / "main.c").write_text(_HARNESS)
+    X.tofile(tmp_path / "rows.bin")
+    exe = str(tmp_path / "score")
+    subprocess.run([cc, "-O1", "-o", exe, str(tmp_path / "model.c"),
+                    str(tmp_path / "main.c"), "-lm"], check=True,
+                   timeout=300)
+    K = bst.num_model_per_iteration()
+    out = subprocess.run([exe, str(tmp_path / "rows.bin"), str(len(X)),
+                          str(X.shape[1]), str(K)], check=True,
+                         capture_output=True, text=True, timeout=60).stdout
+    got = np.asarray(out.split(), np.float64).reshape(len(X), K)
+    want = bst.predict(X, raw_score=True).reshape(len(X), K)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+
+
+def test_cli_convert_model(workdir):
+    """task=convert_model writes ``Booster.model_to_if_else`` of the
+    input model to ``convert_model``."""
+    _run("lightgbm_tpu_torch", ["task=convert_model", "input_model=model.txt",
+                                "convert_model=model.c", "device_type=cpu"],
+         workdir)
+    bst = lt.Booster(model_file=str(workdir / "model.txt"), device="cpu")
+    assert (workdir / "model.c").read_text() == bst.model_to_if_else()
+
+
+def test_cli_predict_contrib(workdir):
+    """task=predict with predict_contrib: [n, F+1] per row, the
+    Booster's contributions."""
+    _run("lightgbm_tpu_torch", ["task=predict", "data=data.test",
+                                "input_model=model.txt",
+                                "output_result=contrib.txt",
+                                "predict_contrib=true", "device_type=cpu"],
+         workdir)
+    got = np.loadtxt(workdir / "contrib.txt", delimiter="\t")
+    X = np.loadtxt(workdir / "data.test", delimiter="\t")[:, 1:]
+    bst = lt.Booster(model_file=str(workdir / "model.txt"), device="cpu")
+    assert got.shape == (len(X), X.shape[1] + 1)
+    np.testing.assert_allclose(got, bst.predict(X, pred_contrib=True),
+                               rtol=0, atol=1e-10)

@@ -132,8 +132,10 @@ def test_loaded_booster_surface():
     assert bst.predict(rows, pred_leaf=True).shape == (50, 20)
     with pytest.raises(lt.LightGBMError, match="number of features"):
         bst.predict(rows[:, :5])
-    with pytest.raises(lt.LightGBMError, match="ROADMAP"):
-        bst.predict(rows, pred_contrib=True)
+    contrib = bst.predict(rows, pred_contrib=True)
+    assert contrib.shape == (50, 29)
+    np.testing.assert_allclose(contrib.sum(1),
+                               bst.predict(rows, raw_score=True), atol=1e-10)
     with pytest.raises(TypeError):
         lt.Booster(device="cpu")
 

@@ -83,7 +83,8 @@ def test_config_quantized_modes_and_bagging():
             cfg.pos_bagging_fraction) == (11, 0.5, 2, 0.4)
     with pytest.raises(LightGBMError, match="bagging_fraction"):
         Config.from_params({"bagging_fraction": 0.0})
-    # GOSS is in the port; DART and RF are refused
+    # GOSS, DART and RF are in the port; an unknown boosting is refused
     assert Config.from_params({"boosting": "goss"}).boosting == "goss"
-    with pytest.raises(LightGBMError, match="DART"):
-        Config.from_params({"boosting": "dart"})
+    assert Config.from_params({"boosting": "dart"}).boosting == "dart"
+    with pytest.raises(LightGBMError, match="boosting"):
+        Config.from_params({"boosting": "dartboard"})

@@ -133,14 +133,14 @@ def test_convert_round_trips(trained):
 
 
 @pytest.mark.parametrize("params", [
-    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"tpu_mesh_shape": "data:2"},
     {"tree_learner": "feature"},
-    {"boosting": "dart"}, {"tree_learner": "data"},
-    {"num_machines": 2}, {"tpu_wave_overlap": True},
-    {"tpu_batched_split_apply": False},
+    {"tpu_trace": True}, {"tree_learner": "data"},
+    {"num_machines": 2}, {"tpu_telemetry": "telemetry.jsonl"},
+    {"tpu_serve_port": 8123},
     {"tree_learner": "voting"},
-    {"tree_learner": "data_parallel"}, {"boosting": "random_forest"},
-    {"tpu_fused_grad": False}, {"tree_learner": "voting_parallel"}])
+    {"tree_learner": "data_parallel"}, {"tpu_online_mode": "continue"},
+    {"refit_decay_rate": 0.5}, {"tree_learner": "voting_parallel"}])
 def test_outside_the_slice_is_refused(params):
     X, y = _data(n=300)
     with pytest.raises(lt.LightGBMError, match="ROADMAP"):
