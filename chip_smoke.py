@@ -74,8 +74,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 9. CLI: a 200,000 x 28 HIGGS-shaped TSV (label in column 0) trains 5
    trees of 255 leaves with ``python -m lightgbm_tpu_torch task=train`` on
    the card and predicts with ``task=predict``, both as subprocesses that
-   must exit 0; the output must equal ``Booster(model_file=...).predict``
-   at 1e-10;
+   must exit 0; ``task=predict`` must go through a ``PredictorSession``
+   (``LGBM_TPU_PREDICT_MIN_WORK=0``) and its output equal
+   ``Booster(model_file=...).predict`` (its stacked-forest walk) at 1e-10;
 10. categorical + EFB: 1,000,000 rows of the headline columns, 4
    Zipf-skewed categorical columns (8, 32, 100, 250 categories) and 32
    mutually exclusive sparse count columns (each row non-zero in one), 5
@@ -183,6 +184,44 @@ booster (TreeSHAP's multiclass case in phase 12):
    the host C compiler builds it, and it scores 1,000 rows within 1e-10 of
    ``predict(raw_score=True)``.
 
+The tenth slice's phases, serving on the card, run last (the arena's
+tenants come from phases 12 and 14); the served model is phase 4's
+Dataset trained 100 rounds at 255 leaves (2xbf16) right after phase 21,
+saved to a file and served from it, with its 50-iteration cut:
+
+22. set-up: ``task=predict``'s two routes on all 1M rows, timed
+   (``Booster.predict`` and ``PredictorSession.predict``, within 1e-6 of
+   each other); ``PredictorSession(model_file)``: ``warmup()`` of the 11
+   pow2 buckets up to 1,024; 100,000 rows within 1e-6 of
+   ``Booster.predict`` and 2,000 of them within 1e-6 of the f64 host
+   walk (raw); p50/p99
+   of 200 sync calls at 1, 8, 64, 256 and 1,024 rows (host clock, result
+   on the host) and rows/s;
+23. ``run_serve``'s stack in process (a registry of 2 replicas on
+   ``cuda:0``, the arena attached, ``PredictServer`` on a free port): 8
+   client threads x 100 requests of 1-256 rows with mixed priorities,
+   every reply within 1e-6 of ``Booster.predict``; client p50/p99, served
+   and shed, occupancy, pad waste; ``POST /explain`` of 64 rows summing to
+   the raw score within 1e-4; a hot swap of ``default`` to the
+   50-iteration cut under traffic (no failed request, every reply equal
+   to the version it names), then a rollback;
+24. the arena: the served model, phase 12's multiclass model and phase
+   14's weighted regression model; mixed-tenant batches (at least one
+   cross-model) bit-equal to each tenant's solo session on the card; a
+   byte budget one byte short of the three evicts one tenant, which its
+   next request re-admits, bit-equal again;
+25. device faults over HTTP: ``serve_replica_0`` wedged (every reply from
+   r1, r0's breaker open and unhealthy on /health; closed again once the
+   fault stops), one ``serve_device`` fault (a 503 with Retry-After, the
+   replica degraded, the sibling answering, the re-probe recovering); no
+   reply from the host (every 200 bit-equal to a solo session's);
+26. ``python -m lightgbm_tpu_torch task=serve input_model=<file>
+   tpu_serve_port=<free>``: /health "ok", ``POST /predict`` of 1,000 rows
+   within 1e-6 of ``Booster.predict``, SIGINT, exit 0 within 10 s.
+   Serving launches no hand kernel: the phases zero the counts and print
+   them (0) beside the forest walks they ran, then their total seconds and
+   a ``{"serving": ...}`` line.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all, by layout and by sibling form (fused or not); K2 its
@@ -194,7 +233,8 @@ of its model text (equal digests, equal trees).  Prints a
 and errors, K1's launches on the DART, RF, overlap and resume paths), a
 ``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
 bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
-``shap_cost`` bound) and, last, the device line
+``shap_cost`` bound), the ``{"serving": ...}`` line and, last, the
+device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
 lightgbm_tpu.
 """
@@ -1067,9 +1107,13 @@ def predict_phase(lt, bst, X, kind, card):
 
 def cli_phase(lt, kind, card, rows=200_000):
     """``python -m lightgbm_tpu_torch`` task=train then task=predict on a
-    TSV, each a subprocess on the card; the output equals
-    ``Booster(model_file=...).predict`` on the file's rows."""
+    TSV, each a subprocess on the card; task=predict goes through a
+    ``PredictorSession`` (``LGBM_TPU_PREDICT_MIN_WORK=0``: the JAX
+    package's route for heavy work) and its output equals
+    ``Booster(model_file=...).predict`` on the file's rows, taken through
+    the Booster's stacked-forest walk (the session's arithmetic)."""
     import tempfile
+    from lightgbm_tpu_torch.boosting.gbdt import PredictorBase
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.io.text_loader import load_text
     X, y = higgs_like(rows, seed=2)
@@ -1082,31 +1126,38 @@ def cli_phase(lt, kind, card, rows=200_000):
         np.savetxt(data, np.column_stack([y, X]), delimiter="\t", fmt="%.9g")
         walls = {}
         for task, args in (
-                ("train", [f"data={data}", "objective=binary", "num_trees=5",
-                           "num_leaves=255", "max_bin=255",
+                ("train", ["verbosity=-1", f"data={data}", "objective=binary",
+                           "num_trees=5", "num_leaves=255", "max_bin=255",
                            "min_data_in_leaf=100", f"output_model={model}"]),
                 ("predict", [f"data={data}", f"input_model={model}",
                              f"output_result={out}"])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "lightgbm_tpu_torch", f"task={task}",
-                 "verbosity=-1", *args], cwd=d, env=env, capture_output=True,
-                text=True, timeout=600)
+                 *args], cwd=d, capture_output=True, text=True, timeout=600,
+                env=dict(env, LGBM_TPU_PREDICT_MIN_WORK="0"))
             walls[task] = time.perf_counter() - t0
             if r.returncode != 0:
                 raise AssertionError(f"CLI task={task} exited "
                                      f"{r.returncode}: {r.stderr[-2000:]}")
+        via_session = "through a PredictorSession" in r.stderr
         Xf = load_text(data, Config())[0]
-        want = lt.Booster(model_file=model).predict(Xf)
+        saved = PredictorBase._DEVICE_PREDICT_MIN_WORK
+        PredictorBase._DEVICE_PREDICT_MIN_WORK = 0
+        try:
+            want = lt.Booster(model_file=model).predict(Xf)
+        finally:
+            PredictorBase._DEVICE_PREDICT_MIN_WORK = saved
         got = np.loadtxt(out)
         err = float(np.abs(got - want).max())
         with open(model) as fh:
             trees = fh.read().count("\nTree=")
     print(f"CLI ({rows:,} x 28 TSV): task=train {walls['train']:.1f} s wall "
-          f"({trees} trees), task=predict {walls['predict']:.1f} s wall; max "
-          f"|output - Booster(model_file).predict| {err:.3g} (tol 1e-10) "
+          f"({trees} trees), task=predict {walls['predict']:.1f} s wall "
+          f"(through a PredictorSession: {via_session}); max |output - "
+          f"Booster(model_file).predict| {err:.3g} (tol 1e-10) "
           f"[{kind}, {card}]", flush=True)
-    if trees != 5 or err > 1e-10:
+    if trees != 5 or err > 1e-10 or not via_session:
         raise AssertionError("CLI output disagrees with Booster.predict")
 
 
@@ -1155,7 +1206,8 @@ def multiclass_phase(lt, hw, hc, res, kind, card):
     round; one profiled iteration; device prediction of every row against
     the host walk on the first rows (probabilities, 1e-6); then 2 rounds
     of multiclassova.
-    Returns the first run's counts."""
+    Returns the first run's counts, the TreeSHAP line, and the model file
+    with 2,000 of its rows (the arena's tenant)."""
     from lightgbm_tpu_torch.core import forest
     t0 = time.perf_counter()
     X, y = covertype_like()
@@ -1222,7 +1274,11 @@ def multiclass_phase(lt, hw, hc, res, kind, card):
         layout="k1_unfused")
     if not all(math.isfinite(v) for v in ova["multi_error"]):
         raise AssertionError(f"multiclassova multi_error {ova}")
-    return runs[0][1], shap
+    # the arena's multiclass tenant (phase 24): the model file and rows
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "multiclass_model.txt")
+    bst.save_model(path)
+    return runs[0][1], shap, (path, X[:2000].copy())
 
 
 RANK_ROWS = 2_270_296            # MSLR-WEB30K fold 1's training rows
@@ -1325,7 +1381,8 @@ def regression_phase(lt, hw, hc, kind, card):
     noisy blend of them) with seeded positive sample weights: ``regression``
     and ``quantile`` (alpha 0.9, the host leaf refit), 5 rounds each,
     trained twice, one digest each; the metric falls every round.  Returns
-    the first regression run's counts."""
+    the first regression run's counts and its model file (the arena's
+    tenant)."""
     X, _ = higgs_like(MAIN_ROWS)
     rng = np.random.default_rng(5)
     y = (X[:, :8] @ rng.normal(size=8) + 0.5 * X[:, 0] * X[:, 1]
@@ -1335,7 +1392,7 @@ def regression_phase(lt, hw, hc, kind, card):
     del X
     base = {"num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
             "min_data_in_leaf": 100, "verbose": -1}
-    first = None
+    first = path = None
     for obj, metric, extra in (("regression", "l2", {}),
                                ("quantile", "quantile", {"alpha": 0.9})):
         digests = []
@@ -1345,7 +1402,12 @@ def regression_phase(lt, hw, hc, kind, card):
                 {**base, "objective": obj, "metric": [metric], **extra}, ds,
                 kind, card)
             digests.append(model_digest(bst))
-            first = first or counts
+            if first is None:
+                # the arena's weighted-regression tenant (phase 24)
+                first = counts
+                os.makedirs(SCRATCH, exist_ok=True)
+                path = os.path.join(SCRATCH, "regression_model.txt")
+                bst.save_model(path)
             loss = curves[metric]
             if not all(b < a for a, b in zip(loss, loss[1:])):
                 raise AssertionError(f"{obj}: {metric} did not fall: {loss}")
@@ -1356,7 +1418,7 @@ def regression_phase(lt, hw, hc, kind, card):
               f"{digests[0]} / {digests[1]} [{kind}, {card}]", flush=True)
         if digests[0] != digests[1]:
             raise AssertionError(f"two {obj} trainings on one Dataset differ")
-    return first
+    return first, path
 
 
 FORCED_SPLITS = os.path.join(HERE, "tests", "fixtures", "forced_splits.json")
@@ -2133,6 +2195,20 @@ def oracle_phase(lt, hw, hc, params, ds, main_trees, main_ms, kind, card):
                                  "path's")
         print(f"oracle {name}: trees digest {trees_digest(bst)} = main "
               f"path's; {ms / 1e3:.4f} s/iter [{kind}, {card}]", flush=True)
+        if knob.get("tpu_batched_split_apply") is False:
+            # one pass a split (core/wave_grower.py build_split_once_fn):
+            # the split feature's u8 bin row read, the int32 leaf ids read
+            # and written; the bound of a tree's splits at the HBM rate
+            n = ds._handle.num_data
+            splits = [t.num_leaves - 1 for t in bst._gbdt.models]
+            per_split = n * (1 + 4 + 4)
+            tree_ms = (per_split * float(np.mean(splits))
+                       / HBM_BYTES_PER_S * 1e3)
+            print(f"sequential split apply: {per_split / 1e6:.1f} MB a split "
+                  f"x {float(np.mean(splits)):.0f} splits a tree = bound "
+                  f"{tree_ms:.4f} ms a tree (bytes), against "
+                  f"{ms - main_ms:.1f} ms a tree measured over the batched "
+                  f"apply [{kind}, {card}]", flush=True)
     over = {**params, "tpu_wave_overlap": True}
     on, counts_on, _, on_ms = train_phase(lt, hw, hc, "overlap on", over,
                                           ds, kind, card)
@@ -2224,6 +2300,501 @@ def convert_phase(bst, X, kind, card):
     if got.shape != (len(rows),) or err > 1e-10:
         raise AssertionError("the converted model scores differently")
     shutil.rmtree(d)
+
+
+# ---- 22-26: serving on the card ------------------------------------------
+SERVE_ROUNDS = 100               # the served model: 100 rounds, 255 leaves
+SERVE_CHECK_ROWS = 100_000       # rows through the session vs the Booster
+SERVE_HOST_ROWS = 2_000          # of them, held against the f64 host walk
+SERVE_BUCKETS = (1, 8, 64, 256, 1024)
+SERVE_CALLS = 200                # sync calls per bucket for p50/p99
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 100             # per client thread
+SERVE_POOL = 20_000              # rows the fleet's requests are cut from
+SERVE_SWAP_REQUESTS = 25         # per client, in the hot-swap run
+
+
+def pct(vals, p):
+    """Nearest-rank percentile (the serving stack's definition)."""
+    v = sorted(vals)
+    return v[min(max(math.ceil(p * len(v)) - 1, 0), len(v) - 1)] if v else None
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(url, payload=None, timeout=120):
+    """(status, body, headers) of one request; JSON bodies decoded."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, body, hdr = resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        code, body, hdr = exc.code, exc.read(), dict(exc.headers)
+    text = body.decode()
+    return code, (json.loads(text) if text.startswith("{") else text), hdr
+
+
+def serve_model_phase(lt, hw, hc, params, ds, kind, card):
+    """(22, set-up) The served model: 100 rounds of 255 leaves (2xbf16) on
+    the headline Dataset, counts zeroed first; saved to a file (the phases
+    serve it from the file) with its 50-iteration cut (the hot swap's
+    target).  Returns (path, path of the cut, seconds)."""
+    reset_counts(hw, hc)
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=SERVE_ROUNDS, device=DEV)
+    train_s = time.perf_counter() - t0
+    counts = read_counts(hw, hc)
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "serve_model.txt")
+    cut = os.path.join(SCRATCH, "serve_model_50.txt")
+    bst.save_model(path)
+    bst.save_model(cut, num_iteration=50)
+    print(f"serve model: {SERVE_ROUNDS} rounds of 255 leaves in "
+          f"{train_s:.2f} s ({train_s / SERVE_ROUNDS:.4f} s/iter), K1 "
+          f"launches {counts['k1']}; saved {os.path.getsize(path):,} bytes "
+          f"[{kind}, {card}]", flush=True)
+    if len(bst._gbdt.models) != SERVE_ROUNDS or counts["k1"] == 0:
+        raise AssertionError("the served model did not train")
+    return path, cut
+
+
+def predict_routes_phase(lt, model, X, kind, card):
+    """(22, set-up) ``task=predict``'s two routes on every headline row
+    (1M rows x 100 trees): ``Booster.predict`` and the
+    ``PredictorSession`` that heavy work takes (``app.py run_predict``),
+    each warmed on 20,000 rows, then timed booster, session, session,
+    booster (host clock, result on the host); they agree within 1e-6.
+    Returns the phase's seconds."""
+    from lightgbm_tpu_torch.serve import PredictorSession
+    t_phase = time.perf_counter()
+    bst = lt.Booster(model_file=model, device=DEV)
+    with PredictorSession(bst, config=bst.config, device=DEV) as sess:
+        bst.predict(X[:20_000])
+        sess.predict(X[:20_000])
+        ms = {"booster": [], "session": []}
+        out = {}
+        for route in ("booster", "session", "session", "booster"):
+            fn = bst.predict if route == "booster" else sess.predict
+            t0 = time.perf_counter()
+            out[route] = fn(X)
+            ms[route].append(round((time.perf_counter() - t0) * 1e3, 3))
+    err = float(np.abs(out["session"] - out["booster"]).max())
+    print(f"task=predict routes ({X.shape[0]:,} rows x {SERVE_ROUNDS} "
+          f"trees, {DEV}; booster, session, session, booster): "
+          f"Booster.predict {ms['booster']} ms, PredictorSession.predict "
+          f"{ms['session']} ms; max |session - booster| {err:.3g} (tol "
+          f"1e-6) [{kind}, {card}]", flush=True)
+    if err > 1e-6 or out["session"].shape != (X.shape[0],):
+        raise AssertionError("the two task=predict routes disagree")
+    return time.perf_counter() - t_phase
+
+
+def session_phase(lt, model, X, kind, card):
+    """(22) ``PredictorSession(model_file)`` on the card: ``warmup()`` over
+    every bucket up to 1,024; 100,000 rows against
+    ``Booster(model_file).predict`` (its stacked-forest walk) within 1e-6,
+    and 2,000 of them (raw) against the session's f64 host walk within
+    1e-6; p50/p99 of ``SERVE_CALLS`` sync calls per bucket, host clock,
+    result on the host."""
+    from lightgbm_tpu_torch.serve import PredictorSession
+    t0 = time.perf_counter()
+    sess = PredictorSession(model, device=DEV)
+    pack_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        n_buckets = sess.warmup()
+        warm_s = time.perf_counter() - t0
+        rows = X[:SERVE_CHECK_ROWS]
+        t0 = time.perf_counter()
+        got = sess.predict(rows)
+        big_s = time.perf_counter() - t0
+        want = lt.Booster(model_file=model).predict(rows)
+        err = float(np.abs(got - want).max())
+        host = rows[:SERVE_HOST_ROWS]
+        host_err = float(np.abs(sess.predict(host, raw_score=True)
+                                - sess._run_host(host)[:, 0]).max())
+        lat = {}
+        for b in SERVE_BUCKETS:
+            chunk = X[:b]
+            ms = []
+            for _ in range(SERVE_CALLS):
+                t0 = time.perf_counter()
+                sess.predict(chunk)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lat[b] = {"p50_ms": round(pct(ms, 0.5), 3),
+                      "p99_ms": round(pct(ms, 0.99), 3),
+                      "rows_per_s": round(b / pct(ms, 0.5) * 1e3)}
+        st = sess.stats()
+    finally:
+        sess.close()
+    print(f"session ({SERVE_ROUNDS} trees, {DEV}): packed in {pack_s:.2f} s, "
+          f"warmup of {n_buckets} buckets {warm_s:.2f} s; "
+          f"{SERVE_CHECK_ROWS:,} rows in {big_s * 1e3:.1f} ms "
+          f"({SERVE_CHECK_ROWS / big_s:,.0f} rows/s), max |session - "
+          f"Booster.predict| {err:.3g} (tol 1e-6), max |raw - f64 host "
+          f"walk| {host_err:.3g} over {SERVE_HOST_ROWS:,} rows (tol 1e-6); "
+          f"per bucket (sync "
+          f"predict, host clock, {SERVE_CALLS} calls): {json.dumps(lat)}; "
+          f"buckets {st['buckets']} [{kind}, {card}]", flush=True)
+    if err > 1e-6 or host_err > 1e-6 or st["degraded"] or n_buckets != 11:
+        raise AssertionError("the serving session disagrees with "
+                             "Booster.predict")
+    return lat
+
+
+def fleet_stack(model, **over):
+    """``run_serve``'s stack in process: a registry with 2 replicas on the
+    card, the arena attached, the HTTP server on a free port."""
+    from lightgbm_tpu_torch.serve import (ForestArena, ModelRegistry,
+                                          PredictServer)
+    cfg = {"tpu_serve_replicas": 2, "tpu_serve_rollback_watch_s": 0,
+           "verbose": -1, **over}
+    reg = ModelRegistry(config=cfg, device=DEV)
+    reg.add_model("default", model)
+    reg.attach_arena(ForestArena(config=cfg, device=DEV))
+    reg.resolve(None).router.warmup()
+    return reg, PredictServer(reg, port=free_port()).start()
+
+
+def traffic(url, pool, refs, clients, requests, seed, on_reply=None):
+    """``clients`` threads, ``requests`` each: 1-256 rows cut from
+    ``pool``, priorities mixed.  Each reply is held against the reference
+    of the version it names (``refs``: version -> predictions of the
+    pool) within 1e-6.  Returns (latencies ms, status counts, versions,
+    mismatches)."""
+    import threading
+    lat, status, versions, bad = [], {}, {}, []
+    lock = threading.Lock()
+
+    def client(i):
+        rng = np.random.default_rng(seed + i)
+        for _ in range(requests):
+            n = int(rng.integers(1, 257))
+            lo = int(rng.integers(0, len(pool) - n))
+            prio = ("high", "normal", "low")[int(rng.integers(0, 3))]
+            t0 = time.perf_counter()
+            code, body, _ = http(url + "/predict",
+                                 {"rows": pool[lo:lo + n].tolist(),
+                                  "priority": prio})
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lat.append(ms)
+                status[code] = status.get(code, 0) + 1
+                if code == 200:
+                    v = body["version"]
+                    versions[v] = versions.get(v, 0) + 1
+                    err = float(np.abs(np.asarray(body["predictions"])
+                                       - refs[v][lo:lo + n]).max())
+                    if err > 1e-6:
+                        bad.append((v, lo, n, err))
+            if on_reply is not None:
+                on_reply()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a traffic client did not finish")
+    return lat, status, versions, bad
+
+
+def fleet_phase(lt, model, cut, X, kind, card):
+    """(23) The fleet over HTTP: 8 clients x 100 requests of 1-256 rows,
+    every reply within 1e-6 of ``Booster.predict``; p50/p99 (client
+    clock), served and shed, occupancy and pad waste; ``POST /explain`` of
+    64 rows summing to the raw score within 1e-4; a hot swap of
+    ``default`` to the 50-iteration cut under traffic (no failed request,
+    every reply one version's), then a rollback."""
+    import threading
+    pool = np.ascontiguousarray(X[:SERVE_POOL])
+    refs = {1: lt.Booster(model_file=model).predict(pool),
+            2: lt.Booster(model_file=cut).predict(pool)}
+    reg, server = fleet_stack(model)
+    try:
+        t0 = time.perf_counter()
+        lat, status, versions, bad = traffic(
+            server.url, pool, refs, SERVE_CLIENTS, SERVE_REQUESTS, 100)
+        wall = time.perf_counter() - t0
+        st = reg.resolve(None).router.stats()
+        snap = reg.resolve(None).router.metrics.snapshot()
+        n_req = SERVE_CLIENTS * SERVE_REQUESTS
+        print(f"fleet over HTTP (2 replicas on {DEV}, {SERVE_CLIENTS} "
+              f"clients x {SERVE_REQUESTS} requests of 1-256 rows): "
+              f"{n_req / wall:,.0f} requests/s, {st['rows'] / wall:,.0f} "
+              f"rows/s; client p50 {pct(lat, 0.5):.2f} ms, p99 "
+              f"{pct(lat, 0.99):.2f} ms; status {status}; served by "
+              f"priority {snap['served_by_priority']}, shed "
+              f"{snap['shed_by_priority']}; batches {st['batches']}, "
+              f"occupancy {st['occupancy']}, pad waste "
+              f"{st['padded_rows'] - st['rows']:,} rows, buckets "
+              f"{st['buckets']}; session p50 {st['p50_ms']} p99 "
+              f"{st['p99_ms']} ms [{kind}, {card}]", flush=True)
+        if bad or status != {200: n_req} or versions != {1: n_req}:
+            raise AssertionError(f"fleet replies wrong: status {status}, "
+                                 f"mismatches {bad[:3]}")
+        rows64 = pool[:64]
+        t0 = time.perf_counter()
+        code, body, _ = http(server.url + "/explain",
+                             {"rows": rows64.tolist()})
+        explain_ms = (time.perf_counter() - t0) * 1e3
+        raw = lt.Booster(model_file=model).predict(rows64, raw_score=True)
+        contrib = np.asarray(body["contributions"])
+        sum_err = float(np.abs(contrib.sum(1) - raw).max())
+        print(f"POST /explain (64 rows x {SERVE_ROUNDS} trees): "
+              f"{explain_ms:.1f} ms; contributions sum to the raw score "
+              f"within {sum_err:.3g} (tol 1e-4) [{kind}, {card}]", flush=True)
+        if code != 200 or contrib.shape != (64, 29) or sum_err > 1e-4:
+            raise AssertionError("POST /explain failed or does not sum")
+        # the hot swap under traffic
+        swap = {}
+        done = [0]
+        lock = threading.Lock()
+
+        def on_reply():
+            with lock:
+                done[0] += 1
+                go = done[0] == SERVE_CLIENTS * SERVE_SWAP_REQUESTS // 3
+            if go:
+                t1 = time.perf_counter()
+                swap["reply"] = http(server.url + "/models/default/swap",
+                                     {"model_file": cut})
+                swap["ms"] = (time.perf_counter() - t1) * 1e3
+
+        lat2, status2, versions2, bad2 = traffic(
+            server.url, pool, refs, SERVE_CLIENTS, SERVE_SWAP_REQUESTS, 200,
+            on_reply=on_reply)
+        code_s, rep, _ = swap["reply"]
+        code_r, rb, _ = http(server.url + "/models/default/rollback",
+                             {"reason": "chip_smoke"})
+        code_p, after, _ = http(server.url + "/predict",
+                                {"rows": pool[:8].tolist()})
+        n2 = SERVE_CLIENTS * SERVE_SWAP_REQUESTS
+        print(f"hot swap under traffic ({SERVE_CLIENTS} x "
+              f"{SERVE_SWAP_REQUESTS} requests): swap to the 50-iteration "
+              f"cut {code_s} in {swap['ms']:.0f} ms (canary "
+              f"{rep.get('canary', {}).get('checks')}, p99 "
+              f"{rep.get('canary', {}).get('p99_ms')} ms); replies by "
+              f"version {versions2}, status {status2}, mismatches "
+              f"{len(bad2)}; client p99 {pct(lat2, 0.99):.2f} ms; rollback "
+              f"{code_r} -> v{rb.get('to_version')}, then a reply from "
+              f"v{after.get('version')} [{kind}, {card}]", flush=True)
+        if (code_s != 200 or bad2 or status2 != {200: n2}
+                or set(versions2) != {1, 2} or code_r != 200
+                or after.get("version") != 1
+                or not np.allclose(after["predictions"], refs[1][:8],
+                                   rtol=0, atol=1e-6)):
+            raise AssertionError("the hot swap lost or mixed replies")
+    finally:
+        server.stop(close_session=True)
+    return {"p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99),
+            "occupancy": st["occupancy"]}
+
+
+def arena_phase(lt, tenants, kind, card):
+    """(24) The arena: the served model, phase 12's multiclass model and
+    phase 14's weighted regression model as three tenants; mixed-tenant
+    batches bit-equal to each tenant's solo session on the card; a byte
+    budget that holds two tenants evicts one, which is re-admitted on its
+    next request, bit-equal again."""
+    from lightgbm_tpu_torch.serve import ForestArena, PredictorSession
+    solo = {n: PredictorSession(p, device=DEV) for n, p, _ in tenants}
+    try:
+        arena = ForestArena(device=DEV, max_wait_ms=5.0)
+        try:
+            t0 = time.perf_counter()
+            for n, p, _ in tenants:
+                arena.admit(n, p)
+            admit_s = time.perf_counter() - t0
+            full = arena.stats()["packed_bytes"]
+            tickets = []
+            for r in range(8):
+                for n, _, X in tenants:
+                    chunk = X[r * 97:r * 97 + 97]
+                    tickets.append((n, chunk, arena.submit(chunk, model=n)))
+            t0 = time.perf_counter()
+            equal = all(np.array_equal(arena.result(t, timeout=120),
+                                       solo[n].predict(c))
+                        for n, c, t in tickets)
+            mixed_s = time.perf_counter() - t0
+            sync_equal = all(np.array_equal(arena.predict(X[:1000], model=n),
+                                            solo[n].predict(X[:1000]))
+                             for n, _, X in tenants)
+            st = arena.stats()
+        finally:
+            arena.close()
+        budget = ForestArena(device=DEV, budget_bytes=full - 1)
+        try:
+            for n, p, _ in tenants:
+                budget.admit(n, p)
+            st_b = budget.stats()
+            evicted = [t["name"] for t in budget.tenants()
+                       if not t["resident"]]
+            n0, _, X0 = next(t for t in tenants if t[0] == evicted[0])
+            back = np.array_equal(budget.predict(X0[:1000], model=n0),
+                                  solo[n0].predict(X0[:1000]))
+            st_r = budget.stats()
+        finally:
+            budget.close()
+    finally:
+        for s in solo.values():
+            s.close()
+    print(f"arena (3 tenants: {[n for n, _, _ in tenants]}, {DEV}): admitted "
+          f"in {admit_s:.2f} s, {full:,} packed bytes; {len(tickets)} "
+          f"mixed-tenant requests in {st['batches']} batches "
+          f"({st['cross_model_batches']} cross-model), bit-equal to the "
+          f"solo sessions {equal} ({mixed_s * 1e3:.0f} ms), sync {sync_equal};"
+          f" budget {full - 1:,} bytes: resident {st_b['resident']}, "
+          f"evicted {evicted}, re-admitted on its next request "
+          f"(readmissions {st_r['readmissions']}, evictions "
+          f"{st_r['evictions']}) bit-equal {back} [{kind}, {card}]",
+          flush=True)
+    if not (equal and sync_equal and back and st["cross_model_batches"] >= 1
+            and st_b["resident"] == 2 and len(evicted) == 1
+            and st_r["readmissions"] == 1):
+        raise AssertionError("the arena disagrees with its solo sessions")
+
+
+def fault_phase(lt, model, X, kind, card):
+    """(25) Device faults in the fleet over HTTP: ``serve_replica_0`` wedged
+    (every request answered by r1, r0's breaker open on /health), then
+    half-open and closed once the fault stops; one ``serve_device`` fault
+    (that request a 503 with Retry-After, the replica degraded, the sibling
+    answering, the device re-probed and recovered).  No reply comes from
+    the host: every 200 equals a solo session's device answer bit for
+    bit (the host walk sums in f64 and would differ)."""
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.serve import PredictorSession
+    pool = np.ascontiguousarray(X[:4096])
+    with PredictorSession(model, device=DEV) as solo:
+        ref = solo.predict(pool)      # the device walk's bits
+    reg, server = fleet_stack(model, tpu_serve_reprobe_s=0.5,
+                              tpu_serve_breaker_backoff_s=0.2)
+    url = server.url
+    out = {}
+
+    def ask(n=64):
+        code, body, hdr = http(url + "/predict", {"rows": pool[:n].tolist()})
+        ok = (code != 200 or np.array_equal(body["predictions"], ref[:n]))
+        return code, body, hdr, ok
+
+    try:
+        faults.configure("serve_replica_0:raise@n=-1")
+        replies = [ask() for _ in range(40)]
+        health = http(url + "/health")[1]
+        r0 = health["replicas"][0]
+        out["wedged"] = {
+            "replicas": sorted({b.get("replica") for c, b, _, _ in replies
+                                if c == 200}),
+            "status": sorted({c for c, _, _, _ in replies}),
+            "r0_breaker": r0["breaker"]["state"], "r0_healthy": r0["healthy"]}
+        faults.disarm()
+        t0 = time.perf_counter()
+        while (reg.resolve(None).router.replicas[0].breaker.state != "closed"
+               and time.perf_counter() - t0 < 30):
+            replies.append(ask())
+            time.sleep(0.05)
+        out["closed_after_s"] = round(time.perf_counter() - t0, 3)
+        out["r0_breaker_after"] = \
+            reg.resolve(None).router.replicas[0].breaker.state
+        faults.configure("serve_device:raise@n=1")
+        code, body, hdr, _ = ask()
+        h2 = http(url + "/health")[1]
+        faults.disarm()
+        out["device_fault"] = {"status": code, "error": body.get("error"),
+                               "retry_after": hdr.get("Retry-After"),
+                               "any_degraded": h2["any_degraded"]}
+        more = [ask() for _ in range(20)]
+        t0 = time.perf_counter()
+        while (reg.resolve(None).router.stats()["any_degraded"]
+               and time.perf_counter() - t0 < 30):
+            more.append(ask())
+            time.sleep(0.05)
+        st = reg.resolve(None).router.stats()
+        out["recovered_after_s"] = round(time.perf_counter() - t0, 3)
+        out["recoveries"] = st["recoveries"]
+        replies += more
+    finally:
+        faults.disarm()
+        server.stop(close_session=True)
+    from_host = sum(1 for c, _, _, ok in replies if not ok)
+    out["replies_200"] = sum(1 for c, _, _, _ in replies if c == 200)
+    out["not_the_device_answer"] = from_host
+    print(f"device faults over HTTP: {json.dumps(out)} [{kind}, {card}]",
+          flush=True)
+    w, d = out["wedged"], out["device_fault"]
+    if not (w["replicas"] == ["r1"] and w["status"] == [200]
+            and w["r0_breaker"] in ("open", "half_open")
+            and not w["r0_healthy"]
+            and out["r0_breaker_after"] == "closed"
+            and d["status"] == 503 and d["error"] == "device_failed"
+            and d["retry_after"] and d["any_degraded"]
+            and out["recoveries"] == 1 and from_host == 0
+            and all(c == 200 for c, _, _, _ in more)):
+        raise AssertionError(f"the fleet's fault handling is wrong: {out}")
+
+
+def serve_cli_phase(lt, model, X, kind, card):
+    """(26) ``python -m lightgbm_tpu_torch task=serve`` as a subprocess on
+    the card: /health "ok", ``POST /predict`` of 1,000 rows within 1e-6 of
+    ``Booster.predict``, then SIGINT: a clean exit within 10 s."""
+    import signal
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+         f"input_model={model}", f"tpu_serve_port={port}"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        health = None
+        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+            try:
+                code, health, _ = http(url + "/health", timeout=5)
+                if code == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        if proc.poll() is not None or not health \
+                or health.get("status") != "ok":
+            raise AssertionError(f"task=serve did not come up: {health}")
+        rows = X[:1000]
+        code, body, _ = http(url + "/predict", {"rows": rows.tolist()})
+        err = float(np.abs(np.asarray(body["predictions"])
+                           - lt.Booster(model_file=model).predict(rows)).max())
+    finally:
+        t1 = time.perf_counter()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            _, stderr = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError("task=serve did not exit within 10 s of "
+                                 "SIGINT")
+    stop_s = time.perf_counter() - t1
+    print(f"CLI task=serve: /health ok after {up_s:.1f} s (devices "
+          f"{sorted({r['device'] for r in health['replicas']})}), POST "
+          f"/predict of 1,000 rows {code}, max |reply - Booster.predict| "
+          f"{err:.3g} (tol 1e-6); SIGINT -> exit {proc.returncode} in "
+          f"{stop_s:.2f} s [{kind}, {card}]", flush=True)
+    if code != 200 or err > 1e-6 or proc.returncode != 0:
+        raise AssertionError(f"task=serve failed: {stderr[-2000:]}")
 
 
 def main() -> int:
@@ -2389,6 +2960,12 @@ def main() -> int:
     print(f"phases 15-21: {time.perf_counter() - t_slice:.1f} s "
           f"[{kind}, {card}]", flush=True)
 
+    # ---- 22 (set-up): the served model, trained while the Dataset lives --
+    serve_model, serve_cut = serve_model_phase(lt, hw, hc, params, ds, kind,
+                                               card)
+    routes_s = predict_routes_phase(lt, serve_model, X, kind, card)
+    X_serve = X[:SERVE_CHECK_ROWS].copy()
+
     # ---- (a)-(b) the serial grower; (d) the training API ------------------
     counts_serial, counts_wide, wide_ms, side_ms, wide_bound = serial_phase(
         lt, hw, hc, params, ds, X, y, kind, card)
@@ -2406,9 +2983,36 @@ def main() -> int:
     counts_mixed = mixed_phase(lt, hw, hc, params, kind, card)
 
     # ---- 12. multiclass; 13. lambdarank; 14. regression --------------------
-    counts_multi, shap_multi = multiclass_phase(lt, hw, hc, res, kind, card)
+    counts_multi, shap_multi, multi_tenant = multiclass_phase(
+        lt, hw, hc, res, kind, card)
     counts_rank, pair = rank_phase(lt, hw, hc, res, kind, card)
-    counts_reg = regression_phase(lt, hw, hc, kind, card)
+    counts_reg, reg_model = regression_phase(lt, hw, hc, kind, card)
+
+    # ---- 22-26: serving on the card -----------------------------------------
+    from lightgbm_tpu_torch.core import forest
+    t_serve = time.perf_counter()
+    reset_counts(hw, hc)
+    walks = {**forest.calls, **forest.arena_calls}
+    serve_lat = session_phase(lt, serve_model, X_serve, kind, card)
+    fleet = fleet_phase(lt, serve_model, serve_cut, X_serve, kind, card)
+    arena_phase(lt, [("serve", serve_model, X_serve),
+                     ("multiclass", *multi_tenant),
+                     ("weighted_regression", reg_model, X_serve)], kind, card)
+    fault_phase(lt, serve_model, X_serve, kind, card)
+    serve_cli_phase(lt, serve_model, X_serve, kind, card)
+    serve_counts = read_counts(hw, hc)
+    walks = {k: {**forest.calls, **forest.arena_calls}[k] - walks[k]
+             for k in walks}
+    serve_s = time.perf_counter() - t_serve + routes_s
+    print(f"phases 22-26: {serve_s:.1f} s (the task=predict routes "
+          f"{routes_s:.1f} s of it); hand-kernel "
+          f"launches on the serving path {serve_counts} (serving walks the "
+          f"forest in torch ops); forest walks in this process {walks} "
+          f"[{kind}, {card}]", flush=True)
+    if walks["predict"] == 0 or walks["arena"] == 0:
+        raise AssertionError(f"the serving phases walked no forest: {walks}")
+    serving = {"session_buckets": serve_lat, "fleet": fleet,
+               "phases_22_26_s": round(serve_s, 1)}
 
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);
@@ -2493,6 +3097,7 @@ def main() -> int:
             raise AssertionError(f"non-finite kernel numbers: {k}")
     print(json.dumps({"pair_pass": pair}), flush=True)
     print(json.dumps({"treeshap": [shap_main, shap_multi]}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,26 @@
 """Command line: ``python -m lightgbm_tpu_torch task=train config=train.conf``
 (counterpart of lightgbm_tpu/app.py: ``run_train``, ``run_predict``,
-``main``).
+``run_serve``, ``run_convert_model``, ``main``).
 
 The analog of the reference CLI (reference: src/main.cpp,
 src/application/application.cpp:48-81 task dispatch, :198-218 Train with
 snapshots, :221-247 Predict).  Arguments are ``key=value`` pairs; a
 ``config=FILE`` pair loads a LightGBM .conf file, and pairs on the command
 line win over the file's (reference: config.cpp Config::Set ordering).
-Training and prediction run on the card unless ``device_type=cpu``.
-``task=convert_model`` writes ``input_model`` as standalone C scoring
-code to ``convert_model``.  ``input_model`` continues a model's forest in
-``task=train``; init scores
-come from ``initscore_filename`` (``valid_data_initscores`` for the valid
-sets) or a ``<data>.init`` file; ``two_round=true`` bins the data while
-streaming the file; ``save_binary=true`` writes the training set's binned
-dataset to ``<data>.bin``, and a data file that is such a file loads
-without parsing or binning.
+Training, prediction and serving run on the card unless
+``device_type=cpu``.  ``task=serve`` serves ``input_model`` over HTTP
+(``serve/``); ``task=convert_model`` writes ``input_model`` as standalone
+C scoring code to ``convert_model``.  ``input_model`` continues a model's
+forest in ``task=train``; init scores come from ``initscore_filename``
+(``valid_data_initscores`` for the valid sets) or a ``<data>.init`` file;
+``two_round=true`` bins the data while streaming the file;
+``save_binary=true`` writes the training set's binned dataset to
+``<data>.bin``, and a data file that is such a file loads without parsing
+or binning.
 """
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, List
 
@@ -34,7 +36,6 @@ from .utils import log
 
 # tasks of the reference CLI the port does not run yet -> ROADMAP.md item
 _UNPORTED_TASKS = {
-    "serve": "forest predict and serving: serve/",
     "online": "the rest of queue 1: online and serve",
     "refit": "the rest of queue 1: online and serve",
 }
@@ -132,9 +133,12 @@ def run_train(cfg: Config, params: Dict) -> None:
 
 def run_predict(cfg: Config, params: Dict) -> None:
     """Predict a data file from ``input_model`` alone: the model file
-    carries the objective.  ``Booster.predict`` routes the work: rows x
-    trees of 2,000,000 or more walk the stacked forest on the device, as
-    the JAX package's CLI sends such work to its serving session."""
+    carries the objective.  As in the JAX package's CLI, value predictions
+    of ``LGBM_TPU_PREDICT_MIN_WORK`` rows x trees or more (default
+    ``PredictorBase._DEVICE_PREDICT_MIN_WORK``; 0 sends everything)
+    go through a ``PredictorSession``, the engine ``task=serve`` runs
+    behind HTTP; smaller ones, leaf indices and contributions through
+    ``Booster.predict``."""
     if not cfg.input_model:
         log.fatal("task=predict needs input_model (alias: model_file)")
     bst = Booster(model_file=cfg.input_model, device=cfg.device_type)
@@ -145,13 +149,61 @@ def run_predict(cfg: Config, params: Dict) -> None:
     X = load_text(cfg.data, cfg)[0]
     num_it = cfg.num_iteration_predict if cfg.num_iteration_predict > 0 \
         else None
-    pred = np.atleast_1d(bst.predict(
-        X, num_iteration=num_it, raw_score=bool(cfg.predict_raw_score),
-        pred_leaf=bool(cfg.predict_leaf_index),
-        pred_contrib=bool(cfg.predict_contrib)))
+    from .boosting.gbdt import PredictorBase
+    K = bst.num_model_per_iteration()
+    n_iters = bst.num_trees() // max(K, 1)
+    window = min(num_it, n_iters) if num_it else n_iters
+    try:
+        min_work = int(os.environ.get("LGBM_TPU_PREDICT_MIN_WORK", "")
+                       or PredictorBase._DEVICE_PREDICT_MIN_WORK)
+    except ValueError:
+        min_work = PredictorBase._DEVICE_PREDICT_MIN_WORK
+    if cfg.predict_leaf_index or cfg.predict_contrib \
+            or X.shape[0] * window * K < min_work:
+        pred = bst.predict(X, num_iteration=num_it,
+                           raw_score=bool(cfg.predict_raw_score),
+                           pred_leaf=bool(cfg.predict_leaf_index),
+                           pred_contrib=bool(cfg.predict_contrib))
+    else:
+        from .serve import PredictorSession
+        with PredictorSession(bst, config=bst.config, num_iteration=num_it,
+                              device=cfg.device_type) as sess:
+            log.info("Predicting %d rows through a PredictorSession on %s",
+                     X.shape[0], sess.device)
+            pred = sess.predict(X, raw_score=bool(cfg.predict_raw_score))
+    pred = np.atleast_1d(pred)
     fmt = "%d" if pred.dtype.kind in "iu" else "%.18g"
     np.savetxt(cfg.output_result, pred, fmt=fmt, delimiter="\t")
     log.info("Finished prediction; results saved to %s", cfg.output_result)
+
+
+def run_serve(cfg: Config) -> None:
+    """task=serve: ``input_model`` registered as ``default`` in a
+    ``ModelRegistry`` with ``tpu_serve_replicas`` sessions behind the
+    failover router, a ``ForestArena`` attached, every pow2 bucket warmed,
+    then served over HTTP until interrupted (``serve/server.py``)."""
+    if not cfg.input_model:
+        log.fatal("task=serve needs input_model (alias: model_file)")
+    from .serve import ForestArena, ModelRegistry, PredictServer
+    reg = ModelRegistry(config=cfg)
+    try:
+        reg.add_model("default", cfg.input_model)
+        # arena tenants ride the same fleet surface: POST
+        # /models/{name}/swap with {"arena": true} admits one
+        reg.attach_arena(ForestArena(config=cfg))
+        router = reg.resolve(None).router
+        n = router.warmup()
+    except BaseException:
+        reg.close()
+        raise
+    log.info("serve: %d replica(s) on %s warmed %d bucket shapes "
+             "(max_batch=%d); arena attached (budget %s)",
+             len(router.replicas), router.session.device, n,
+             router.max_batch, reg.arena.budget_bytes or "unbounded")
+    server = PredictServer(reg, host=cfg.tpu_serve_host,
+                           port=cfg.tpu_serve_port)
+    log.info("serve: listening on %s", server.url)
+    server.serve_forever()
 
 
 def run_convert_model(cfg: Config) -> None:
@@ -174,10 +226,12 @@ def main(argv=None) -> None:
         run_train(cfg, params)
     elif task in ("predict", "prediction", "test"):
         run_predict(cfg, params)
+    elif task == "serve":
+        run_serve(cfg)
     elif task == "convert_model":
         run_convert_model(cfg)
     elif task in _UNPORTED_TASKS:
         log.refuse(f"task={task}", _UNPORTED_TASKS[task])
     else:
         log.fatal(f"Unknown task {task!r} (supported: train, predict, "
-                  "convert_model)")
+                  "serve, convert_model)")

@@ -136,7 +136,7 @@ _OBJECTIVE_ALIASES = {
 # field of the JAX package's ``Config`` is a field here too: implemented,
 # or accepted with no effect where the JAX package gives it none (the
 # field's comment says so).
-_SERVE = "forest predict and serving: serve/"
+_AOT = "serve AOT store"
 _ONLINE = "the rest of queue 1: online and serve"
 _PARALLEL = "the rest of queue 1: parallel and fleet planes"
 _OBS = "Obs, tools and bindings"
@@ -148,8 +148,11 @@ _REFUSED: Dict[str, str] = {
     "time_out": _PARALLEL, "machine_list_filename": _PARALLEL,
     "machines": _PARALLEL, "tpu_mesh_shape": _PARALLEL,
     "refit_decay_rate": _ONLINE, "tpu_refit_device": _ONLINE,
-    "tpu_explain": _SERVE, "tpu_explain_max_batch": _SERVE,
-    "tpu_explain_max_wait_ms": _SERVE,
+    # the JAX package persists compiled per-bucket executables here; the
+    # port compiles nothing per bucket, and its store waits for its item
+    "tpu_serve_aot_dir": _AOT,
+    # a drift or quality breach as a rollback signal needs the drift plane
+    "tpu_serve_rollback_on_drift": _OBS,
     "tpu_telemetry": _OBS, "tpu_health": _OBS, "tpu_profile": _OBS,
     "tpu_xprof": _OBS, "tpu_xprof_iters": _OBS, "tpu_trace": _OBS,
     "tpu_flight_len": _OBS, "tpu_train_metrics_port": _OBS,
@@ -158,8 +161,7 @@ _REFUSED: Dict[str, str] = {
 }
 # whole families, by name prefix
 _REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL),
-                   ("tpu_serve", _SERVE), ("tpu_online", _ONLINE),
-                   ("tpu_drift_", _OBS))
+                   ("tpu_online", _ONLINE), ("tpu_drift_", _OBS))
 
 
 def refused_item(name: str) -> Optional[str]:
@@ -183,7 +185,8 @@ class Config:
     """Typed parameter set; field names match the reference's."""
     # ---- Core ----
     config: str = ""                    # the CLI's config file (app.py)
-    task: str = "train"                 # train, predict, convert_model
+    task: str = "train"                 # train, predict, serve,
+                                        # convert_model
     data: str = ""
     valid: List[str] = field(default_factory=list)
     objective: str = "regression"
@@ -372,7 +375,7 @@ class Config:
     tpu_watchdog: bool = False          # guard every device step
     tpu_device_retries: int = 3         # transient retries a step
     tpu_wedge_timeout_s: float = 0.0    # stall deadline, 0 = automatic
-    # serving, online learning, ingestion, drift (refused)
+    # serving (serve/): task=serve and the heavy task=predict
     tpu_serve_max_batch: int = 1024
     tpu_serve_max_wait_ms: float = 2.0
     tpu_serve_queue_depth: int = 8192
@@ -394,12 +397,14 @@ class Config:
     tpu_serve_shed_normal_frac: float = 0.85
     tpu_serve_retry_after_s: float = 1.0
     tpu_serve_swap_warmup: bool = True
-    tpu_serve_aot: bool = True
+    tpu_serve_aot: bool = True          # no effect: it arms a store only
+                                        # with tpu_serve_aot_dir (refused)
     tpu_serve_aot_dir: str = ""
     tpu_serve_arena_bytes: int = 0
     tpu_explain: bool = True
     tpu_explain_max_batch: int = 256
     tpu_explain_max_wait_ms: float = 5.0
+    # online learning, ingestion, drift (refused)
     tpu_refit_device: bool = True
     tpu_online_mode: str = "refit"
     tpu_online_window: int = 50000
@@ -485,6 +490,39 @@ class Config:
             log.fatal("tpu_device_retries should be >= 0")
         if self.tpu_wedge_timeout_s < 0:
             log.fatal("tpu_wedge_timeout_s should be >= 0")
+        if self.tpu_serve_max_batch < 1:
+            log.fatal("tpu_serve_max_batch should be >= 1")
+        if self.tpu_serve_max_wait_ms < 0:
+            log.fatal("tpu_serve_max_wait_ms should be >= 0")
+        if self.tpu_serve_queue_depth < self.tpu_serve_max_batch:
+            log.fatal("tpu_serve_queue_depth should be >= "
+                      "tpu_serve_max_batch")
+        if not (0 <= self.tpu_serve_port <= 65535):
+            log.fatal("tpu_serve_port should be in [0, 65535]")
+        if self.tpu_serve_slo_p99_ms < 0:
+            log.fatal("tpu_serve_slo_p99_ms should be >= 0")
+        if self.tpu_serve_replicas < 1:
+            log.fatal("tpu_serve_replicas should be >= 1")
+        if self.tpu_serve_breaker_trip < 1:
+            log.fatal("tpu_serve_breaker_trip should be >= 1")
+        if self.tpu_serve_canary_rows < 1:
+            log.fatal("tpu_serve_canary_rows should be >= 1")
+        if not (0.0 <= self.tpu_serve_rollback_error_rate <= 1.0):
+            log.fatal("tpu_serve_rollback_error_rate should be in [0, 1]")
+        if not (0.0 <= self.tpu_serve_shed_low_frac <= 1.0):
+            log.fatal("tpu_serve_shed_low_frac should be in [0, 1]")
+        if not (0.0 <= self.tpu_serve_shed_normal_frac <= 1.0):
+            log.fatal("tpu_serve_shed_normal_frac should be in [0, 1]")
+        if self.tpu_serve_rollback_watch_s < 0:
+            log.fatal("tpu_serve_rollback_watch_s should be >= 0")
+        if self.tpu_serve_arena_bytes < 0:
+            log.fatal("tpu_serve_arena_bytes should be >= 0")
+        if self.tpu_explain_max_batch < 1:
+            log.fatal("tpu_explain_max_batch should be >= 1")
+        if self.tpu_explain_max_wait_ms < 0:
+            log.fatal("tpu_explain_max_wait_ms should be >= 0")
+        if self.tpu_serve_reprobe_s < 0:
+            log.fatal("tpu_serve_reprobe_s should be >= 0")
         if self.tpu_block_rows < 128 or self.tpu_block_rows % 128 != 0:
             log.fatal("tpu_block_rows should be a positive multiple of 128")
         if self.tpu_fingerprint_freq < 0:

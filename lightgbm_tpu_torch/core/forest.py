@@ -1,6 +1,6 @@
 """Device batch prediction over a whole forest (counterpart of
 lightgbm_tpu/core/forest.py: ``ForestArrays``, ``stack_forest``,
-``forest_predict_fn``, ``forest_leaf_fn``).
+``forest_predict_fn``, ``arena_predict_fn``, ``forest_leaf_fn``).
 
 The reference predicts row by row on the CPU, tree at a time (reference:
 src/boosting/gbdt_prediction.cpp:1-91, tree.h:447-530); the JAX package
@@ -31,11 +31,16 @@ _CHUNK_ELEMS = 1 << 24
 # device forest calls by kind; chip_smoke.py reads them to show that a
 # predict went through the device path
 calls = {"predict": 0, "leaf": 0}
+# multi-tenant arena walks (serve/arena.py), counted apart
+arena_calls = {"arena": 0}
 
 
 class ForestArrays(NamedTuple):
     """Stacked bin-space forest on one device; node tables padded to the
-    widest tree's M nodes.  ``class_id`` and ``depth`` stay on the host."""
+    widest tree's M nodes.  ``class_id`` and ``depth`` stay on the host.
+    ``internal_count``/``leaf_count`` (the cover counts TreeSHAP reads) are
+    stacked only ``with_counts``; ``model_id`` is the multi-tenant arena's
+    lane (``serve/arena.py``), None outside an arena pack."""
     split_feature: torch.Tensor   # i64 [T, M] (-1 = padding)
     threshold_bin: torch.Tensor   # i32 [T, M]
     default_left: torch.Tensor    # bool [T, M]
@@ -46,15 +51,21 @@ class ForestArrays(NamedTuple):
     cat_bitset: torch.Tensor      # i32 [T, M, W] (uint32 words' bits)
     class_id: np.ndarray          # i32 [T]: tree t adds to score column
     depth: np.ndarray             # i32 [T]: levels of each tree's walk
+    internal_count: Optional[torch.Tensor] = None   # i32 [T, M]
+    leaf_count: Optional[torch.Tensor] = None       # i32 [T, M + 1]
+    model_id: Optional[torch.Tensor] = None         # i32 [T]: tree t's tenant
 
 
 def stack_forest(trees_np: list, class_ids: np.ndarray, device,
-                 min_words: int = 0) -> ForestArrays:
+                 min_words: int = 0, with_counts: bool = False,
+                 model_ids: Optional[np.ndarray] = None) -> ForestArrays:
     """Stack per-tree numpy dicts (``GBDT._tree_arrays_np`` /
     ``ServeBinSpace.tree_arrays_np``) into one device batch.  ``min_words``
     pads every category bitset with zero words, so an out-of-range
     sentinel bin (unseen or NaN categories at predict time) finds no bit
-    and routes right."""
+    and routes right.  ``with_counts`` also stacks the per-node cover
+    counts (the dicts must carry them); ``model_ids`` ([T]) stamps the
+    tenant lane ``arena_predict_fn`` masks on."""
     M = max(max(t["split_feature"].shape[0] for t in trees_np), 1)
     W = max(max(t["cat_bitset"].shape[1] for t in trees_np), min_words, 1)
     T = len(trees_np)
@@ -85,6 +96,12 @@ def stack_forest(trees_np: list, class_ids: np.ndarray, device,
         cat_bitset=torch.from_numpy(bits.view(np.int32)).to(device),
         class_id=np.asarray(class_ids, np.int32),
         depth=depth,
+        internal_count=(batch("internal_count", (M,), np.int32)
+                        if with_counts else None),
+        leaf_count=(batch("leaf_count", (M + 1,), np.int32)
+                    if with_counts else None),
+        model_id=(torch.from_numpy(np.asarray(model_ids, np.int32)).to(device)
+                  if model_ids is not None else None),
     )
 
 
@@ -98,10 +115,15 @@ def _leaves(forest: ForestArrays, bins, meta, has_cat: bool,
                        int(forest.depth.max(initial=0)), has_cat, phys)
 
 
-def _chunks(forest: ForestArrays, bins):
+def _row_spans(forest: ForestArrays, n: int):
     rows = max(1024, _CHUNK_ELEMS // max(len(forest.depth), 1))
-    for lo in range(0, bins.shape[0], rows):
-        yield bins[lo:lo + rows]
+    for lo in range(0, n, rows):
+        yield lo, min(lo + rows, n)
+
+
+def _chunks(forest: ForestArrays, bins):
+    for lo, hi in _row_spans(forest, bins.shape[0]):
+        yield bins[lo:hi]
 
 
 def forest_predict_fn(meta, K: int, early_stop: Optional[dict] = None):
@@ -147,6 +169,46 @@ def forest_predict_fn(meta, K: int, early_stop: Optional[dict] = None):
                     top2 = torch.topk(torch.stack(score, 1), 2, dim=1).values
                     margin = top2[:, 0] - top2[:, 1]
                 active = active & (margin < thr)
+        return torch.stack(score, 1)
+
+    return predict
+
+
+def arena_predict_fn(meta, K: int):
+    """Build ``predict(forest, bins, row_model) -> [N, K] f32`` for a
+    multi-tenant arena pack (``serve/arena.py``): the stacked forest holds
+    every resident tenant's trees with a per-tree ``model_id`` lane, and
+    ``row_model`` ([N] int32 on the forest's device) names each row's
+    tenant (-1 for pad rows, which match no tree).  The walk is
+    ``forest_predict_fn``'s with one mask: tree t adds to a row only where
+    ``row_model == model_id[t]``.  ``K`` is the widest tenant's trees an
+    iteration.  No early stop: the margin test is per-model state.
+
+    A miss freezes both ``score`` and ``comp``: an add masked to zero would
+    still fold the residual compensation into the score.  So a row's
+    (score, comp) sequence is exactly the one its own model's solo walk
+    produces (same ops, same order, ``torch.where`` on both), and an arena
+    answer is bit-identical to a solo session's."""
+    has_cat = bool(meta.is_categorical.any())
+
+    def predict(forest: ForestArrays, bins, row_model):
+        arena_calls["arena"] += 1
+        return torch.cat([_sum_chunk(forest, bins[lo:hi], row_model[lo:hi])
+                          for lo, hi in _row_spans(forest, bins.shape[0])])
+
+    def _sum_chunk(forest, bins, row_model):
+        lv = torch.gather(forest.leaf_value, 1,
+                          _leaves(forest, bins, meta, has_cat))    # [T, n]
+        hit = forest.model_id[:, None] == row_model[None, :]       # [T, n]
+        n = bins.shape[0]
+        score = [torch.zeros(n, dtype=torch.float32, device=bins.device)
+                 for _ in range(K)]
+        comp = [torch.zeros_like(s) for s in score]
+        for t, k in enumerate(forest.class_id.tolist()):
+            y = lv[t] - comp[k]
+            t_sum = score[k] + y
+            comp[k] = torch.where(hit[t], (t_sum - score[k]) - y, comp[k])
+            score[k] = torch.where(hit[t], t_sum, score[k])
         return torch.stack(score, 1)
 
     return predict

@@ -15,9 +15,14 @@ throws :class:`FaultInjected` (fatal to the watchdog), ``transient``
 (the stall path), ``hang`` sleeps 3600 s.  Probabilistic conditions draw
 from one numpy generator seeded by ``LGBM_TPU_FAULTS_SEED`` (default 0).
 The points the port reaches are ``device_execute`` (each tree's growth,
-``boosting/gbdt.py``), ``gradients`` and ``checkpoint_write``
-(``robust/checkpoint.py``).  Disarmed, :func:`check` is one ``None``
-test.
+``boosting/gbdt.py``), ``gradients``, ``checkpoint_write``
+(``robust/checkpoint.py``) and the serving ones: ``serve_device``,
+``serve_explain_device`` and ``serve_explain_submit``
+(``serve/session.py``), ``serve_replica`` and ``serve_replica_<i>`` (each
+dispatch of ``serve/router.py``, so one replica can be wedged alone),
+``serve_canary`` and ``serve_swap`` (``serve/registry.py``),
+``serve_arena_device`` and ``serve_arena_swap`` (``serve/arena.py``).
+Disarmed, :func:`check` is one ``None`` test.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Device-wedge watchdog: classify, retry, stamp stalls, fail safely
-(counterpart of lightgbm_tpu/robust/watchdog.py).
+(counterpart of lightgbm_tpu/robust/watchdog.py: ``DeviceGuard`` for
+training, ``CircuitBreaker`` for the serving router).
 
 ``DeviceGuard`` wraps the trainer's device steps (``boosting/gbdt.py``):
 
@@ -200,3 +201,99 @@ class DeviceGuard:
             + (f" at iteration {iteration}" if iteration is not None else "")
             + f": {type(exc).__name__}: {exc}") from exc
 
+
+
+class CircuitBreaker:
+    """Per-replica circuit breaker of the serving router
+    (``serve/router.py``): the serving twin of :class:`DeviceGuard`, with
+    the same failure taxonomy (:func:`classify_error`) and bounded seeded
+    backoff (:func:`backoff_delays`), but instead of retrying in place it
+    takes a replica out of the routing set, so one wedged replica costs
+    capacity, not availability.  States:
+
+    - **closed** — healthy; every request is allowed.
+    - **open** — tripped (a fatal failure at once, or ``trip_after``
+      consecutive transient ones); requests go elsewhere until the backoff
+      expires.  Each re-trip walks the backoff schedule, so a flapping
+      replica is probed less and less often.
+    - **half_open** — the backoff expired; exactly one probe request is
+      let through.  Success closes the breaker, failure re-opens it at the
+      next backoff step.
+    """
+
+    def __init__(self, trip_after: int = 3, backoff_base_s: float = 0.5,
+                 backoff_cap_s: float = 30.0, seed: int = 0):
+        self.trip_after = max(int(trip_after), 1)
+        # long enough that a dead replica keeps being probed at the cap
+        self._delays = backoff_delays(16, backoff_base_s, backoff_cap_s,
+                                      seed)
+        self._lock = threading.Lock()
+        self.state = "closed"
+        self.failures = 0            # lifetime failures
+        self.consecutive = 0         # failures since the last success
+        self.opens = 0               # times the breaker tripped
+        self._open_until = 0.0
+        self._open_step = 0          # index into the backoff schedule
+        # a half-open probe that never resolves (a sibling answered first,
+        # or its thread died) must not strand the breaker: after this long
+        # in half_open without a verdict another probe is allowed
+        self._probe_timeout_s = max(float(backoff_cap_s), 1.0)
+        self._half_open_since = 0.0
+        self.last_error = ""
+
+    def allow(self) -> bool:
+        """True when a request may go to this replica.  While open, flips
+        to half_open (one probe) once the backoff has expired."""
+        with self._lock:
+            now = time.monotonic()
+            if self.state == "closed":
+                return True
+            if self.state == "half_open":
+                if now - self._half_open_since > self._probe_timeout_s:
+                    self._half_open_since = now
+                    return True      # the earlier probe never resolved
+                return False         # a probe is in flight
+            if now >= self._open_until:
+                self.state = "half_open"
+                self._half_open_since = now
+                return True
+            return False
+
+    def record_ok(self) -> None:
+        with self._lock:
+            self.consecutive = 0
+            if self.state == "open":
+                # only the half-open probe closes a tripped breaker: a
+                # late success of a request dispatched before the trip
+                # must not re-admit the replica
+                return
+            self.state = "closed"
+            self._open_step = 0
+
+    def record_failure(self, exc: BaseException) -> str:
+        """Count one failure; returns its class.  A fatal failure, a
+        failed half-open probe or ``trip_after`` consecutive transients
+        open the breaker."""
+        cls = classify_error(exc)
+        with self._lock:
+            self.failures += 1
+            self.consecutive += 1
+            self.last_error = f"{type(exc).__name__}: {exc}"
+            if (cls == "fatal" or self.state == "half_open"
+                    or self.consecutive >= self.trip_after):
+                self.state = "open"
+                self.opens += 1
+                delay = self._delays[min(self._open_step,
+                                         len(self._delays) - 1)]
+                self._open_step += 1
+                self._open_until = time.monotonic() + delay
+        return cls
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            open_for = (max(self._open_until - time.monotonic(), 0.0)
+                        if self.state == "open" else 0.0)
+            return {"state": self.state, "failures": self.failures,
+                    "consecutive": self.consecutive, "opens": self.opens,
+                    "open_for_s": round(open_for, 3),
+                    "last_error": self.last_error or None}

@@ -1,7 +1,8 @@
 """Model-derived bin space: device prediction without training state
 (counterpart of lightgbm_tpu/serve/packing.py: ``collect_split_state``
 and ``ServeBinSpace``, whose ``tree_arrays_np`` also packs the cover
-counts of TreeSHAP; ``pack`` waits for ``serve/``).
+counts of TreeSHAP and whose ``pack`` stacks a tree window, with the
+arena's tenant lane when asked).
 
 The device walk (``core/forest.py``) runs in bin space, which a trained
 booster gets from its dataset's ``BinMapper``s.  A model loaded from text
@@ -66,6 +67,7 @@ class ServeBinSpace:
     def __init__(self, models, num_features: int, device="cpu"):
         F = max(int(num_features), 1)
         self.num_features = F
+        self.device = device
         thr_vals, miss, is_cat, words = collect_split_state(models, F)
 
         # one zero word past the widest node bitset: the sentinel bin's
@@ -150,3 +152,15 @@ class ServeBinSpace:
                                                np.int32)
             out["leaf_count"] = np.asarray(tree.leaf_count[:nl], np.int32)
         return out
+
+    def pack(self, trees, class_ids, with_counts: bool = False,
+             model_ids=None):
+        """Stack a tree window into one ``ForestArrays`` on this space's
+        device; ``model_ids`` ([T]) stamps the per-tree tenant lane of a
+        multi-tenant arena pack (``serve/arena.py``)."""
+        from ..core.forest import stack_forest
+        return stack_forest([self.tree_arrays_np(t, with_counts=with_counts)
+                             for t in trees],
+                            np.asarray(class_ids, np.int32), self.device,
+                            min_words=self.min_words,
+                            with_counts=with_counts, model_ids=model_ids)

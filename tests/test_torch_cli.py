@@ -110,13 +110,15 @@ def test_cli_predict_leaf_and_early_stop(workdir, tmp_path):
                     pred_early_stop_margin=0.5), atol=1e-10)
 
 
-@pytest.mark.parametrize("task,item", [("serve", "serving"),
-                                       ("online", "online"),
-                                       ("refit", "online")])
+@pytest.mark.parametrize("task,item", [
+    # task=serve runs; what it still refuses is the AOT store's directory
+    pytest.param("serve", "serve AOT store", id="serve-serving"),
+    ("online", "online"), ("refit", "online")])
 def test_unported_task_names_its_item(workdir, task, item):
+    extra = ["tpu_serve_aot_dir=aot"] if task == "serve" else []
     r = _run("lightgbm_tpu_torch",
-             [f"task={task}", "input_model=model.txt", "device_type=cpu"],
-             workdir, check=False)
+             [f"task={task}", "input_model=model.txt", "device_type=cpu"]
+             + extra, workdir, check=False)
     assert r.returncode != 0
     assert "ROADMAP.md" in r.stderr and item in r.stderr
 
@@ -244,3 +246,108 @@ def test_cli_predict_contrib(workdir):
     assert got.shape == (len(X), X.shape[1] + 1)
     np.testing.assert_allclose(got, bst.predict(X, pred_contrib=True),
                                rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("min_work", ["0", "1000000000"])
+def test_cli_predict_routes_agree(workdir, min_work):
+    """``LGBM_TPU_PREDICT_MIN_WORK`` forces the route: 0 sends the rows
+    through a ``PredictorSession`` (as the JAX package's CLI does for
+    heavy work), a huge value through ``Booster.predict``; both agree at
+    the serving tolerance."""
+    out = f"route_{min_work}.txt"
+    env = dict(os.environ, LGBM_TPU_PREDICT_MIN_WORK=min_work,
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=predict",
+         "data=data.test", "input_model=model.txt", f"output_result={out}",
+         "device_type=cpu"], cwd=workdir, env=env, capture_output=True,
+        text=True, timeout=420)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert ("through a PredictorSession" in r.stderr) == (min_work == "0")
+    bst = lt.Booster(model_file=str(workdir / "model.txt"), device="cpu")
+    X = np.loadtxt(workdir / "data.test", delimiter="\t")[:, 1:]
+    np.testing.assert_allclose(np.loadtxt(workdir / out), bst.predict(X),
+                               rtol=0, atol=1e-6)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(url, payload=None, timeout=30):
+    import json
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                    timeout=timeout) as resp:
+            body = resp.read().decode()
+            code = resp.status
+    except urllib.error.HTTPError as exc:
+        body, code = exc.read().decode(), exc.code
+    return code, (json.loads(body) if body.startswith("{") else body)
+
+
+def test_cli_task_serve(workdir):
+    """task=serve on the CPU: the fleet answers /health, /predict,
+    /explain, /metrics, /stats, /models, swap and rollback, and exits
+    cleanly on SIGINT."""
+    import signal
+    import time
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+         "input_model=model.txt", "device_type=cpu",
+         f"tpu_serve_port={port}", "tpu_serve_replicas=2",
+         "tpu_serve_max_batch=64", "tpu_serve_rollback_watch_s=0"],
+        cwd=workdir, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 120
+        health = None
+        while time.time() < deadline and proc.poll() is None:
+            try:
+                code, health = _http(url + "/health", timeout=5)
+                if code == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        assert proc.poll() is None and health["status"] == "ok", health
+        assert len(health["replicas"]) == 2
+        bst = lt.Booster(model_file=str(workdir / "model.txt"), device="cpu")
+        X = np.loadtxt(workdir / "data.test", delimiter="\t")[:50, 1:]
+        code, body = _http(url + "/predict", {"rows": X.tolist()})
+        assert code == 200 and body["version"] == 1
+        np.testing.assert_allclose(body["predictions"], bst.predict(X),
+                                   rtol=0, atol=1e-6)
+        code, body = _http(url + "/explain", {"rows": X[:5].tolist()})
+        np.testing.assert_allclose(body["contributions"],
+                                   bst.predict(X[:5], pred_contrib=True),
+                                   rtol=0, atol=1e-5)
+        code, text = _http(url + "/metrics")
+        assert code == 200 and "tpu_serve_models 1" in text
+        assert _http(url + "/stats")[0] == 200
+        assert _http(url + "/models")[1]["default"] == "default"
+        code, rep = _http(url + "/models/default/swap",
+                          {"model_file": "model.txt"})
+        assert code == 200 and rep["to_version"] == 2
+        code, rep = _http(url + "/models/default/rollback", {})
+        assert code == 200 and rep["to_version"] == 1
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            out, err = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+    assert proc.returncode == 0, err[-2000:]

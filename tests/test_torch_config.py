@@ -84,3 +84,30 @@ def test_refused_items_are_roadmap_items():
     assert items
     for item in items:
         assert item.split(": ")[-1] in roadmap, item
+
+
+SERVE_FIELDS = [f for f in FIELDS
+                if f.name.startswith(("tpu_serve", "tpu_explain"))]
+# the serving fields the port still refuses, by the item that brings them
+SERVE_REFUSED = {"tpu_serve_aot_dir": "serve AOT store",
+                 "tpu_serve_rollback_on_drift": "Obs, tools and bindings"}
+
+
+@pytest.mark.parametrize("fld", SERVE_FIELDS, ids=lambda f: f.name)
+def test_serve_field_runs_or_names_its_item(fld):
+    """Every ``tpu_serve_*``/``tpu_explain*`` field takes a non-default
+    value (``serve/`` reads it), except the AOT store's directory and the
+    drift rollback, refused by their items.  Floats are halved (0 becomes
+    0.5), so fractions stay in range."""
+    d = _default(fld)
+    value = ((d / 2 if d else 0.5) if isinstance(d, float)
+             else _other_value(d))
+    if fld.name in SERVE_REFUSED:
+        assert pconfig.refused_item(fld.name) == SERVE_REFUSED[fld.name]
+        with pytest.raises(LightGBMError, match="ROADMAP.md port queue: "
+                           + SERVE_REFUSED[fld.name]):
+            Config.from_params({fld.name: value})
+    else:
+        assert pconfig.refused_item(fld.name) is None
+        assert getattr(Config.from_params({fld.name: value}),
+                       fld.name) == value

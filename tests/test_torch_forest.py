@@ -171,3 +171,60 @@ def test_forest_scan_on_card_equals_cpu(name, rows, es):
     assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
     # the same f32 ops in the same order on both devices
     assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+
+
+def test_stack_forest_lanes_match_reference():
+    """``stack_forest(model_ids=, with_counts=)``: the arena's tenant lane
+    and the cover counts equal the JAX package's stacks of one arena
+    forest of two tenants (the binary model twice: the categorical one
+    types its column differently, which the arena remaps first)."""
+    pytest.importorskip("jax")
+    import lightgbm_tpu as lgb
+    from lightgbm_tpu.serve.packing import ServeBinSpace as RefSpace
+    names = [MODELS[0][0]] * 2
+    port = [Booster(model_file=os.path.join(FIX, n), device="cpu")._gbdt
+            for n in names]
+    ref = [lgb.Booster(model_file=os.path.join(FIX, n))._gbdt for n in names]
+    mids = np.concatenate([np.full(len(g.models), i, np.int32)
+                           for i, g in enumerate(port)])
+    F = max(g.num_features for g in port)
+    trees = [t for g in port for t in g.models]
+    ref_trees = [t for g in ref for t in g.models]
+    space = ServeBinSpace(trees, F, "cpu")
+    ref_space = RefSpace(ref_trees, F)
+    cls = np.zeros(len(trees), np.int32)
+    forest = space.pack(trees, cls, with_counts=True, model_ids=mids)
+    ref_forest = ref_space.pack(ref_trees, cls, with_counts=True,
+                                model_ids=mids)
+    for key in ("model_id", "internal_count", "leaf_count", "threshold_bin",
+                "leaf_value"):
+        np.testing.assert_array_equal(getattr(forest, key).numpy(),
+                                      np.asarray(getattr(ref_forest, key)),
+                                      err_msg=key)
+    plain = space.pack(trees, cls)
+    assert plain.model_id is None and plain.internal_count is None
+
+
+@pytest.mark.cuda
+def test_arena_walk_on_card_equals_cpu():
+    _card()
+    from lightgbm_tpu_torch.core.forest import arena_predict_fn
+    names = [MODELS[0][0]] * 2
+    X = _rows(MODELS[0][1])
+    out = []
+    for dev in ("cpu", "cuda"):
+        gs = [Booster(model_file=os.path.join(FIX, n), device=dev)._gbdt
+              for n in names]
+        trees = [t for g in gs for t in g.models]
+        mids = np.concatenate([np.full(len(g.models), i, np.int32)
+                               for i, g in enumerate(gs)])
+        space = ServeBinSpace(trees, max(g.num_features for g in gs), dev)
+        forest = space.pack(trees, np.zeros(len(trees), np.int32),
+                            model_ids=mids)
+        Xw = np.zeros((len(X), space.num_features))
+        Xw[:, :X.shape[1]] = X
+        rm = torch.from_numpy(np.arange(len(X), dtype=np.int32) % 3 - 1)
+        out.append(arena_predict_fn(space.meta, 1)(
+            forest, torch.from_numpy(space.bin_matrix(Xw)).to(dev),
+            rm.to(dev)).cpu())
+    assert torch.equal(out[0], out[1])

@@ -137,7 +137,7 @@ def test_convert_round_trips(trained):
     {"tree_learner": "feature"},
     {"tpu_trace": True}, {"tree_learner": "data"},
     {"num_machines": 2}, {"tpu_telemetry": "telemetry.jsonl"},
-    {"tpu_serve_port": 8123},
+    {"tpu_serve_aot_dir": "aot"},   # serving runs; its AOT store does not
     {"tree_learner": "voting"},
     {"tree_learner": "data_parallel"}, {"tpu_online_mode": "continue"},
     {"refit_decay_rate": 0.5}, {"tree_learner": "voting_parallel"}])
