@@ -222,6 +222,28 @@ saved to a file and served from it, with its 50-iteration cut:
    them (0) beside the forest walks they ran, then their total seconds and
    a ``{"serving": ...}`` line.
 
+The eleventh slice's phases run after phase (d), while the headline rows
+live (lines start ``API``, ``obs`` and ``drift``, then ``phases 27-28``):
+
+27. the Python API: ``LGBMClassifier().fit`` on the 1M x 28 rows, 5 rounds
+   at 255 leaves, equal (one digest) to ``train`` on the parameters it
+   passes; pickle and ``deepcopy`` round trips bit-equal on 100,000 rows;
+   ``trees_to_dataframe`` one row a node; ``plot_importance`` and
+   ``plot_tree`` to files (the digraph source where graphviz's ``dot`` is
+   missing); a 200,000-row DataFrame with a category column trained,
+   predicted and its categories kept through the model text;
+28. observability: the main path with every plane off, with each of
+   ``tpu_telemetry``, ``tpu_health=strict``, ``tpu_profile``, ``tpu_trace``
+   alone and all together, and off again: the main path's trees every
+   time, 5 ``iteration`` events, K1 held against ``hist_wave_cost``'s
+   bound in ``kernel_profile`` events, the memory peak within the run's
+   ``max_memory_allocated``, s/iter by plane, and no more
+   ``torch.cuda.synchronize`` calls with the planes off again than in the
+   first plain run; the serial grower (K2) under ``tpu_health=strict``;
+   the phase-22 model served with drift monitoring (its quality sidecar):
+   no breach on in-distribution rows, a breach on shifted ones, ``/drift``
+   and ``/debug/flight`` answering.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all, by layout and by sibling form (fused or not); K2 its
@@ -230,7 +252,8 @@ of its model text (equal digests, equal trees).  Prints a
 ``{"kernels": [...]}`` line (``launches`` from each kernel's path,
 ``training_path_launches`` over the three training phases,
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
-and errors, K1's launches on the DART, RF, overlap and resume paths), a
+and errors, K1's launches on the DART, RF, overlap, resume, estimator and
+observability paths, K2's on the serial grower under health), a
 ``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
 bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
 ``shap_cost`` bound), the ``{"serving": ...}`` line and, last, the
@@ -251,9 +274,6 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12            # same sheet, f32 outside the tensor cores
-F64_OPS_PER_S = 34e12            # same sheet, f64 outside the tensor cores
 REPS = 25
 # f32 sums of the same values in another order: per cell the difference
 # is bounded by a few ulps of the sum of magnitudes in that cell
@@ -362,11 +382,21 @@ def sass_atomics(census: dict) -> dict:
     return counts
 
 
+def peaks():
+    """The H100's (memory bytes/s, f32 operations/s, f64 operations/s),
+    the data sheet's, as profile mode holds kernels against them
+    (``lightgbm_tpu_torch/obs/profile.py``)."""
+    from lightgbm_tpu_torch.obs import profile
+    return (profile.H100_HBM_BYTES_PER_S, profile.H100_F32_OPS_PER_S,
+            profile.H100_F64_OPS_PER_S)
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the f32 rate, whichever is larger."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    hbm, f32, _ = peaks()
+    bytes_ms = n_bytes / hbm * 1e3
+    ops_ms = n_ops / f32 * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=int(n_bytes), ops=int(n_ops))
@@ -511,13 +541,11 @@ def check_kernel(hw, N, F, B, leaves, fused, mode, seed, packed=True,
     out = torch.zeros((F * B * leaves, 3), dtype=src.dtype, device=DEV)
     library_ms = cuda_ms(lambda: out.index_add_(0, flat_idx, src))
 
-    hist_bytes = F * B * 128 * 4
-    n_hist = (2 if packed else 1) * (3 if fused else 1)
-    n_bytes = F * N + (8 if quant else 16) * N + 128 * 4 + n_hist * hist_bytes
-    # adds these inputs need: g, h and count for every (feature, row in a
-    # pending slot), and the sibling subtraction per histogram cell
-    n_ops = 3 * F * int(r.numel()) + (n_hist // 3 * F * B * 128
-                                      if fused else 0)
+    # K1's bytes and the adds these inputs need (the rows in a pending
+    # slot), as profile mode counts them
+    n_ops, n_bytes = hw.hist_wave_cost(N, F, B, int(r.numel()),
+                                       packed=packed, fused=fused,
+                                       quant=quant)
     res = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, **bound(n_bytes, n_ops))
     return tag, res
@@ -582,8 +610,7 @@ def check_channels(hc, N, F, B, C, seed, skew=False):
     library_ms = cuda_ms(lambda: out.index_add_(0, flat_idx, src))
     del src, flat_idx, out
     torch.cuda.empty_cache()
-    n_bytes = F * N + 4 * N * C + 4 * F * B * C
-    n_ops = F * N * C                       # every bin here is < B
+    n_ops, n_bytes = hc.hist_channels_cost(N, F, B, C)  # every bin < B
     res = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, **bound(n_bytes, n_ops))
     return tag, res
@@ -720,8 +747,9 @@ def train_phase(lt, hw, hc, name, params, ds, kind, card, rounds=5,
           f"{float(np.median(per_iter)):.4f}), first {gb.iter_seconds[0]:.4f};"
           f" peak device memory {torch.cuda.max_memory_allocated()} bytes "
           f"[{kind}, {card}]", flush=True)
-    print(f"{name}: train {dict(curves)}; model digest {model_digest(bst)}",
-          flush=True)
+    print(f"{name}: train {dict(curves)}; model digest {model_digest(bst)}"
+          f" (under the earlier parameter-block rule "
+          f"{legacy_digest(bst)})", flush=True)
     return bst, counts, curves, float(np.median(per_iter)) * 1e3
 
 
@@ -912,6 +940,30 @@ def model_digest(bst) -> str:
     """First 16 hex digits of the sha256 of the model text: equal digests
     mean equal trees (two package copies on the same data compare by it)."""
     return hashlib.sha256(bst.model_to_string().encode()).hexdigest()[:16]
+
+
+def legacy_digest(bst) -> str:
+    """``model_digest`` of the model text with the parameter block written
+    as the port wrote it before that block followed the JAX package's rule
+    (the fields off their default only, in field order): it reproduces
+    the digests earlier runs recorded (28b298b3082595ad for the main path,
+    PERF.md), so equal values mean the trees did not change."""
+    import dataclasses
+    text = bst.model_to_string()
+    head, _, _ = text.partition("\nparameters:\n")
+    cfg = bst._gbdt.config
+    block = []
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        d = (f.default if f.default is not dataclasses.MISSING
+             else f.default_factory())
+        if f.name != "is_parallel" and v != d:
+            if isinstance(v, (list, tuple)):
+                v = ",".join(str(x) for x in v)
+            block.append(f"[{f.name}: {v}]\n")
+    text = head + "\nparameters:\n" + "".join(block) \
+        + "\nend of parameters\n"
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def grower_inputs(gb):
@@ -1362,7 +1414,7 @@ def rank_phase(lt, hw, hc, res, kind, card):
           f"events, median of 5, {n_chunks} chunks of up to "
           f"{pair_chunk_elems(DEV):,} pair elements); bound {pb['bound_ms']:.4f}"
           f" ms by {pb['bound_by']} ({ops:.4g} operations, {n_bytes:.4g} "
-          f"bytes: {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); "
+          f"bytes: {n_bytes / peaks()[0] * 1e3:.4f} ms at 3.35 TB/s); "
           f"train NDCG@10 device {dev!r}, host loop {host!r}, |diff| "
           f"{abs(dev - host):.3g} (tol 1e-6) [{kind}, {card}]", flush=True)
     if abs(dev - host) > 1e-6 or not 0.0 < dev <= 1.0:
@@ -1371,7 +1423,7 @@ def rank_phase(lt, hw, hc, res, kind, card):
             "route": "torch", "source": "lightgbm_tpu_torch/objective/rank.py",
             "replaces": "lightgbm_tpu/objective/rank.py:50 (XLA)",
             "ms": pair_ms, "bound_ms": pb["bound_ms"],
-            "bound_by": pb["bound_by"], "bytes_ms": n_bytes / HBM_BYTES_PER_S
+            "bound_by": pb["bound_by"], "bytes_ms": n_bytes / peaks()[0]
             * 1e3, "library_ms": None, "calls_per_iteration": 1}
     return counts, pair
 
@@ -2002,7 +2054,8 @@ def treeshap_phase(bst, X, name, rows, oracle_checks, kind, card):
     flops, nbytes = sum(r[0] for r in runs), sum(r[1] for r in runs)
     padded_flops = shap_cost(rows, T, L, P, F, K)[0]
     b = bound(nbytes, flops)
-    b64 = bound(nbytes, flops * F32_OPS_PER_S / F64_OPS_PER_S)
+    _, f32, f64 = peaks()
+    b64 = bound(nbytes, flops * f32 / f64)
     raw = bst.predict(Xs, raw_score=True).reshape(rows, K)
     acc = float(np.abs(contrib.reshape(rows, K, F + 1).sum(-1) - raw).max())
     err, checked, host_s = 0.0, [], 0.0
@@ -2203,7 +2256,7 @@ def oracle_phase(lt, hw, hc, params, ds, main_trees, main_ms, kind, card):
             splits = [t.num_leaves - 1 for t in bst._gbdt.models]
             per_split = n * (1 + 4 + 4)
             tree_ms = (per_split * float(np.mean(splits))
-                       / HBM_BYTES_PER_S * 1e3)
+                       / peaks()[0] * 1e3)
             print(f"sequential split apply: {per_split / 1e6:.1f} MB a split "
                   f"x {float(np.mean(splits)):.0f} splits a tree = bound "
                   f"{tree_ms:.4f} ms a tree (bytes), against "
@@ -2797,6 +2850,327 @@ def serve_cli_phase(lt, model, X, kind, card):
         raise AssertionError(f"task=serve failed: {stderr[-2000:]}")
 
 
+# ---- 27-28: the Python API and observability on the card ------------------
+
+API_CHECK_ROWS = 100_000         # rows predicted through the copies
+PANDAS_ROWS = 200_000            # rows of the DataFrame with a category
+DRIFT_ROWS = 20_000              # served rows, in distribution and shifted
+
+
+def sklearn_api_phase(lt, hw, hc, X, y, main_trees, kind, card):
+    """(27) ``LGBMClassifier().fit`` on the headline rows, 5 rounds at 255
+    leaves (the main path's parameters, counts zeroed first): its model
+    equals ``lt.train``'s on the parameters the estimator passes (one
+    digest), and its trees the main path's.  Then, on the card-trained
+    booster: a pickle and a ``deepcopy`` round trip, predictions on
+    ``API_CHECK_ROWS`` rows bit-equal; ``trees_to_dataframe`` with one row
+    a node; ``plot_importance`` and ``plot_tree`` to files (Agg; the tree
+    through graphviz's ``dot`` where it is installed, else its digraph
+    source); and a pandas DataFrame of ``PANDAS_ROWS`` rows with a
+    category column trained and predicted, its categories kept through
+    the model text.  The pandas and the matplotlib steps each run where
+    their package is installed (host work: no card in them) and say so
+    where it is not.  Returns (K1 counts of the fit, seconds)."""
+    import copy
+    import importlib.util
+    import pickle
+    missing = [m for m in ("pandas", "matplotlib")
+               if importlib.util.find_spec(m) is None]
+    t0 = time.perf_counter()
+    reset_counts(hw, hc)
+    clf = lt.LGBMClassifier(n_estimators=5, num_leaves=255,
+                            learning_rate=0.1, max_bin=255,
+                            min_child_samples=100, verbose=-1)
+    t_fit = time.perf_counter()
+    clf.fit(X, y)
+    fit_s = time.perf_counter() - t_fit
+    counts = read_counts(hw, hc)
+    bst = clf.booster_
+    if bst.device.type != DEV or counts["k1"] == 0:
+        raise AssertionError(f"the estimator did not train on the card: "
+                             f"{bst.device}, {counts}")
+    p = dict(bst.params)
+    ref = lt.train(p, lt.Dataset(X, label=y.astype(np.float64), params=p),
+                   num_boost_round=5)
+    est_digest, ref_digest = model_digest(bst), model_digest(ref)
+    del ref
+    Xc = X[:API_CHECK_ROWS]
+    want = clf.predict_proba(Xc)
+    pickled = pickle.loads(pickle.dumps(clf))
+    dup = copy.deepcopy(bst)
+    pickle_err = float(np.abs(pickled.predict_proba(Xc) - want).max())
+    copy_err = float(np.abs(dup.predict(Xc) - want[:, 1]).max())
+    if dup.device.type != DEV:
+        raise AssertionError("the deep copy left the card")
+    print(f"API: LGBMClassifier.fit on {X.shape[0]:,} x {X.shape[1]} in "
+          f"{fit_s:.2f} s, K1 launches {counts['k1']}; model digest "
+          f"{est_digest} = lt.train's {ref_digest}; trees digest "
+          f"{trees_digest(bst)} (main path {main_trees}); pickle "
+          f"|diff| {pickle_err!r}, deepcopy |diff| {copy_err!r} over "
+          f"{API_CHECK_ROWS:,} rows [{kind}, {card}]", flush=True)
+    if est_digest != ref_digest:
+        raise AssertionError("the estimator's model differs from lt.train's")
+    if pickle_err != 0.0 or copy_err != 0.0:
+        raise AssertionError("a pickled or copied booster predicts "
+                             "otherwise")
+    if missing:
+        print(f"API: not installed on this machine: {', '.join(missing)}; "
+              f"the steps that need it are not run (host work: no card in "
+              f"them; tests/test_torch_api.py and test_torch_plotting.py run "
+              f"them on the CPU) [{kind}, {card}]", flush=True)
+    if "matplotlib" not in missing:
+        api_plots(lt, bst, kind, card)
+    if "pandas" not in missing:
+        api_pandas(lt, bst, X, y, kind, card)
+    return counts, time.perf_counter() - t0
+
+
+def api_plots(lt, bst, kind, card):
+    """Phase 27's plots to files: the importance bars, and tree 0 (through
+    graphviz's ``dot`` where it is installed, else its digraph source)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    os.makedirs(SCRATCH, exist_ok=True)
+    imp_png = os.path.join(SCRATCH, "importance.png")
+    lt.plot_importance(bst).figure.savefig(imp_png)
+    tree_file = os.path.join(SCRATCH, "tree0.png")
+    try:
+        lt.plot_tree(bst, tree_index=0).figure.savefig(tree_file)
+        tree_how = "plot_tree"
+    except Exception as exc:  # noqa: BLE001 — no graphviz on the host
+        tree_file = os.path.join(SCRATCH, "tree0.gv")
+        with open(tree_file, "w") as fh:
+            fh.write(lt.create_tree_digraph(bst, tree_index=0).source)
+        tree_how = f"digraph source ({type(exc).__name__}: {exc})"
+    print(f"API: plot_importance -> {os.path.getsize(imp_png)} bytes, tree 0"
+          f" by {tree_how} -> {os.path.getsize(tree_file)} bytes "
+          f"[{kind}, {card}]", flush=True)
+
+
+def api_pandas(lt, bst, X, y, kind, card):
+    """Phase 27's pandas steps: one ``trees_to_dataframe`` row a node, and
+    a DataFrame with a category column trained on the card and predicted,
+    its categories kept through the model text."""
+    import pandas as pd
+    df = bst.trees_to_dataframe()
+    nodes = sum(2 * t.num_leaves - 1 for t in bst._gbdt.models)
+    # the first column cut into 8 named categories
+    n = PANDAS_ROWS
+    cut = np.digitize(X[:n, 0], np.quantile(X[:n, 0], np.linspace(
+        0, 1, 9)[1:-1]))
+    frame = pd.DataFrame(X[:n, 1:], columns=[f"f{i}" for i in range(1, 28)])
+    frame["c0"] = pd.Categorical(np.asarray(list("abcdefgh"))[cut])
+    pp = {"objective": "binary", "num_leaves": 63, "verbose": -1}
+    pbst = lt.train(pp, lt.Dataset(frame, label=y[:n], params=pp),
+                    num_boost_round=5)
+    ppred = pbst.predict(frame)
+    re = lt.Booster(model_str=pbst.model_to_string())
+    pandas_err = float(np.abs(re.predict(frame) - ppred).max())
+    print(f"API: trees_to_dataframe {len(df)} rows for {nodes} nodes; "
+          f"DataFrame {n:,} x 28 with a category column: categories "
+          f"{pbst.pandas_categorical}, train AUC {auc_of(ppred, y[:n]):.4f},"
+          f" model-text round trip |diff| {pandas_err!r} [{kind}, {card}]",
+          flush=True)
+    if len(df) != nodes or not df.node_index.is_unique:
+        raise AssertionError("trees_to_dataframe is not one row a node")
+    if pandas_err != 0.0 or re.pandas_categorical != [list("abcdefgh")] \
+            or pbst.feature_name()[-1] != "c0":
+        raise AssertionError("pandas categories did not survive the model "
+                             "text")
+
+
+def auc_of(pred, label) -> float:
+    """Rank AUC of binary labels (no ties expected)."""
+    order = np.argsort(pred, kind="stable")
+    ranks = np.empty(len(pred))
+    ranks[order] = np.arange(1, len(pred) + 1)
+    pos = np.asarray(label) == 1
+    return float((ranks[pos].sum() - pos.sum() * (pos.sum() + 1) / 2)
+                 / (pos.sum() * (~pos).sum()))
+
+
+def obs_phase(lt, hw, hc, params, ds, main_trees, legacy, kind, card):
+    """(28) The main path (5 rounds) with every observability plane off,
+    then with each of ``tpu_telemetry``, ``tpu_health=strict``,
+    ``tpu_profile`` and ``tpu_trace`` on alone, then all four, then off
+    again; counts zeroed before each run and read after.  Every run's
+    trees must be the main path's (``trees_digest``), and the model text
+    of a run with the planes off the main path's under the earlier
+    parameter-block rule (``legacy_digest``, the digest earlier runs
+    recorded); the all-on run's telemetry file must hold 5
+    ``iteration`` events, ``kernel_profile`` events of K1 against
+    ``hist_wave_cost``'s bound, and a memory peak at or under the run's
+    ``max_memory_allocated`` (profile mode resets the allocator's peak at
+    each phase exit, so the run's is the largest read before a reset); ``torch.cuda.synchronize`` is counted in the
+    first and the last (planes off) runs, and the last may make no more
+    than the first.  Then the same with ``feature_fraction_bynode`` (the
+    serial grower, K2) under ``tpu_health=strict``, 2 rounds.  Returns
+    (K1 counts of the all-on run, K2 counts of the serial run, s/iter by
+    plane, seconds)."""
+    import shutil
+
+    import torch
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import profile
+    t0 = time.perf_counter()
+    tel = os.path.join(SCRATCH, "telemetry")
+    shutil.rmtree(tel, ignore_errors=True)
+    syncs = [0]
+    real_sync = torch.cuda.synchronize
+    real_reset = torch.cuda.reset_peak_memory_stats
+    run_peak = [0]
+
+    def counted(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    def peak_kept(*a, **k):
+        # profile mode resets the allocator's peak at each phase exit;
+        # the run's own peak is the largest one read before a reset
+        run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+        return real_reset(*a, **k)
+
+    def off():
+        obs.disable()
+        obs.enable_profile(False)
+        obs.enable_health("")
+        obs.enable_trace(False)
+        obs.reset()
+
+    planes = {"off": {}, "telemetry": {"tpu_telemetry": tel + "_t"},
+              "health": {"tpu_health": "strict"},
+              "profile": {"tpu_profile": True}, "trace": {"tpu_trace": True},
+              "all": {"tpu_telemetry": tel, "tpu_health": "strict",
+                      "tpu_profile": True, "tpu_trace": True},
+              "off again": {}}
+    s_iter, sync_n, all_counts, peak = {}, {}, None, None
+    torch.cuda.synchronize = counted
+    torch.cuda.reset_peak_memory_stats = peak_kept
+    try:
+        for name, extra in planes.items():
+            off()
+            syncs[0] = 0
+            reset_counts(hw, hc)
+            real_reset()
+            run_peak[0] = 0
+            bst = lt.train({**params, **extra}, ds, num_boost_round=5,
+                           device=DEV)
+            counts = read_counts(hw, hc)
+            sync_n[name] = syncs[0]
+            s_iter[name] = float(np.median(bst._gbdt.iter_seconds[1:]))
+            if trees_digest(bst) != main_trees or (
+                    not extra and legacy_digest(bst) != legacy):
+                raise AssertionError(f"obs {name}: trees differ from the "
+                                     f"main path's ({trees_digest(bst)}, "
+                                     f"{legacy_digest(bst)})")
+            if name == "all":
+                all_counts = counts
+                peak = max(run_peak[0], torch.cuda.max_memory_allocated())
+                obs.event("summary", **obs.digest())
+            del bst
+        off()
+    finally:
+        torch.cuda.synchronize = real_sync
+        torch.cuda.reset_peak_memory_stats = real_reset
+    events = [json.loads(line) for line in
+              open(os.path.join(tel, "telemetry.0.jsonl"))]
+    iters = [e for e in events if e["event"] == "iteration"]
+    kp = [e for e in events if e["event"] == "kernel_profile"
+          and e["kernel"] == "hist_wave"]
+    k1_bound_ok = all(
+        abs(e["roofline_s"] - profile.roofline_seconds(
+            e["flops"], e["bytes"])) <= 1e-9 for e in kp)
+    summ = [e for e in events if e["event"] == "summary"][-1]
+    mem_peak = summ.get("memory", {}).get("peak_bytes", 0)
+    spans = sum(1 for e in events if e["event"] == "span")
+    fps = sum(1 for e in events if e["event"] == "fingerprint")
+    k1 = summ.get("kernels", {}).get("hist_wave", {})
+    print(f"obs: s/iter by plane {json.dumps(s_iter)}; "
+          f"torch.cuda.synchronize calls by run {json.dumps(sync_n)}; "
+          f"all planes on: {len(iters)} iteration events, {len(kp)} K1 "
+          f"kernel_profile events for {all_counts['k1']} K1 launches "
+          f"(bound = hist_wave_cost: {k1_bound_ok}; K1 {k1.get('achieved_s')}"
+          f" s against a bound of {k1.get('roofline_s')} s), {fps} "
+          f"fingerprints, {spans} spans, memory peak {mem_peak} bytes "
+          f"(max_memory_allocated {peak}) [{kind}, {card}]", flush=True)
+    if len(iters) != 5 or not kp or not k1_bound_ok \
+            or len(kp) != all_counts["k1"]:
+        raise AssertionError("the telemetry file lacks the iterations or "
+                             "K1's profile")
+    if not 0 < mem_peak <= peak:
+        raise AssertionError(f"memory peak {mem_peak} is not within "
+                             f"max_memory_allocated {peak}")
+    if sync_n["off again"] > sync_n["off"]:
+        raise AssertionError("with every plane off the main path "
+                             "synchronizes more than the plain run")
+    # the serial grower (K2) under the health sentinels
+    off()
+    reset_counts(hw, hc)
+    sp = {**params, "feature_fraction_bynode": 0.5, "tpu_health": "strict"}
+    sbst = lt.train(sp, ds, num_boost_round=2, device=DEV)
+    serial_counts = read_counts(hw, hc)
+    checks = obs.counter_value("health/checks")
+    off()
+    print(f"obs: serial grower (K2) under tpu_health=strict: "
+          f"{serial_counts['k2']} K2 launches, "
+          f"{len(sbst._gbdt.models)} trees, s/iter "
+          f"{float(np.mean(sbst._gbdt.iter_seconds)):.4f} [{kind}, {card}]",
+          flush=True)
+    if sbst._gbdt.uses_wave or serial_counts["k2"] == 0:
+        raise AssertionError("the serial grower did not run K2 under "
+                             "health")
+    del sbst, checks
+    return all_counts, serial_counts, s_iter, time.perf_counter() - t0
+
+
+def drift_phase(lt, model, X, kind, card):
+    """(28, serving) The phase-22 model (saved with its quality sidecar)
+    served with ``tpu_drift`` on, every row sampled: ``DRIFT_ROWS`` of its
+    training rows breach nothing, as many other rows shifted (x 2.5 + 1.5)
+    breach; over HTTP
+    ``/drift`` answers the monitor's status and ``/debug/flight`` the
+    flight ring (200)."""
+    from lightgbm_tpu_torch.serve import PredictorSession, PredictServer
+    cfg = {"tpu_drift_sample_rate": 1.0, "tpu_drift_min_rows": 1000,
+           "verbose": -1}
+    sess = PredictorSession(model, config=cfg, device=DEV)
+    server = None
+    try:
+        mon = sess._drift
+        if mon is None:
+            raise AssertionError("the served model's sidecar armed no "
+                                 "drift monitor")
+        n = DRIFT_ROWS
+        for lo in range(0, n, 1024):
+            sess.predict(X[lo:min(lo + 1024, n)])
+        quiet = mon.maybe_check(force=True)
+        quiet_breach = mon.breach
+        mon.reset_window()
+        shifted = X[n:2 * n] * 2.5 + 1.5
+        for lo in range(0, len(shifted), 1024):
+            sess.predict(shifted[lo:lo + 1024])
+        loud = mon.maybe_check(force=True)
+        server = PredictServer(sess).start()
+        _, drift, _ = http(server.url + "/drift")
+        flight_code, flight, _ = http(server.url + "/debug/flight")
+    finally:
+        if server is not None:
+            server.stop()
+        sess.close()
+    print(f"drift: in-distribution psi_max {quiet['psi_max']} pred_psi "
+          f"{quiet['pred_psi']} (breach {quiet_breach}); shifted psi_max "
+          f"{loud['psi_max']} pred_psi {loud['pred_psi']} (breach "
+          f"{mon.breach and mon.breach['kinds']}); /drift armed "
+          f"{drift.get('armed')}, /debug/flight {flight_code} with "
+          f"{len(flight.get('events', []))} events [{kind}, {card}]",
+          flush=True)
+    if quiet_breach is not None or mon.breach is None:
+        raise AssertionError("drift: no breach on shifted rows, or one on "
+                             "in-distribution rows")
+    if not drift.get("drift") or flight_code != 200:
+        raise AssertionError("/drift or /debug/flight did not answer")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2875,8 +3249,8 @@ def main() -> int:
                         check_launches=hc.hist_channels.launches - n0)
     for k in res.values():
         print_check(k, kind, card)
-    used3 = bound(M[0] * M[1] + 4 * M[0] * 3 + 4 * M[1] * M[2] * 3,
-                  M[0] * M[1] * 3)
+    ops3, bytes3 = hc.hist_channels_cost(M[0], M[1], M[2], 3)
+    used3 = bound(bytes3, ops3)
     print(f"K2 at C=32 for the serial grower's three channels: bound of the "
           f"3 channels it uses {used3['bound_ms']:.4f} ms, of the 32 it "
           f"reads {res['k2_c32']['bound_ms']:.4f} ms (by "
@@ -2900,6 +3274,7 @@ def main() -> int:
         raise AssertionError(f"train AUC {auc[-1]} <= 0.7")
     digest = model_digest(bst)
     main_trees = trees_digest(bst)   # before the profiled 6th iteration
+    main_legacy = legacy_digest(bst)
     again = train_phase(lt, hw, hc, "main path (repeat)", params, ds, kind,
                         card)[0]
     print(f"main path repeat: model digests {digest} / {model_digest(again)}"
@@ -2971,6 +3346,17 @@ def main() -> int:
         lt, hw, hc, params, ds, X, y, kind, card)
     counts_cegb = cegb_wave_phase(lt, hw, hc, params, ds, kind, card)
     api_phase(lt, params, ds, X, y, kind, card)
+
+    # ---- 27. the Python API on the card; 28. observability on the card --
+    t_obs = time.perf_counter()
+    counts_sk, api_s = sklearn_api_phase(lt, hw, hc, X, y, main_trees, kind,
+                                         card)
+    counts_obs, counts_obs_serial, obs_s_iter, obs_s = obs_phase(
+        lt, hw, hc, params, ds, main_trees, main_legacy, kind, card)
+    drift_phase(lt, serve_model, X, kind, card)
+    print(f"phases 27-28: {time.perf_counter() - t_obs:.1f} s (27: "
+          f"{api_s:.1f} s, 28 training: {obs_s:.1f} s) [{kind}, {card}]",
+          flush=True)
     del X, y, ds
 
     # ---- 9. CLI; (e) sparse input; (f) the CLI on LibSVM -----------------
@@ -3048,7 +3434,10 @@ def main() -> int:
               dart_path_launches=slice_counts["dart"][0]["k1_packed"],
               rf_path_launches=slice_counts["rf"][0]["k1_packed"],
               overlap_path_launches=counts_overlap["k1_packed"],
-              resume_path_launches=counts_resume["k1_packed"]),
+              resume_path_launches=counts_resume["k1_packed"],
+              sklearn_path_launches=counts_sk["k1_packed"],
+              obs_path_launches=counts_obs["k1_packed"],
+              obs_s_per_iter=obs_s_iter),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
@@ -3086,6 +3475,7 @@ def main() -> int:
               "lightgbm_tpu/ops/pallas_hist.py:199", counts_serial["k2"],
               ["k2_c32"], bound_3_channels_ms=used3["bound_ms"],
               all_wide_path_launches=counts_wide["k2"],
+              obs_serial_path_launches=counts_obs_serial["k2"],
               wide_histogram_root_ms=wide_ms,
               wide_histogram_bound_ms=wide_bound,
               side_pass_in_its_place_root_ms=side_ms),

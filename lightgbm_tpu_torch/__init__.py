@@ -20,8 +20,16 @@ inputs, through the stacked forest on the device (``core/forest.py``);
 it explains predictions by TreeSHAP (``pred_contrib``: ``explain/`` on the
 device, ``core/shap.py`` on the host) and writes a model as C code
 (``model_to_if_else``).  ``python -m lightgbm_tpu_torch`` is the CLI
-(``task=train``, ``task=predict``, ``task=convert_model``).
-It imports torch and numpy (scipy for sparse input), never jax or
+(``task=train``, ``task=predict``, ``task=convert_model``,
+``task=serve``); ``serve/`` serves models from the device.  The v2.3.2
+Python API is whole: ``Dataset`` and ``Booster`` (pandas input, pickling,
+``trees_to_dataframe`` and the rest), the scikit-learn estimators
+(``sklearn.py``) and the plots (``plotting.py``).  ``obs/`` is the
+observability plane: telemetry, spans and the flight recorder, the
+memory census, kernel times against their bounds, training-health
+sentinels and the drift and quality plane.
+It imports torch and numpy (scipy for sparse input; pandas, matplotlib,
+graphviz and scikit-learn where their features are used), never jax or
 lightgbm_tpu.  Anything
 outside the port raises ``LightGBMError`` naming the ROADMAP.md item that
 will bring it.
@@ -29,9 +37,26 @@ will bring it.
 from .basic import Booster, Dataset
 from .callback import (early_stopping, print_evaluation, record_evaluation,
                        reset_parameter)
+from .config import Config
 from .engine import CVBooster, cv, train
 from .utils.log import LightGBMError
 
-__all__ = ["Booster", "CVBooster", "Dataset", "LightGBMError", "cv",
-           "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "train"]
+try:  # the sklearn wrappers are optional at import time
+    from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+    _SKLEARN = ["LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker"]
+except ImportError:  # pragma: no cover
+    _SKLEARN = []
+
+try:
+    from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                           plot_split_value_histogram, plot_tree)
+    _PLOT = ["plot_importance", "plot_metric", "plot_tree",
+             "create_tree_digraph", "plot_split_value_histogram"]
+except ImportError:  # pragma: no cover
+    _PLOT = []
+
+__version__ = "0.1.0"
+
+__all__ = ["Booster", "CVBooster", "Config", "Dataset", "LightGBMError",
+           "cv", "early_stopping", "print_evaluation", "record_evaluation",
+           "reset_parameter", "train"] + _SKLEARN + _PLOT

@@ -1,7 +1,10 @@
 """Dataset and Booster (counterpart of lightgbm_tpu/basic.py; reference:
 python-package/lightgbm/basic.py).  Binning runs on the host; a Booster
 trains and predicts on ``device`` ("cuda" unless the caller, or the
-``device_type`` parameter, asks for "cpu")."""
+``device_type`` parameter, asks for "cpu").  A pandas DataFrame's column
+names become feature names and its ``category`` columns their codes
+(categorical unless the caller says otherwise); a Booster pickles and
+copies through its model text, and comes back on the device it ran on."""
 from __future__ import annotations
 
 import copy
@@ -16,7 +19,11 @@ from .config import Config
 from .io.dataset import BinnedDataset
 from .metric import create_metrics
 from .objective import create_objective
+from .utils import log
 from .utils.log import LightGBMError
+
+_ONLINE = "the rest of queue 1: online and serve"
+_PARALLEL = "the rest of queue 1: parallel and fleet planes"
 
 
 def parse_categorical_spec(spec: str) -> list:
@@ -33,6 +40,51 @@ def parse_categorical_spec(spec: str) -> list:
 
 def _is_scipy_sparse(data) -> bool:
     return hasattr(data, "toarray") and hasattr(data, "tocsr")
+
+
+def _is_pandas_df(data) -> bool:
+    return hasattr(data, "columns") and hasattr(data, "dtypes")
+
+
+def _data_from_pandas(df, categorical_feature="auto",
+                      pandas_categorical=None):
+    """A DataFrame as (f64 matrix, column names, categorical_feature,
+    pandas_categorical) (reference: basic.py:313-354; reference package:
+    basic.py ``_data_from_pandas``).  ``category`` columns become their
+    codes in the category lists of training (``pandas_categorical``, taken
+    from this frame when None), NaN where a value is missing or was not
+    seen in training; with ``categorical_feature="auto"`` the unordered
+    ones are categorical."""
+    import pandas as pd
+    cat_cols = [c for c in df.columns
+                if isinstance(df[c].dtype, pd.CategoricalDtype)]
+    unordered = [c for c in cat_cols if not df[c].cat.ordered]
+    if cat_cols:
+        df = df.copy()
+    if pandas_categorical is None:
+        pandas_categorical = [list(df[c].cat.categories) for c in cat_cols]
+    else:
+        if len(cat_cols) != len(pandas_categorical):
+            raise LightGBMError("train and valid dataset "
+                                "categorical_feature do not match.")
+        for c, cats in zip(cat_cols, pandas_categorical):
+            if list(df[c].cat.categories) != list(cats):
+                df[c] = df[c].cat.set_categories(cats)
+    for c in cat_cols:
+        codes = df[c].cat.codes.to_numpy().astype(np.float64)
+        codes[codes == -1] = np.nan
+        df[c] = codes
+    names = [str(c) for c in df.columns]
+    if categorical_feature == "auto":
+        categorical_feature = [names.index(str(c)) for c in unordered]
+    mat = np.ascontiguousarray(df.to_numpy(dtype=np.float64))
+    return mat, names, categorical_feature, pandas_categorical
+
+
+def _values(x):
+    """A pandas Series or frame as its numpy values; anything else as it
+    is."""
+    return x.values if hasattr(x, "values") and hasattr(x, "index") else x
 
 
 def _padded_dense(mat, n_feat: int) -> np.ndarray:
@@ -85,7 +137,7 @@ class Dataset:
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
+                 free_raw_data: bool = True, silent: bool = False):
         self.init_score = init_score
         self.used_indices: Optional[np.ndarray] = None
         self._matrix_cache = None
@@ -99,6 +151,7 @@ class Dataset:
         self.params = dict(params) if params else {}
         self.free_raw_data = free_raw_data
         self._handle: Optional[BinnedDataset] = None
+        self.pandas_categorical = None
 
     def construct(self) -> "Dataset":
         """Bin the raw data (reference: _lazy_init, basic.py:819)."""
@@ -116,10 +169,21 @@ class Dataset:
             self._handle = load_dataset(path)
         else:
             sparse = _is_scipy_sparse(self.data)
-            mat = self.data if sparse else np.asarray(self.data)
-            names = (list(self.feature_name)
-                     if isinstance(self.feature_name, (list, tuple))
-                     else None)
+            names = None
+            if _is_pandas_df(self.data):
+                ref_pc = (self.reference.construct().pandas_categorical
+                          if self.reference is not None else None)
+                mat, names, auto_cat, self.pandas_categorical = \
+                    _data_from_pandas(self.data, self.categorical_feature,
+                                      ref_pc)
+                if self.categorical_feature == "auto" and auto_cat:
+                    # "auto" stays when no column is a category, so the
+                    # categorical_feature parameter still applies
+                    self.categorical_feature = auto_cat
+            else:
+                mat = self.data if sparse else np.asarray(self.data)
+            if isinstance(self.feature_name, (list, tuple)):
+                names = list(self.feature_name)
             ref = (self.reference.construct()._handle
                    if self.reference is not None else None)
             builder = (BinnedDataset.from_csr if sparse
@@ -130,7 +194,8 @@ class Dataset:
                     names or [f"Column_{i}" for i in range(mat.shape[1])]),
                 feature_names=names, reference=ref)
         if self.label is not None:
-            self._handle.metadata.set_label(np.asarray(self.label).ravel())
+            self._handle.metadata.set_label(
+                np.asarray(_values(self.label)).ravel())
         self.set_weight(self.weight)
         self.set_group(self.group)
         self.set_init_score(self.init_score)
@@ -158,10 +223,19 @@ class Dataset:
                 out.append(int(c))
         return sorted(set(out))
 
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation Dataset binned in this one's bin space."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params,
+                       free_raw_data=self.free_raw_data)
+
     def set_weight(self, weight) -> None:
         self.weight = weight
         if self._handle is not None and weight is not None:
-            self._handle.metadata.set_weights(np.asarray(weight).ravel())
+            self._handle.metadata.set_weights(
+                np.asarray(_values(weight)).ravel())
 
     def set_group(self, group) -> None:
         """Query sizes (or boundaries) of the rows, in row order."""
@@ -179,7 +253,8 @@ class Dataset:
     def set_label(self, label) -> None:
         self.label = label
         if self._handle is not None and label is not None:
-            self._handle.metadata.set_label(np.asarray(label).ravel())
+            self._handle.metadata.set_label(
+                np.asarray(_values(label)).ravel())
 
     def get_label(self):
         if self._handle is not None and self._handle.metadata.label is not None:
@@ -194,6 +269,13 @@ class Dataset:
 
     def get_init_score(self):
         return self.init_score
+
+    def get_data(self):
+        """The raw data (None once construction freed it)."""
+        return self.data
+
+    def get_feature_name(self) -> List[str]:
+        return list(self.construct()._handle.feature_names)
 
     def num_data(self) -> int:
         return self.construct()._handle.num_data
@@ -212,9 +294,12 @@ class Dataset:
                                 "use free_raw_data=False")
         idx = np.asarray(used_indices)
         if self._matrix_cache is None:
-            self._matrix_cache = (self.data.tocsr()
-                                  if _is_scipy_sparse(self.data)
-                                  else np.asarray(self.data, np.float64))
+            self._matrix_cache = (
+                self.data.tocsr() if _is_scipy_sparse(self.data)
+                else _data_from_pandas(self.data, None,
+                                       self.pandas_categorical)[0]
+                if _is_pandas_df(self.data)
+                else np.asarray(self.data, np.float64))
         sub = Dataset(self._matrix_cache[idx], reference=self,
                       params=params or self.params,
                       free_raw_data=self.free_raw_data)
@@ -252,7 +337,8 @@ class Booster:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None, device=None):
+                 model_str: Optional[str] = None, silent: bool = False,
+                 device=None):
         self.params = dict(params) if params else {}
         self.config = Config.from_params(self.params)
         self.device = resolve_device(device or self.config.device_type)
@@ -261,6 +347,7 @@ class Booster:
         self._train_data_name = "training"
         self.train_set = None
         self.valid_sets: List[Dataset] = []
+        self.pandas_categorical = None
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance, "
@@ -272,24 +359,32 @@ class Booster:
             self._gbdt.init(self.config, train_set._handle,
                             create_objective(self.config),
                             create_metrics(self.config), self.device)
+            self.pandas_categorical = train_set.pandas_categorical
         elif model_file is not None or model_str is not None:
             from .io.model_io import load_model_file, load_model_string
             self._gbdt = (load_model_file(model_file, self.device)
                           if model_file is not None
                           else load_model_string(model_str, self.device))
+            self.pandas_categorical = self._gbdt.pandas_categorical
         else:
             raise TypeError("Need at least one training dataset or model "
                             "file or model string to create Booster instance")
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
-        """Attach a valid set; trees grown so far are replayed onto it."""
-        if self.train_set is None:
+        """Attach a valid set; trees grown so far are replayed onto it.  A
+        booster that let go of its training Dataset (``free_dataset``)
+        takes a valid set binned with ``reference=`` that Dataset."""
+        if not isinstance(data, Dataset):
+            raise TypeError("Validation data should be Dataset instance, "
+                            f"met {type(data).__name__}")
+        train_ds = getattr(self._gbdt, "train_ds", None)
+        if train_ds is None:
             raise LightGBMError("Cannot add validation data to a booster "
                                 "without training data")
-        if data._handle is None:
+        if data._handle is None and self.train_set is not None:
             data.reference = self.train_set
-            data.construct()
-        elif not _same_bin_mappers(data._handle, self.train_set._handle):
+        data.construct()
+        if not _same_bin_mappers(data._handle, train_ds):
             raise LightGBMError("Cannot add validation data, since it has "
                                 "different bin mappers with training data; "
                                 "construct it with reference=train_set")
@@ -313,6 +408,29 @@ class Booster:
     def _raw_train_score(self) -> np.ndarray:
         """Raw training scores as f64: [N], or [N, K]."""
         return self._gbdt._train_score.cpu().numpy().astype(np.float64)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and their scores (reference:
+        GBDT::RollbackOneIter, gbdt.cpp:451-467)."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def refit(self, data, label, decay_rate: float = 0.9, **kwargs):
+        log.refuse("Booster.refit", _ONLINE)
+
+    def eval(self, data=None, name=None, feval=None) -> List:
+        """The metrics of the training set or of an attached valid set
+        (all of them without ``data``)."""
+        if data is None:
+            return self._eval_all(feval)
+        if data is self.train_set:
+            return self.eval_train(feval)
+        for i, vds in enumerate(self.valid_sets):
+            if data is vds:
+                want = self._gbdt.valid_names[i]
+                return [e for e in self._eval_all(feval) if e[0] == want]
+        raise LightGBMError("Can only evaluate the training set or a "
+                            "dataset previously attached with add_valid")
 
     def eval_train(self, feval=None) -> List:
         return [e for e in self._eval_all(feval)
@@ -342,7 +460,7 @@ class Booster:
             for name, value, hib in (res if isinstance(res, list)
                                      else [res]):
                 out.append((tag, name, value, hib))
-        if include_train:
+        if include_train and self.train_set is not None:
             run(self._raw_train_score(), self.train_set,
                 self._train_data_name)
         for i, vds in enumerate(self.valid_sets):
@@ -390,6 +508,8 @@ class Booster:
         if kwargs:
             config = copy.copy(config)
             config.update(kwargs)
+        if _is_pandas_df(data):
+            data = _data_from_pandas(data, None, self.pandas_categorical)[0]
         sparse = _is_scipy_sparse(data)
         mat = data if sparse else np.asarray(data, dtype=np.float64)
         n_feat = self.num_feature()
@@ -411,16 +531,32 @@ class Booster:
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
-        from .io.model_io import model_to_string
+        from .io.model_io import model_to_string, pandas_categorical_trailer
         if num_iteration is None:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
-        return model_to_string(self._gbdt, num_iteration, start_iteration)
+        return (model_to_string(self._gbdt, num_iteration, start_iteration)
+                + pandas_categorical_trailer(self.pandas_categorical))
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
+        """Write the model text, and, for a booster that holds its
+        training data, the quality profile beside it
+        (``<filename>.quality.json``, ``obs/drift.py``) unless
+        ``tpu_quality_profile`` is off; a failed profile never fails the
+        save."""
         with open(filename, "w") as fh:
             fh.write(self.model_to_string(num_iteration, start_iteration))
+        cfg = self._gbdt.config
+        if (self._gbdt.train_ds is not None
+                and (cfg is None or cfg.tpu_quality_profile)):
+            from .obs.drift import profile_path
+            try:
+                prof = self._gbdt.quality_profile()
+                if prof is not None:
+                    prof.save(profile_path(filename))
+            except Exception as exc:  # noqa: BLE001
+                log.warning("quality profile sidecar skipped: %s", exc)
         return self
 
     def dump_model(self, num_iteration: Optional[int] = None,
@@ -455,3 +591,122 @@ class Booster:
             self._gbdt.config = self.config
             self._gbdt.shrinkage_rate = float(self.config.learning_rate)
         return self
+
+    def free_dataset(self) -> "Booster":
+        """Let go of the training Dataset (the trainer keeps its binned
+        data for prediction and model text)."""
+        self.train_set = None
+        return self
+
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        log.refuse("Booster.set_network", _PARALLEL)
+
+    def free_network(self) -> "Booster":
+        log.refuse("Booster.free_network", _PARALLEL)
+
+    # pickling and copying go through the model text (reference:
+    # basic.py:1875-1904; reference package: basic.py:642-668): the
+    # trainer's tensors, objective and locks are rebuilt, never pickled.
+    # The copy predicts and has no training state.
+    def __getstate__(self) -> Dict[str, Any]:
+        return {"params": self.params, "device": self.device.type,
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score,
+                "model_str": self.model_to_string(num_iteration=-1)}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        """Back on the device it was pickled on: ``cuda`` without a card
+        raises as ``resolve_device`` does."""
+        from .io.model_io import load_model_string
+        self.params = dict(state.get("params", {}))
+        self.config = Config.from_params(self.params)
+        self.device = resolve_device(state.get("device")
+                                     or self.config.device_type)
+        self.best_iteration = state.get("best_iteration", -1)
+        self.best_score = state.get("best_score", {})
+        self._train_data_name = "training"
+        self.train_set = None
+        self.valid_sets = []
+        self._gbdt = load_model_string(state["model_str"], self.device)
+        self.pandas_categorical = self._gbdt.pandas_categorical
+
+    def __copy__(self) -> "Booster":
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo) -> "Booster":
+        new = Booster.__new__(Booster)
+        new.__setstate__(self.__getstate__())
+        return new
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """numpy histogram of the thresholds of ``feature`` (index or name)
+        over the forest's numerical splits (reference: basic.py:2583;
+        reference package: basic.py:670-693); with ``xgboost_style`` a
+        DataFrame of the non-empty bins' upper edges and counts."""
+        if isinstance(feature, str):
+            feature = self.feature_name().index(feature)
+        values = [float(t.threshold[i]) for t in self._gbdt.models
+                  for i in range(max(t.num_leaves - 1, 0))
+                  if int(t.split_feature[i]) == feature
+                  and not t.is_categorical(i)]
+        values = np.asarray(values, np.float64)
+        if bins is None or (isinstance(bins, int) and bins > len(values)):
+            bins = max(len(values), 1)
+        hist, edges = np.histogram(values, bins=bins)
+        if not xgboost_style:
+            return hist, edges
+        import pandas as pd
+        mask = hist != 0
+        return pd.DataFrame({"SplitValue": edges[1:][mask],
+                             "Count": hist[mask]})
+
+    def trees_to_dataframe(self):
+        """One row a node of every tree, depth first (reference:
+        basic.py:2757; reference package: basic.py:695-740): nodes named
+        ``<tree>-S<split>`` and ``<tree>-L<leaf>``."""
+        import pandas as pd
+        names = self.feature_name()
+        rows = []
+
+        def child(ti, c):
+            return f"{ti}-S{c}" if c >= 0 else f"{ti}-L{~c}"
+
+        def walk(tree, ti, node, depth, parent):
+            if node >= 0:
+                idx = f"{ti}-S{node}"
+                f = int(tree.split_feature[node])
+                rows.append(dict(
+                    tree_index=ti, node_depth=depth, node_index=idx,
+                    left_child=child(ti, int(tree.left_child[node])),
+                    right_child=child(ti, int(tree.right_child[node])),
+                    parent_index=parent,
+                    split_feature=names[f] if f < len(names) else str(f),
+                    split_gain=float(tree.split_gain[node]),
+                    threshold=float(tree.threshold[node]),
+                    decision_type="==" if tree.is_categorical(node)
+                    else "<=",
+                    missing_direction="left"
+                    if (int(tree.decision_type[node]) & 2) else "right",
+                    value=float(tree.internal_value[node]),
+                    weight=float(tree.internal_weight[node]),
+                    count=int(tree.internal_count[node])))
+                walk(tree, ti, int(tree.left_child[node]), depth + 1, idx)
+                walk(tree, ti, int(tree.right_child[node]), depth + 1, idx)
+            else:
+                leaf = ~node
+                rows.append(dict(
+                    tree_index=ti, node_depth=depth,
+                    node_index=f"{ti}-L{leaf}", left_child=None,
+                    right_child=None, parent_index=parent,
+                    split_feature=None, split_gain=None, threshold=None,
+                    decision_type=None, missing_direction=None,
+                    value=float(tree.leaf_value[leaf]),
+                    weight=float(tree.leaf_weight[leaf]),
+                    count=int(tree.leaf_count[leaf])))
+
+        for ti, tree in enumerate(self._gbdt.models):
+            walk(tree, ti, 0 if tree.num_leaves > 1 else ~0, 1, None)
+        return pd.DataFrame(rows)

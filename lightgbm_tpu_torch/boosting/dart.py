@@ -19,6 +19,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.forest import forest_leaf_fn, stack_forest
 from ..utils import log
 from .gbdt import GBDT
@@ -62,6 +63,11 @@ class DART(GBDT):
         if super().train_one_iter(gradients, hessians):
             return True
         self._normalize()
+        if obs.health_enabled():
+            # the renormalization changes scores outside the checked
+            # gradient path (iter_ has moved on: name the finished one)
+            obs.check_score(self._train_score, phase="dart normalize",
+                            iteration=self.iter_ - 1)
         if not self.config.uniform_drop:
             self.tree_weight.append(self.shrinkage_rate)
             self.sum_weight += self.shrinkage_rate

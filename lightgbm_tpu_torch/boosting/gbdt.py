@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.forest import forest_leaf_fn, forest_predict_fn, stack_forest
 from ..core.grower import CegbConfig, build_grow_fn
 from ..core.meta import (SplitConfig, _padded_bin_width, build_device_meta,
@@ -451,6 +452,7 @@ class GBDT(PredictorBase):
 
     def init(self, config, train_ds, objective, metrics, device) -> None:
         self.device = torch.device(device)
+        self._init_obs(config)
         self.config = config
         self.train_ds = train_ds
         self.objective = objective
@@ -488,6 +490,49 @@ class GBDT(PredictorBase):
             stall_timeout_s=config.tpu_wedge_timeout_s,
             enabled=config.tpu_watchdog, seed=int(config.seed),
             on_fatal=self._device_fatal_hook)
+        self._telem_iters = 0
+        self._telem_train_s = 0.0
+        if obs.profile_enabled():
+            obs.memory_snapshot("train_init", buffers=self._census_buffers())
+        if obs.enabled():
+            obs.event("train_start", num_data=N,
+                      num_features=train_ds.num_features,
+                      num_class=self.num_tpi,
+                      num_leaves=self.split_cfg.num_leaves,
+                      tree_learner=config.tree_learner,
+                      wave=self.uses_wave,
+                      objective=getattr(objective, "name", None))
+
+    def _init_obs(self, config) -> None:
+        """The observability planes the parameters ask for (process-wide,
+        as in the JAX package): the telemetry sink, profile mode, health
+        and trace mode, and the flight ring wherever trace, health or the
+        device guard may need a post-mortem."""
+        if config.tpu_telemetry:
+            obs.enable(config.tpu_telemetry)
+        if config.tpu_profile:
+            obs.enable_profile()
+        if config.tpu_health:
+            obs.enable_health(config.tpu_health)
+        self._fp_freq = max(int(config.tpu_fingerprint_freq), 0)
+        if config.tpu_trace:
+            obs.enable_trace()
+        from ..robust import faults
+        guard_on = bool(config.tpu_watchdog) or faults.armed()
+        if ((obs.trace_enabled() or obs.health_enabled() or guard_on)
+                and not obs.flight_enabled()):
+            obs.enable_flight(obs.flight_len_from_env(config.tpu_flight_len))
+        self._train_trace_id = (obs.new_trace_id(f"train-{os.getpid()}")
+                                if obs.trace_enabled() else None)
+
+    def _census_buffers(self) -> dict:
+        """The trainer's device tensors by name, for the memory census."""
+        return {"binned_matrix": self._bins_fm,
+                "train_bins": self._train_bins,
+                "train_score": self._train_score,
+                "bag_mask": self._bag_mask,
+                "valid_scores": list(self._valid_scores),
+                "valid_bins": list(self._valid_bins)}
 
     def _init_score(self, ds) -> torch.Tensor:
         """A dataset's starting scores: its init scores (class major [K·N]
@@ -774,33 +819,76 @@ class GBDT(PredictorBase):
         at the iteration's start, so class k's tree does not see the trees
         of classes < k (reference package: gbdt.py:1530-1760), or from the
         caller: ``gradients`` / ``hessians`` of K·N values, class major
-        (no boost from average then, as in the reference)."""
+        (no boost from average then, as in the reference).  In trace mode
+        the iteration is a ``train/iteration`` span whose phases are its
+        children."""
+        it_span = (obs.begin_span("train/iteration",
+                                  trace_id=self._train_trace_id,
+                                  iteration=self.iter_)
+                   if obs.trace_enabled() else None)
+        try:
+            return self._train_one_iter_inner(gradients, hessians, it_span)
+        finally:
+            obs.end_span(it_span)
+
+    def _train_one_iter_inner(self, gradients, hessians, it_span) -> bool:
         t0 = time.perf_counter()
         K = self.num_tpi
         if self._ckpt_hook is not None and self._guard.active:
             self._snapshot_boundary()
+        # the iteration record's inputs; with every plane off this is one
+        # boolean check and the loop stays as it was
+        telem = obs.enabled() or obs.profile_enabled()
+        if telem:
+            phase0 = obs.phase_snapshot()
+            builds0 = obs.compile_count()
+            leaves_grown: List[int] = []
+            waves_total = kern_rows = None
+        health_on = obs.health_enabled()
         if gradients is None or hessians is None:
             init_scores = [self._boost_from_average(k) for k in range(K)]
             if self.objective is None:
                 log.fatal("no objective: pass gradients and hessians "
                           "(fobj)")
-            g, h = self._guard.run(
-                lambda: self.objective.get_gradients(self._train_score),
-                point="gradients", iteration=self.iter_)
+            with timetag("boosting (grad/hess)"):
+                g, h = self._guard.run(
+                    lambda: self.objective.get_gradients(self._train_score),
+                    point="gradients", iteration=self.iter_)
+                sync(h)
+            if health_on:
+                self.objective.health_tap(g, h, self.iter_)
         else:
             init_scores = [0.0] * K
             g, h = (self._custom_grad(v) for v in (gradients, hessians))
+            if health_on:
+                obs.check_gradients(g, h, phase="boosting (grad/hess)",
+                                    iteration=self.iter_, objective="custom")
         g, h = self._sample(self.iter_, g, h)
+        if telem and obs.profile_enabled():
+            # the score tensor this iteration replaces must be released
+            obs.expect_released("train_score", self._train_score)
         feature_mask = self._feature_mask()
         first = len(self.models) < K
         grown_any = False
+        grown = []
         for k in range(K):
             nl = 1
             if self.class_need_train[k] and self.train_ds.num_features > 0:
-                arrs, leaf_id, stats = self._grow_tree(k, g, h, feature_mask)
-                nl = int(arrs.num_leaves)
+                with timetag("tree growth"):
+                    arrs, leaf_id, stats = self._grow_tree(k, g, h,
+                                                           feature_mask)
+                    nl = int(arrs.num_leaves)
+                if health_on:
+                    obs.check_tree(arrs, phase="tree growth",
+                                   iteration=self.iter_, class_id=k)
+                if telem and stats is not None and stats[0] >= 0:
+                    waves_total = (waves_total or 0) + int(stats[0])
+                    kern_rows = (kern_rows or 0) + int(stats[1])
+            if telem:
+                leaves_grown.append(nl)
             if nl > 1:
                 grown_any = True
+                grown.append(arrs)
                 self._add_tree(k, arrs, leaf_id, stats, init_scores[k])
                 continue
             # constant tree: its value only in the first iteration
@@ -818,12 +906,70 @@ class GBDT(PredictorBase):
                         "that meet the split requirements")
             if not first:
                 del self.models[-K:], self._leaf_f32[-K:]
+            if telem:
+                obs.event("train_stop", iteration=self.iter_,
+                          reason="no_splits")
+            obs.end_span(it_span, stopped=True)
             return True
+        if health_on and self._fp_freq and self.iter_ % self._fp_freq == 0:
+            self._health_fingerprint(grown)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if telem:
+            self._emit_iteration_record(t0, phase0, builds0, leaves_grown,
+                                        waves_total, kern_rows)
         self.iter_seconds.append(time.perf_counter() - t0)
         self.iter_ += 1
         return False
+
+    def _health_fingerprint(self, trees) -> None:
+        """The model-state fingerprint of this iteration (the scores and
+        the trees it grew), and the cross-rank audit of it."""
+        rec = obs.model_fingerprint(self._train_score, trees,
+                                    iteration=self.iter_)
+        if rec is not None:
+            obs.divergence_audit(rec["stats"], iteration=self.iter_)
+
+    def _emit_iteration_record(self, t_iter0, phase0, builds0, leaves,
+                               waves, kern_rows) -> None:
+        """One ``iteration`` event (the JAX package's fields): phase
+        times, metrics, counters, the kernel builds of the iteration (in
+        ``recompiles``), K1's waves and rows; profile mode adds a memory
+        census and the release audit."""
+        obs.sync(self._train_score)
+        iter_s = time.perf_counter() - t_iter0
+        self._telem_iters += 1
+        self._telem_train_s += iter_s
+        metrics = {f"{ds_name}.{mname}": float(value)
+                   for ds_name, mname, value, _ in self.eval_results()}
+        N = self.train_ds.num_data
+        splits = sum(max(int(nl) - 1, 0) for nl in leaves)
+        part_batched = bool(self.uses_wave
+                            and self.config.tpu_batched_split_apply)
+        part_passes = ((int(waves) if waves else None) if part_batched
+                       else splits)
+        wave_fields = {}
+        if self.uses_wave:
+            wave_fields = dict(
+                hist_mode=self.hist_mode,
+                wave_capacity=int(self.config.tpu_wave_capacity),
+                fused_sibling=bool(self.wave_kw["fused_sibling"]),
+                overlap=self.wave_kw["overlap"] != "off")
+        obs.event(
+            "iteration", iteration=self.iter_, num_class=self.num_tpi,
+            leaves=leaves, waves=waves, kernel_rows=kern_rows,
+            iter_s=round(iter_s, 6), phase_s=obs.phase_delta(phase0),
+            metrics=metrics, counters=obs.counters_snapshot(),
+            recompiles=int(obs.compile_count() - builds0),
+            partition_passes=part_passes, partition_batched=part_batched,
+            fused_grad=False, grad_hbm_bytes_saved=0,
+            cum_row_iters_per_s=round(
+                N * self._telem_iters / max(self._telem_train_s, 1e-9), 1),
+            **wave_fields)
+        if obs.profile_enabled():
+            obs.memory_snapshot(f"iteration_{self.iter_}",
+                                buffers=self._census_buffers())
+            obs.memory_audit(f"iteration_{self.iter_}")
 
     def _grow_tree(self, k: int, g, h, feature_mask):
         """Class k's tree from the grower, a guarded device step: (tree
@@ -909,7 +1055,8 @@ class GBDT(PredictorBase):
         self._train_score = self._add_to_class(
             self._train_score, k, arrs.leaf_value[leaf_id.long()])
         tree = Tree.from_device(arrs, self.train_ds, shrinkage=lr)
-        self._add_to_valid(arrs, tree, k)
+        with timetag("valid score update"):
+            self._add_to_valid(arrs, tree, k)
         if abs(init_score) > K_EPSILON:
             tree.leaf_value = tree.leaf_value + init_score
         self.models.append(tree)
@@ -948,6 +1095,52 @@ class GBDT(PredictorBase):
         lv[:nl][ok] = new_vals[ok]
         self.renew_seconds.append(time.perf_counter() - t0)
         return arrs._replace(leaf_value=torch.as_tensor(lv).to(self.device))
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's trees off the forest and their shrunk
+        f32 leaf values off the training and validation scores (reference:
+        GBDT::RollbackOneIter, gbdt.cpp:451-467); rolling back the first
+        iteration also takes off its boost-from-average constants."""
+        K = self.num_tpi
+        if self.iter_ <= 0 or len(self.models) < K:
+            return
+        first = len(self.models) - K
+        grown = [i for i in range(first, len(self.models))
+                 if self._leaf_f32[i] is not None]
+        if grown:
+            forest = stack_forest(
+                [self._tree_arrays_np(self.models[i]) for i in grown],
+                np.zeros(len(grown), np.int32), self.device)
+            walk = forest_leaf_fn(self.meta, phys=self._bundled)
+            scores = [self._train_score] + self._valid_scores
+            bins = [self._train_bins_dev()] + self._valid_bins
+            for j, (sc, b) in enumerate(zip(scores, bins)):
+                leaves = walk(forest, b)
+                for row, i in enumerate(grown):
+                    sc = self._add_to_class(
+                        sc, i % K, -self._leaf_f32[i][leaves[row]])
+                scores[j] = sc
+            self._train_score, self._valid_scores = scores[0], scores[1:]
+        if first == 0:
+            for k, c in list(self._constants):
+                self._add_constant(k, -c)
+            self._constants.clear()
+        del self.models[first:], self._leaf_f32[first:]
+        self.iter_ -= 1
+
+    def quality_profile(self):
+        """The drift plane's reference distribution (``obs/drift.py``;
+        reference package: gbdt.py ``quality_profile``): each feature's
+        bin occupancy, counted on the device, the training raw-score
+        histogram and the training AUC.  None without training data."""
+        ds = self.train_ds
+        if ds is None or ds.X_bin is None:
+            return None
+        from ..obs.drift import QualityProfile, device_occupancy
+        raw = self._train_score.double().cpu().numpy()
+        return QualityProfile.from_training(
+            ds, raw_score=raw, label=ds.metadata.label,
+            occupancy=device_occupancy(ds, self._train_bins_dev()))
 
     # ------------------------------------------------------------------
     # Fault tolerance (robust/checkpoint.py, robust/watchdog.py)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..utils import log
 from ..utils.random import fold_in, prng_key, uniform_f32
 from .gbdt import GBDT
@@ -61,4 +62,10 @@ class GOSS(GBDT):
                                      device=self.device))
         if g.dim() == 2:
             amp = amp[:, None]
-        return g * amp, h * amp
+        g, h = g * amp, h * amp
+        if obs.health_enabled():
+            # the amplifier can overflow f32 for a tiny other_rate: name it,
+            # not the objective whose gradients were checked already
+            obs.check_gradients(g, h, phase="goss amplification",
+                                iteration=it, objective="goss")
+        return g, h

@@ -139,7 +139,8 @@ _OBJECTIVE_ALIASES = {
 _AOT = "serve AOT store"
 _ONLINE = "the rest of queue 1: online and serve"
 _PARALLEL = "the rest of queue 1: parallel and fleet planes"
-_OBS = "Obs, tools and bindings"
+# the train board, the profiler window and the rest of item 8B
+_OBS_B = "Obs, tools and bindings, part B"
 # tpu_on_device_error=fallback: a step that launched kernels on the card
 # never carries on on the CPU
 _FALLBACK = "CPU fallback of a failed device step"
@@ -151,17 +152,12 @@ _REFUSED: Dict[str, str] = {
     # the JAX package persists compiled per-bucket executables here; the
     # port compiles nothing per bucket, and its store waits for its item
     "tpu_serve_aot_dir": _AOT,
-    # a drift or quality breach as a rollback signal needs the drift plane
-    "tpu_serve_rollback_on_drift": _OBS,
-    "tpu_telemetry": _OBS, "tpu_health": _OBS, "tpu_profile": _OBS,
-    "tpu_xprof": _OBS, "tpu_xprof_iters": _OBS, "tpu_trace": _OBS,
-    "tpu_flight_len": _OBS, "tpu_train_metrics_port": _OBS,
-    "tpu_drift": _OBS, "tpu_quality_window": _OBS,
-    "tpu_quality_drop_warn": _OBS,
+    "tpu_xprof": _OBS_B, "tpu_xprof_iters": _OBS_B,
+    "tpu_train_metrics_port": _OBS_B,
 }
 # whole families, by name prefix
 _REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL),
-                   ("tpu_online", _ONLINE), ("tpu_drift_", _OBS))
+                   ("tpu_online", _ONLINE))
 
 
 def refused_item(name: str) -> Optional[str]:
@@ -187,17 +183,17 @@ class Config:
     config: str = ""                    # the CLI's config file (app.py)
     task: str = "train"                 # train, predict, serve,
                                         # convert_model
-    data: str = ""
-    valid: List[str] = field(default_factory=list)
     objective: str = "regression"
     boosting: str = "gbdt"
+    data: str = ""
+    valid: List[str] = field(default_factory=list)
     num_iterations: int = 100
     learning_rate: float = 0.1
     num_leaves: int = 31
     tree_learner: str = "serial"
     num_threads: int = 0                # no effect (as in the JAX package)
-    seed: int = 0
     device_type: str = "cuda"           # cuda (alias gpu) or cpu
+    seed: int = 0
 
     # ---- Learning control ----
     max_depth: int = -1
@@ -211,6 +207,12 @@ class Config:
     feature_fraction: float = 1.0
     feature_fraction_bynode: float = 1.0
     feature_fraction_seed: int = 2
+    early_stopping_round: int = 0
+    first_metric_only: bool = False
+    max_delta_step: float = 0.0
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
     drop_rate: float = 0.1              # DART (boosting/dart.py)
     max_drop: int = 50
     skip_drop: float = 0.5
@@ -226,10 +228,6 @@ class Config:
     max_cat_to_onehot: int = 4
     top_k: int = 20                     # voting parallel only: no effect on
                                         # the serial learner
-    max_delta_step: float = 0.0
-    lambda_l1: float = 0.0
-    lambda_l2: float = 0.0
-    min_gain_to_split: float = 0.0
     monotone_constraints: List[int] = field(default_factory=list)
     feature_contri: List[float] = field(default_factory=list)
     max_bin_by_feature: List[int] = field(default_factory=list)
@@ -240,8 +238,6 @@ class Config:
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
     cegb_penalty_feature_coupled: List[float] = field(default_factory=list)
-    early_stopping_round: int = 0
-    first_metric_only: bool = False
     verbosity: int = 1
 
     # ---- IO ----
@@ -334,16 +330,11 @@ class Config:
                                         # = one rounding, highest = f32;
                                         # int16 / int8 = quantized g/h,
                                         # integer accumulation
-    tpu_wave_capacity: int = 63         # leaves histogrammed per wave
-    tpu_wave_gain_gate: float = 0.5     # split-phase commit throttle
-    tpu_fused_sibling: bool = True      # siblings from the same launch
     tpu_fused_grad: bool = True         # the port's gradients are always
                                         # materialised (GBDT.train_one_iter):
                                         # both values take that one path
     tpu_rank_device_eval: bool = True   # NDCG: false = the host loop
     tpu_rank_sharded_grad: bool = True  # no effect on the serial learner
-    tpu_batched_split_apply: bool = True  # false = one walk of all rows per
-                                        # split (the oracle); same trees
     tpu_wave_overlap: bool = False      # defer each wave's split scan by
                                         # one loop body (the grower's
                                         # overlap="on"; its oracle
@@ -352,21 +343,22 @@ class Config:
     tpu_block_rows: int = 1024          # the Pallas kernel's row tile; the
                                         # port's K1 sums fixed point, which
                                         # no tile changes
+    tpu_wave_capacity: int = 63         # leaves histogrammed per wave
+    tpu_fused_sibling: bool = True      # siblings from the same launch
+    tpu_wave_gain_gate: float = 0.5     # split-phase commit throttle
+    tpu_batched_split_apply: bool = True  # false = one walk of all rows per
+                                        # split (the oracle); same trees
     tpu_compile_cache_dir: str = ""     # no effect (as in the JAX package)
     tpu_mesh_shape: str = ""
-    # observability (refused: Obs, tools and bindings), but for the two
-    # that only act with a refused one on
-    tpu_telemetry: str = ""
-    tpu_health: str = ""
+    # observability (obs/); the profiler window and the train board are
+    # refused (Obs, tools and bindings, part B)
+    tpu_telemetry: str = ""             # telemetry sink: a dir or *.jsonl
+    tpu_health: str = ""                # "", monitor or strict
     tpu_fingerprint_freq: int = 1       # read only under tpu_health
-    tpu_profile: bool = False
+    tpu_profile: bool = False           # kernel times against bounds
     tpu_xprof: bool = False
     tpu_xprof_iters: int = 3
-    tpu_trace: bool = False
-    tpu_flight_len: int = 256
-    tpu_train_metrics_port: int = -1
-    tpu_straggler_factor: float = 2.0   # no effect in one process
-    tpu_straggler_iters: int = 3        # no effect in one process
+    tpu_trace: bool = False             # spans into the sink
     # fault tolerance (robust/)
     tpu_checkpoint_dir: str = ""        # "" = no checkpoints
     tpu_checkpoint_freq: int = 100      # iterations between checkpoints
@@ -375,6 +367,13 @@ class Config:
     tpu_watchdog: bool = False          # guard every device step
     tpu_device_retries: int = 3         # transient retries a step
     tpu_wedge_timeout_s: float = 0.0    # stall deadline, 0 = automatic
+    # observability, continued (in the JAX package's order, which the
+    # parameter block of model text follows)
+    tpu_flight_len: int = 256           # flight ring, armed under trace,
+                                        # health, the watchdog or serving
+    tpu_train_metrics_port: int = -1
+    tpu_straggler_factor: float = 2.0   # no effect in one process
+    tpu_straggler_iters: int = 3        # no effect in one process
     # serving (serve/): task=serve and the heavy task=predict
     tpu_serve_max_batch: int = 1024
     tpu_serve_max_wait_ms: float = 2.0
@@ -404,7 +403,7 @@ class Config:
     tpu_explain: bool = True
     tpu_explain_max_batch: int = 256
     tpu_explain_max_wait_ms: float = 5.0
-    # online learning, ingestion, drift (refused)
+    # online learning and ingestion (refused)
     tpu_refit_device: bool = True
     tpu_online_mode: str = "refit"
     tpu_online_window: int = 50000
@@ -422,11 +421,11 @@ class Config:
     tpu_ingest_shards: int = 0
     tpu_ingest_shard_id: int = -1
     tpu_ingest_sample_seed: int = -1
-    tpu_drift: bool = True
-    tpu_quality_profile: bool = True    # the JAX package writes a quality
-                                        # sidecar beside a saved model; the
-                                        # port writes none yet (ROADMAP
-                                        # item 8), as false asks
+    # drift and quality (obs/drift.py, serve/quality.py)
+    tpu_drift: bool = True              # arm drift monitoring in serving
+                                        # where a model's sidecar is found
+    tpu_quality_profile: bool = True    # write <model>.quality.json beside
+                                        # a saved model
     tpu_drift_sample_rate: float = 0.05
     tpu_drift_check_s: float = 30.0
     tpu_drift_min_rows: int = 200
@@ -525,8 +524,12 @@ class Config:
             log.fatal("tpu_serve_reprobe_s should be >= 0")
         if self.tpu_block_rows < 128 or self.tpu_block_rows % 128 != 0:
             log.fatal("tpu_block_rows should be a positive multiple of 128")
+        from .obs.health import parse_mode
+        self.tpu_health = parse_mode(self.tpu_health, fatal=True)
         if self.tpu_fingerprint_freq < 0:
             log.fatal("tpu_fingerprint_freq should be >= 0")
+        if self.tpu_flight_len < 0:
+            log.fatal("tpu_flight_len should be >= 0")
         if self.tpu_straggler_factor <= 1.0:
             log.fatal("tpu_straggler_factor should be > 1")
         if self.tpu_straggler_iters < 0:
@@ -580,10 +583,16 @@ class Config:
         return "2xbf16"
 
     def to_params(self) -> Dict[str, Any]:
+        """The parameters a model's text lists: the fields off their
+        default, and every list-typed field (the JAX package compares a
+        ``default_factory`` field against None, so its model text always
+        lists them; lightgbm_tpu/config.py ``to_params``)."""
         return {f.name: getattr(self, f.name)
                 for f in dataclasses.fields(self)
                 if f.name != "is_parallel"
-                and getattr(self, f.name) != _default(f)}
+                and getattr(self, f.name) != (
+                    f.default if f.default is not dataclasses.MISSING
+                    else None)}
 
 
 def _default(fld: dataclasses.Field):

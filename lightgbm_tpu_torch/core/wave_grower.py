@@ -60,8 +60,9 @@ import numpy as np
 import torch
 
 from ..convert import tree_arrays_from_numpy
-from ..ops.hist_wave import C_MAX, resolve_mode, hist_wave, \
-    wave_capacity_max
+from ..obs import profile as obs_profile
+from ..ops.hist_wave import (C_MAX, hist_wave, hist_wave_call_cost,
+                             resolve_mode, wave_capacity_max)
 from ..ops.quant import QUANT_MODES, QUANT_QMAX, SEED_H_XOR, stochastic_round
 from .grower import CegbConfig, _empty_tree, decode_feature_col, go_left_bins
 from .histogram import (expand_bundled, fix_default_bins, hist_subtract,
@@ -437,9 +438,11 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         """One wave's physical histograms in K1's channel layout: K1 over
         the (narrow) columns, plus the side-pass over the wide ones under
         ``mixed``, merged in physical-column order."""
-        hw = hist_wave(bins_n, gv, hv, cv, leaf, slot_t, B_kern,
-                       highest=mode, packed=packed, parent=kern_parent,
-                       num_slots=n)
+        kern = obs_profile.wrap("hist_wave", hist_wave,
+                                cost=hist_wave_call_cost)
+        hw = kern(bins_n, gv, hv, cv, leaf, slot_t, B_kern,
+                  highest=mode, packed=packed, parent=kern_parent,
+                  num_slots=n)
         if mixed is None:
             return hw
         hw_w = hist_wave_side(wide_rm, gv, hv, cv, leaf, slot_t, B_phys,

@@ -25,12 +25,19 @@ def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
+          fobj=None, feval=None, init_model=None,
+          feature_name="auto", categorical_feature="auto",
+          early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None,
-          verbose_eval=True, device=None, fobj=None, feval=None,
-          init_model=None, early_stopping_rounds: Optional[int] = None,
-          learning_rates=None, callbacks: Optional[List] = None) -> Booster:
+          verbose_eval=True, learning_rates=None,
+          keep_training_booster: bool = False,
+          callbacks: Optional[List] = None, device=None) -> Booster:
     """Train a booster on ``device`` ("cuda" unless the caller or the
-    ``device_type`` parameter asks for "cpu").  ``valid_sets`` may hold
+    ``device_type`` parameter asks for "cpu"); the arguments before
+    ``device`` are LightGBM v2.3.2's, in its order.  ``feature_name`` and
+    ``categorical_feature`` (other than "auto") replace the Dataset's, and
+    without ``keep_training_booster`` the returned booster lets go of its
+    training Dataset (``free_dataset``).  ``valid_sets`` may hold
     ``train_set`` itself to evaluate the training data; ``evals_result``
     collects every metric per iteration; ``early_stopping_rounds`` stops
     when no validation metric improved for that many rounds and sets
@@ -57,6 +64,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if not isinstance(train_set, Dataset):
         raise TypeError(f"Training only accepts Dataset object, "
                         f"met {type(train_set).__name__}")
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     init_trees = _init_trees(init_model)
     booster = Booster(params=params, train_set=train_set, device=device)
     from .robust.checkpoint import CheckpointManager
@@ -162,6 +173,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for ds_name, mname, value, _ in evaluation_result_list or []:
         booster.best_score[ds_name][mname] = value
+    if not keep_training_booster:
+        booster.free_dataset()
     return booster
 
 
@@ -324,7 +337,8 @@ def _agg_cv_result(raw_results):
 def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
        folds=None, nfold: int = 5, stratified: bool = True,
        shuffle: bool = True, metrics=None, fobj=None, feval=None,
-       init_model=None, early_stopping_rounds: Optional[int] = None,
+       init_model=None, feature_name="auto", categorical_feature="auto",
+       early_stopping_rounds: Optional[int] = None,
        fpreproc=None, verbose_eval=None, show_stdv: bool = True,
        seed: int = 0, callbacks: Optional[List] = None,
        eval_train_metric: bool = False, return_cvbooster: bool = False,
@@ -347,6 +361,10 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     if train_set.data is None:
         raise LightGBMError("cv needs raw data; construct Dataset with "
                             "free_raw_data=False")
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     init_trees = _init_trees(init_model)
     results = collections.defaultdict(list)
     boosters = CVBooster()

@@ -237,6 +237,13 @@ class BinnedDataset:
                                    max_bins_per_group=4096 if wide else 256)
             if not bundle.is_trivial:
                 ds.bundle = bundle
+        from .. import obs
+        if obs.enabled():
+            obs.event("dataset", num_data=ds.num_data, num_total_features=p,
+                      num_used_features=int(len(ds.real_feature_idx)),
+                      total_bins=int(ds.bin_offsets[-1]),
+                      bundled=ds.bundle is not None,
+                      sample_rows=int(sample.shape[0]))
         return ds
 
     @classmethod

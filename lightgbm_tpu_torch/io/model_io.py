@@ -11,6 +11,7 @@ files, categorical ones included, load here.
 from __future__ import annotations
 
 import io as _io
+import json
 from typing import Dict, List
 
 import numpy as np
@@ -208,6 +209,20 @@ class LoadedGBDT(PredictorBase):
         return raw
 
 
+_PC_KEY = "\npandas_categorical:"
+
+
+def pandas_categorical_trailer(pandas_categorical) -> str:
+    """The line after the parameters that keeps a DataFrame's category
+    lists, as the reference package appends it (reference: basic.py:367
+    ``_dump_pandas_categorical``); empty when there is none."""
+    if pandas_categorical is None:
+        return ""
+    from ..compat import json_default_with_numpy
+    return (_PC_KEY + json.dumps(pandas_categorical,
+                                 default=json_default_with_numpy) + "\n")
+
+
 def load_model_string(model_str: str, device) -> LoadedGBDT:
     """Parse LightGBM model text (the port's, the JAX package's or the
     reference's) into a booster that predicts on ``device``.  The header's
@@ -216,6 +231,15 @@ def load_model_string(model_str: str, device) -> LoadedGBDT:
     predictions then raises."""
     from ..objective import objective_from_model
 
+    pandas_categorical = None
+    kpos = model_str.rfind(_PC_KEY)
+    if kpos >= 0:
+        rest = model_str[kpos + len(_PC_KEY):].splitlines()
+        try:
+            pandas_categorical = json.loads(rest[0].strip()) if rest else None
+        except ValueError:
+            pandas_categorical = None
+        model_str = model_str[:kpos]
     header: Dict[str, str] = {}
     pos = model_str.find("\nTree=")
     head_part = model_str[:pos] if pos >= 0 else model_str
@@ -253,6 +277,7 @@ def load_model_string(model_str: str, device) -> LoadedGBDT:
                       header.get("feature_infos", "").split(),
                       average_output, max_feature_idx, device)
     gbdt.objective_error = objective_error
+    gbdt.pandas_categorical = pandas_categorical
     return gbdt
 
 

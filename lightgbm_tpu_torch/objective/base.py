@@ -46,6 +46,15 @@ class Objective:
     def get_gradients(self, score) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
+    def health_tap(self, g, h, iteration: int) -> bool:
+        """The health sentinel on this objective's gradients, called once
+        an iteration while ``tpu_health`` is on, so a non-finite gradient
+        is put down to the objective that made it.  True when healthy."""
+        from ..obs import health
+        return health.check_gradients(g, h, phase="boosting (grad/hess)",
+                                      iteration=iteration,
+                                      objective=self.name)
+
     def boost_from_score(self, class_id: int = 0) -> float:
         return 0.0
 

@@ -12,6 +12,12 @@ from .base import Objective
 K_EPSILON = 1e-15
 
 
+def _positive(y):
+    """The binary objective's positive class (a module-level function, so
+    an objective pickles)."""
+    return y > 0
+
+
 class BinaryLogloss(Objective):
     """``is_pos`` picks the positive rows from the labels (label > 0;
     one class of a one-vs-all multiclass)."""
@@ -26,7 +32,7 @@ class BinaryLogloss(Objective):
         self.scale_pos_weight = float(config.scale_pos_weight)
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             log.fatal("Cannot set is_unbalance and scale_pos_weight at the same time")
-        self._is_pos = is_pos if is_pos is not None else (lambda y: y > 0)
+        self._is_pos = is_pos if is_pos is not None else _positive
         self.need_train = True
 
     def init(self, metadata, num_data, device):

@@ -14,6 +14,17 @@ from .binary import BinaryLogloss
 K_EPSILON = 1e-15
 
 
+class _IsClass:
+    """The positive rows of one-vs-all class ``k`` (a picklable
+    callable)."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def __call__(self, y):
+        return np.asarray(y).astype(np.int32) == self.k
+
+
 class MulticlassSoftmax(Objective):
     """(reference: multiclass_objective.hpp:24-177)."""
     name = "multiclass"
@@ -77,7 +88,7 @@ class MulticlassOVA(Objective):
 
     @staticmethod
     def _make_is_pos(k):
-        return lambda y: np.asarray(y).astype(np.int32) == k
+        return _IsClass(k)
 
     def init(self, metadata, num_data, device):
         self.num_data = num_data

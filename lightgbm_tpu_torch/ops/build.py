@@ -6,7 +6,8 @@ one shared library with a plain C interface, loaded through ctypes.  The
 library's name is keyed by the content of every source and the flags, so
 a changed source rebuilds at first use and an unchanged one is reused.
 The compilers' output (ptxas register and shared-memory reports) is kept
-beside the library as ``.log``.  ``-fmad=false``: no kernel may contract
+beside the library as ``.log``; each build is counted
+(``obs/trace.py``).  ``-fmad=false``: no kernel may contract
 a multiply and an add into one rounding where the reference rounds twice.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -55,6 +57,7 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     tag = f"{key}.{os.getpid()}"
     jobs = []
     for src in srcs:
@@ -85,6 +88,8 @@ def build() -> Path:
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{text}")
     os.replace(tmp, lib)
+    from ..obs.trace import note_build
+    note_build(time.perf_counter() - t0)
     return lib
 
 

@@ -69,6 +69,21 @@ def geometry(sms: int, smem: int, F: int, N: int, C: int):
     return chunks, max(1, min(chunks * combos, resident))
 
 
+def hist_channels_cost(N: int, F: int, B: int, C: int):
+    """(operations, bytes) of one K2 launch: bytes, the ``F*N`` bin read,
+    the [N, C] f32 values and the [F, B, C] f32 output; operations, one
+    add per (feature, row, channel) (every bin below B).  ``chip_smoke.py``
+    and profile mode (``obs/profile.py``) state K2's bound from it."""
+    return float(F * N * C), float(F * N + 4 * N * C + 4 * F * B * C)
+
+
+def hist_channels_call_cost(bins_fm, gh, B: int):
+    """``hist_channels_cost`` of a call with ``hist_channels``'s
+    arguments."""
+    F, N = bins_fm.shape
+    return hist_channels_cost(N, F, B, gh.shape[1])
+
+
 def hist_channels(bins_fm, gh, B: int):
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  bins_fm: uint8 [F, N]; gh: f32 [N, C],
@@ -119,4 +134,7 @@ def hist_channels_fm(bins_fm, g, h, mask, B: int):
     gh[:, 0] = g * mask
     gh[:, 1] = h * mask
     gh[:, 2] = mask
-    return hist_channels(bins_fm, gh, B)[..., :3]
+    from ..obs import profile
+    kern = profile.wrap("hist_channels", hist_channels,
+                        cost=hist_channels_call_cost)
+    return kern(bins_fm, gh, B)[..., :3]

@@ -80,6 +80,35 @@ def wave_capacity_max(packed: bool) -> int:
     return P_MAX_PACKED if packed else P_MAX_TRIPLE
 
 
+def hist_wave_cost(N: int, F: int, B: int, rows: int, packed: bool = True,
+                   fused: bool = False, quant: bool = False):
+    """(operations, bytes) of one K1 launch over N rows of F features, of
+    which ``rows`` are in a pending slot: bytes, the ``F*N`` bin read, the
+    row vectors (16 bytes a row, 8 in the int modes), the slot map, and
+    each [F, B, 128] f32 output written once and, fused, the parents read
+    and the siblings written; operations, the g, h and count adds of every
+    (feature, slotted row) and, fused, the sibling subtraction per cell.
+    ``chip_smoke.py`` states K1's bound from it, and profile mode
+    (``obs/profile.py``) holds each launch against it."""
+    hist_bytes = F * B * C_MAX * 4
+    n_hist = (2 if packed else 1) * (3 if fused else 1)
+    n_bytes = F * N + (8 if quant else 16) * N + C_MAX * 4 + n_hist * hist_bytes
+    n_ops = 3 * F * rows + (n_hist // 3 * F * B * C_MAX if fused else 0)
+    return float(n_ops), float(n_bytes)
+
+
+def hist_wave_call_cost(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
+                        highest="bf16", packed: bool = True, parent=None,
+                        num_slots=None):
+    """``hist_wave_cost`` of a call with ``hist_wave``'s arguments; every
+    row counts as slotted, as the wave grower hands K1 only the rows of
+    its pending leaves."""
+    F, N = bins_fm.shape
+    return hist_wave_cost(N, F, B, N, packed=packed,
+                          fused=parent is not None,
+                          quant=resolve_mode(highest) in QUANT_MODES)
+
+
 def resolve_mode(highest) -> str:
     """True -> "highest", False -> "bf16"; strings pass through."""
     if isinstance(highest, str):

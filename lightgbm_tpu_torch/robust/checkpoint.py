@@ -18,8 +18,8 @@ Writes go to a temporary directory: every file fsynced, then
 ``os.rename`` (atomic on POSIX), then the parent directory fsynced.  A
 crash mid-write leaves a ``.tmp-*`` orphan the next save sweeps; a
 corrupt or truncated checkpoint fails its checksum and the loader takes
-the next newest.  The JAX package's ``obs.event`` calls wait for ROADMAP
-item 8; the manager logs and keeps its events in ``events``.
+the next newest.  Each write and restore is a telemetry event
+(``checkpoint``, ``restore``), also kept in ``events``.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..utils import log
 from . import faults
 
@@ -199,6 +200,8 @@ class CheckpointManager:
             self.events.append({"event": "checkpoint",
                                 "iteration": int(iteration), "path": final,
                                 "ms": ms, "reason": reason})
+            obs.event("checkpoint", iteration=int(iteration), path=final,
+                      ms=round(ms, 3), reason=reason)
             log.info("checkpoint: wrote %s (%.1f ms, %s)", final, ms, reason)
             return final
         except Exception as exc:  # noqa: BLE001 — never end training
@@ -291,6 +294,7 @@ class CheckpointManager:
         self.events.append({"event": "restore",
                             "iteration": int(meta["iteration"]),
                             "path": path})
+        obs.event("restore", iteration=int(meta["iteration"]), path=path)
         log.info("checkpoint: resumed from %s at iteration %d (%d trees, "
                  "%d recorded eval rounds)", path, int(meta["iteration"]),
                  len(loaded.models), len(history))

@@ -71,8 +71,8 @@ class FaultSpec:
 _PLAN: Optional[List[FaultSpec]] = None
 _RNG: Optional[np.random.Generator] = None
 _calls = defaultdict(int)            # point -> check() count
-# what fired, in order: (point, action, call, iteration); the JAX
-# package's obs.event("fault_injected") waits for ROADMAP item 8
+# what fired, in order: (point, action, call, iteration); each is also a
+# fault_injected telemetry event
 events: List[tuple] = []
 
 
@@ -169,6 +169,10 @@ def check(point: str, iteration: Optional[int] = None) -> None:
             fs.remaining -= 1
         fs.fired += 1
         events.append((point, fs.action, call_idx, iteration))
+        from .. import obs
+        obs.event("fault_injected", point=point, action=fs.action,
+                  call=call_idx,
+                  **({} if iteration is None else {"iteration": iteration}))
         detail = (f"iter={iteration}" if iteration is not None
                   else f"call={call_idx}")
         if fs.action == "sleep":

@@ -24,9 +24,9 @@ training, ``CircuitBreaker`` for the serving router).
 A guard is active when ``tpu_watchdog`` is set or the fault harness is
 armed; inactive, ``run`` only calls the step.  Active, it synchronizes
 the card after the step, so an asynchronous CUDA error surfaces inside
-the guarded step.  The JAX package's flight-recorder dumps and
-``obs.event`` calls wait for ROADMAP item 8; until then the guard logs
-and keeps its events in ``events``.
+the guarded step.  A stall and a fatal failure dump the flight ring; a
+stall and every retry decision are telemetry events, also kept in
+``events``.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..utils import log
 from . import faults
 
@@ -138,6 +139,12 @@ class DeviceGuard:
                                 "elapsed_s": time.perf_counter() - t0})
         log.warning("%s watchdog: step %r stalled past its %.1fs deadline "
                     "(iteration %s)", self.name, point, deadline, iteration)
+        obs.event("device_stall", point=point,
+                  elapsed_s=round(time.perf_counter() - t0, 3),
+                  deadline_s=round(deadline, 3),
+                  **({} if iteration is None else {"iteration": iteration}))
+        if obs.flight_enabled():
+            obs.flight_dump(f"device_stall:{point}")
 
     def run(self, fn: Callable, point: str = "device_execute",
             iteration: Optional[int] = None):
@@ -187,9 +194,17 @@ class DeviceGuard:
         log.warning("%s watchdog: %s failure at %r (attempt %d): %s: %s — "
                     "%s", self.name, cls, point, attempt + 1,
                     type(exc).__name__, exc, action)
+        obs.event("retry", point=point, attempt=attempt, classify=cls,
+                  action=action, error=f"{type(exc).__name__}: {exc}",
+                  **({} if iteration is None else {"iteration": iteration}))
 
     def _fatal(self, exc, cls, point, iteration):
-        """The boundary-checkpoint hook, then the raise."""
+        """The flight dump and the boundary-checkpoint hook, then the
+        raise."""
+        if obs.flight_enabled():
+            obs.flight_dump(f"device_wedge:{point}",
+                            extra={"error": f"{type(exc).__name__}: {exc}",
+                                   "classify": cls})
         if self.on_fatal is not None:
             try:
                 self.on_fatal(f"device_wedge:{point}", exc)

@@ -21,7 +21,7 @@ behind a threaded HTTP front end.
 No request is ever answered from the host: a failed device batch fails
 its requests (``DeviceFailed``, HTTP 503).  The JAX package's ``aot``
 (persisted per-bucket executables) waits for ROADMAP.md's "serve AOT
-store" item and ``quality`` (rolling quality) for item 8.
+store" item.  ``quality`` tracks a served model's rolling label quality.
 """
 from .arena import ForestArena
 from .batcher import (PRIORITIES, DeadlineExceeded, DeviceFailed,

@@ -43,6 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..utils import log
 from ..robust import faults
 from .batcher import (DeadlineExceeded, DeviceFailed, MicroBatcher, Request,
@@ -217,6 +218,7 @@ class ForestArena:
 
     def _event(self, name: str, **fields) -> None:
         self.events.append(dict(fields, event=name, t=time.time()))
+        obs.event(name, **fields)
 
     # ---- residency ----------------------------------------------------
     def has(self, name) -> bool:

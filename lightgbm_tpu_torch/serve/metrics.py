@@ -15,10 +15,11 @@ and >1 means the SLO is being violated.
 ``parse_prometheus`` is the minimal text-format parser the tests and
 ``chip_smoke.py`` use to read the exposition back.
 
-Series the port cannot fill are left out, not reported as zero: the
-recompile counter (the port compiles nothing per bucket), the AOT store's
-series (ROADMAP.md "serve AOT store"), the drift series (item 8) and the
-online loop's (item 6).
+The drift series (``tpu_serve_drift_*``) render where a model's drift
+monitor is armed.  Series the port cannot fill are left out, not reported
+as zero: the recompile counter (the port compiles nothing per bucket),
+the AOT store's series (ROADMAP.md "serve AOT store") and the online
+loop's (item 6).
 """
 from __future__ import annotations
 
@@ -276,6 +277,39 @@ def _arena_series(out, head, ast) -> None:
                % int(ast.get("overloads") or 0))
 
 
+# the drift monitor's score keys, one series label each
+_DRIFT_KINDS = ("psi_max", "psi_mean", "ks_max", "pred_psi", "pred_ks")
+
+
+def _drift_series(out, head, dr) -> None:
+    """One drift monitor's ``status()`` as the ``tpu_serve_drift_*``
+    series; ``head`` writes HELP/TYPE (once, for a fleet's models)."""
+    model = dr.get("model") or "default"
+    version = int(dr.get("version") or 0)
+    scores = dr.get("scores") or {}
+    head("tpu_serve_drift_score", "gauge",
+         "Live-traffic drift vs the training reference from the last "
+         "cadence check (PSI/KS over feature bins and the prediction "
+         "histogram, by kind).")
+    for kind in _DRIFT_KINDS:
+        out.append(
+            'tpu_serve_drift_score{model="%s",version="%d",kind="%s"} %s'
+            % (model, version, kind, _fmt(scores.get(kind))))
+    head("tpu_serve_drift_rows", "gauge",
+         "Rows accumulated in the live drift sketch since the last "
+         "reset, by stream (feat = sampled feature rows, pred = scored "
+         "responses).")
+    for kind in ("feat", "pred"):
+        out.append(
+            'tpu_serve_drift_rows{model="%s",version="%d",kind="%s"} %d'
+            % (model, version, kind, int(dr.get(kind + "_rows") or 0)))
+    head("tpu_serve_drift_breach", "gauge",
+         "1 while a drift breach is latched (PSI above "
+         "tpu_drift_psi_warn at the last cadence check).")
+    out.append('tpu_serve_drift_breach{model="%s",version="%d"} %d'
+               % (model, version, 1 if dr.get("breach") else 0))
+
+
 def render_prometheus(session) -> str:
     """Prometheus text exposition for one session (its ``ServeMetrics``
     plus the live gauges out of ``session.stats()``)."""
@@ -415,6 +449,9 @@ def render_prometheus(session) -> str:
              "(packed forest + explanation planes, all replicas).")
         out.append("tpu_serve_resident_bytes %d"
                    % int(st["resident_bytes"]))
+    dr = st.get("drift")
+    if isinstance(dr, dict) and dr.get("armed"):
+        _drift_series(out, head, dr)
     return "\n".join(out) + "\n"
 
 
@@ -463,6 +500,19 @@ def render_prometheus_fleet(registry) -> str:
                     'tpu_serve_resident_bytes{model="%s",version="%d"} %d'
                     % (m["name"], int(v["version"]),
                        int(v["resident_bytes"])))
+    # the other models' drift (the default model's is rendered above)
+    seen_heads = set()
+
+    def head_once(name, kind, help_):
+        if name not in seen_heads:
+            seen_heads.add(name)
+            head(name, kind, help_)
+
+    for m in listing:
+        dr = m.get("drift")
+        if not m.get("default") and isinstance(dr, dict) \
+                and dr.get("armed"):
+            _drift_series(out, head_once, dr)
     # multi-tenant forest arena (serve/arena.py): occupancy, residency
     # and eviction pressure for the packed-tenant plane
     arena = getattr(registry, "arena", None)

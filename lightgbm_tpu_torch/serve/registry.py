@@ -26,10 +26,14 @@ A model push is a governed transition, not a file overwrite:
    degraded transitions or an SLO burn over
    ``tpu_serve_rollback_slo_burn`` rolls back automatically.
 
-The JAX package's drift and quality breaches (``rollback_on_drift``,
-``note_quality_breach``) wait for ROADMAP.md item 8, and its online-loop
-provider for item 6.  Fault points: ``serve_swap`` before the flip,
-``serve_canary`` inside the gate.  Transitions are kept in ``events``.
+A live version's drift breach (its router's ``DriftMonitor``) and a
+quality breach latched by ``serve/quality.py`` (``note_quality_breach``)
+annotate the post-swap watch's report, and roll back only with
+``tpu_serve_rollback_on_drift``; the canary's probe rows never reach the
+monitor, and a version going live starts from an empty window.  The
+online-loop provider waits for item 6.  Fault points: ``serve_swap``
+before the flip, ``serve_canary`` inside the gate.  Transitions are
+telemetry events, also kept in ``events``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import obs
 from ..config import Config
 from ..robust import faults
 from ..utils import log
@@ -104,6 +109,9 @@ class _Entry:
         self.swaps_rejected = 0
         self.rollbacks = 0
         self.swap_lock = threading.Lock()  # one swap at a time per model
+        # the latest rolling-quality breach of the live version (serve/
+        # quality.py); cleared whenever the live version changes
+        self.quality_breach: Optional[dict] = None
 
 
 class ModelRegistry:
@@ -134,6 +142,10 @@ class ModelRegistry:
         self.rollback_slo_burn = float(cfg.tpu_serve_rollback_slo_burn or 0.0)
         self.swap_warmup = bool(cfg.tpu_serve_swap_warmup)
         self.slo_p99_ms = float(cfg.tpu_serve_slo_p99_ms or 0.0)
+        # drift and quality breaches roll back only on this opt-in
+        self.rollback_on_drift = bool(_env_num(
+            "LGBM_TPU_SERVE_ROLLBACK_ON_DRIFT", int,
+            int(cfg.tpu_serve_rollback_on_drift)))
         # multi-tenant forest arena (serve/arena.py): registered names
         # win; names only the arena knows route there
         self.arena = None
@@ -147,6 +159,14 @@ class ModelRegistry:
 
     def _event(self, name: str, **fields) -> None:
         self.events.append(dict(fields, event=name, t=time.time()))
+        obs.event(name, **fields)
+
+    @staticmethod
+    def _fresh_window(ver) -> None:
+        """A version going live is scored from an empty drift window (the
+        canary's probes and pre-swap traffic are not its serving run)."""
+        if ver.router.drift is not None:
+            ver.router.drift.reset_window()
 
     # ------------------------------------------------------------------
     def _build_version(self, entry: _Entry, model) -> _Version:
@@ -184,6 +204,7 @@ class ModelRegistry:
                 raise SwapRejected(
                     f"initial deploy of {name!r} failed the canary gate: "
                     f"{report.get('error') or report['checks']}", report)
+        self._fresh_window(ver)
         with self._lock:
             ver.state = "live"
             entry.live = ver
@@ -209,6 +230,8 @@ class ModelRegistry:
         checks: Dict[str, bool] = {}
         p99 = None
         t0 = time.perf_counter()
+        if router.drift is not None:
+            router.drift.pause()    # probe rows must not feed the sketch
         try:
             faults.check("serve_canary")
             rng = np.random.default_rng(_CANARY_SEED)
@@ -235,6 +258,8 @@ class ModelRegistry:
             checks["not_degraded"] = not sess._degraded
         except Exception as exc:  # noqa: BLE001 — a failed gate, not a crash
             checks["gate"] = False
+            if router.drift is not None:
+                router.drift.resume()
             report = {"ok": False, "checks": dict(checks), "p99_ms": p99,
                       "error": f"{type(exc).__name__}: {exc}",
                       "ms": round((time.perf_counter() - t0) * 1e3, 1)}
@@ -242,6 +267,8 @@ class ModelRegistry:
                         version=int(router.version or 0), ok=False,
                         checks=dict(checks))
             return report
+        if router.drift is not None:
+            router.drift.resume()
         ok = all(checks.values())
         report = {"ok": ok, "checks": checks, "p99_ms": p99,
                   "ms": round((time.perf_counter() - t0) * 1e3, 1)}
@@ -283,6 +310,7 @@ class ModelRegistry:
                 raise SwapRejected(
                     f"swap of {name!r} failed before the flip: "
                     f"{type(exc).__name__}: {exc}", report) from exc
+            self._fresh_window(ver)
             # ---- atomic flip ----------------------------------------
             with self._lock:
                 old = entry.live
@@ -296,6 +324,7 @@ class ModelRegistry:
                     ver.watch_until = time.monotonic() + self.rollback_watch_s
                 entry.live = ver
                 entry.swaps += 1
+                entry.quality_breach = None
             if retired is not None:
                 # the version two pushes back leaves the fleet
                 retired.state = "retired"
@@ -347,8 +376,10 @@ class ModelRegistry:
             entry.live.watch_until = None
             entry.previous = None
             entry.rollbacks += 1
+            entry.quality_breach = None
         bad.state = "rolled_back"
         entry.history.append(bad.row())
+        self._fresh_window(entry.live)
         self._event("serve_rollback", model=name, from_version=bad.version,
                     to_version=entry.live.version, reason=reason)
         log.warning("registry: rolled back %r v%d -> v%d (%s)", name,
@@ -389,11 +420,42 @@ class ModelRegistry:
         elif (self.rollback_slo_burn > 0 and burn is not None
                 and burn > self.rollback_slo_burn):
             reason = f"slo_burn {burn:g} > {self.rollback_slo_burn:g}"
+        # the drift and quality breaches annotate the report, and roll
+        # back only on the tpu_serve_rollback_on_drift opt-in
+        drift_mon = ver.router.drift
+        drift_breach = drift_mon.breach if drift_mon is not None else None
+        quality_breach = entry.quality_breach
+        if reason is None and self.rollback_on_drift:
+            if drift_breach is not None:
+                worst = max(float(drift_breach.get("psi_max") or 0.0),
+                            float(drift_breach.get("pred_psi") or 0.0))
+                reason = (f"drift_psi {worst:g} > "
+                          f"{drift_breach.get('threshold'):g}")
+            elif quality_breach is not None:
+                reason = (f"quality_drop auc_delta "
+                          f"{quality_breach.get('auc_delta')}")
         if reason is not None:
             return self.rollback(name, reason=f"auto: {reason}")
-        return {"ok": True, "status": "watching" if watching else "clear",
-                "requests": total, "failed": failed_d,
-                "degraded_transitions": deg_d, "slo_burn": burn}
+        out = {"ok": True, "status": "watching" if watching else "clear",
+               "requests": total, "failed": failed_d,
+               "degraded_transitions": deg_d, "slo_burn": burn}
+        if drift_breach is not None:
+            out["drift_breach"] = drift_breach
+        if quality_breach is not None:
+            out["quality_breach"] = quality_breach
+        return out
+
+    def note_quality_breach(self, name: Optional[str], info: dict) -> None:
+        """Latch a rolling-quality breach (``serve/quality.py``) for the
+        post-swap watch.  An unknown name is ignored: the quality tracker
+        never takes its feed down."""
+        try:
+            entry = self._entry(name)
+        except UnknownModelError:
+            return
+        entry.quality_breach = dict(info)
+        log.warning("registry: quality breach latched on %r (%s)",
+                    entry.name, info.get("auc_delta"))
 
     def _start_watch(self, name: str, ver: _Version) -> None:
         """Background post-swap watcher: polls ``check_postswap`` until
@@ -458,6 +520,10 @@ class ModelRegistry:
             "resident_bytes": sum(int(v.router.resident_bytes())
                                   for v in (e.live, e.previous)
                                   if v is not None),
+            "drift": (e.live.router.drift.status()
+                      if e.live and e.live.router.drift is not None
+                      else None),
+            "quality_breach": e.quality_breach,
             "versions": ([e.live.row()] if e.live else [])
             + ([e.previous.row()] if e.previous else []) + e.history[-4:],
         } for e in entries]

@@ -32,7 +32,10 @@ availability:
 The router duck-types the session surface the HTTP front end consumes
 (``submit``/``submit_explain``/``result``/``predict``/``explain``/
 ``stats``/``metrics``/``warmup``/``close``).  All replicas of one version
-share one ``ServeMetrics``.  Every dispatch passes the fault points
+share one ``ServeMetrics`` and one ``DriftMonitor`` (``drift``, armed by
+the model file's quality sidecar), so one sketch covers the version's
+traffic.  Fleet transitions are telemetry events, also kept in
+``events``.  Every dispatch passes the fault points
 ``serve_replica`` and ``serve_replica_{i}`` (``robust/faults.py``).
 """
 from __future__ import annotations
@@ -46,6 +49,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..robust import faults
 from ..robust.watchdog import CircuitBreaker
 from ..utils import log
@@ -155,12 +159,15 @@ class ReplicaRouter:
                 base = getattr(config, "device_type", None) or "cuda"
             from ..basic import resolve_device
             devices = replica_devices(n, resolve_device(base))
+            from ..obs.drift import DriftMonitor
+            shared_drift = DriftMonitor.maybe_load(model, config)
             sessions = []
             try:
                 for i in range(n):
                     sessions.append(PredictorSession(
                         model, config=config, metrics=metrics,
-                        device=devices[i], **self._session_kw))
+                        device=devices[i], drift=shared_drift,
+                        **self._session_kw))
             except BaseException:
                 for s in sessions:
                     s.close()
@@ -174,18 +181,29 @@ class ReplicaRouter:
         cfg = sessions[0].config
         self._trip = int(cfg.tpu_serve_breaker_trip or 3)
         self._backoff = float(cfg.tpu_serve_breaker_backoff_s or 0.5)
+        # one monitor for the version: replica 0's (sessions built by the
+        # caller may each have armed their own)
+        self.drift = sessions[0]._drift
         self.replicas = []
         for i, s in enumerate(sessions):
             s.model_name = self.name
             s.model_version = self.version
             s.replica_id = f"r{i}"
             s.metrics = self.metrics
+            s._drift = self.drift
             self.replicas.append(Replica(i, s, self._breaker(i)))
+        if self.drift is not None:
+            self.drift.model_name = self.name or "default"
+            self.drift.model_version = int(self.version or 0)
         self._rr = itertools.count()
         self._lock = threading.Lock()
         self.failovers = 0
         self.events: list = []
         self._t_start = time.time()
+
+    def _event(self, name: str, **fields) -> None:
+        self.events.append(dict(fields, event=name, t=time.time()))
+        obs.event(name, **fields)
 
     def _breaker(self, idx: int) -> CircuitBreaker:
         return CircuitBreaker(trip_after=self._trip,
@@ -253,11 +271,9 @@ class ReplicaRouter:
                 cls = rep.breaker.record_failure(exc)
                 with self._lock:
                     self.failovers += 1
-                    self.events.append({
-                        "event": "serve_failover", "replica": rep.idx,
-                        "classify": cls, "breaker": rep.breaker.state,
-                        "error": f"{type(exc).__name__}: {exc}",
-                        "t": time.time()})
+                self._event("serve_failover", replica=rep.idx,
+                            classify=cls, breaker=rep.breaker.state,
+                            error=f"{type(exc).__name__}: {exc}")
                 log.warning("serve router: replica r%d %s failure (%s: %s); "
                             "breaker %s; failing over", rep.idx, cls,
                             type(exc).__name__, exc, rep.breaker.state)
@@ -303,13 +319,11 @@ class ReplicaRouter:
     # ---- fleet management --------------------------------------------
     def drain(self, idx: int) -> None:
         self.replicas[idx].draining = True
-        self.events.append({"event": "serve_drain", "replica": idx,
-                            "draining": True, "t": time.time()})
+        self._event("serve_drain", replica=idx, draining=True)
 
     def undrain(self, idx: int) -> None:
         self.replicas[idx].draining = False
-        self.events.append({"event": "serve_drain", "replica": idx,
-                            "draining": False, "t": time.time()})
+        self._event("serve_drain", replica=idx, draining=False)
 
     def restart_replica(self, idx: int) -> dict:
         """Replace one replica in place: a new ``PredictorSession`` packed
@@ -326,7 +340,7 @@ class ReplicaRouter:
         sess = PredictorSession(self._model_src, config=self._config,
                                 metrics=self.metrics,
                                 device=rep.session.device,
-                                **self._session_kw)
+                                drift=self.drift, **self._session_kw)
         sess.model_name = self.name
         sess.model_version = self.version
         sess.replica_id = f"r{idx}"
@@ -339,8 +353,7 @@ class ReplicaRouter:
                         "failed (%s: %s)", idx, type(exc).__name__, exc)
         boot = {"replica": idx,
                 "boot_ms": round((time.perf_counter() - t0) * 1e3, 3)}
-        self.events.append(dict(boot, event="serve_replica_restart",
-                                t=time.time()))
+        self._event("serve_replica_restart", **boot)
         log.info("router: replica r%d restarted in %.1f ms", idx,
                  boot["boot_ms"])
         return boot
@@ -399,6 +412,8 @@ class ReplicaRouter:
         agg["routable_replicas"] = self.routable_count()
         agg["failovers"] = self.failovers
         agg["resident_bytes"] = self.resident_bytes()
+        agg["drift"] = (self.drift.status() if self.drift is not None
+                        else None)
         agg["replicas"] = rows
         return agg
 

@@ -27,14 +27,15 @@ Wraps a bare ``PredictorSession``, a ``ReplicaRouter`` or a whole
     GET  /health       -> 200 {"status": "ok"|"degraded", ...stats...}
     GET  /metrics      -> 200 Prometheus text
     GET  /stats        -> 200 the same numbers as JSON
-    GET  /drift        -> 200 {"drift": null, ...}: the JAX package's reply
-                          when no drift monitor is armed (drift monitoring
-                          is ROADMAP.md item 8)
-    GET  /debug/flight -> 501: the flight recorder is ROADMAP.md item 8
+    GET  /drift        -> 200 each model's drift monitor status and quality
+                          breach ({"drift": null} where none is armed)
+    GET  /debug/flight -> 200 the flight recorder's ring (``obs/spans.py``)
 
 An incoming ``X-Request-Id`` header is honoured (sanitized) and echoed
 back; otherwise one is minted here.  Replies that served a prediction
-carry it in the body too.
+carry it in the body too; it is the trace id of the request's spans
+(``serve/request``, the root, and the session's queue, coalesce, pad and
+device spans under it), and each reply is a ``serve_access`` event.
 
 Error mapping (JSON bodies with an ``error`` field):
 
@@ -55,12 +56,12 @@ import json
 import re
 import threading
 import time
-import uuid
 from concurrent.futures import TimeoutError as _FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from .. import obs
 from ..utils import log
 from .batcher import (DeadlineExceeded, DeviceFailed, ServeOverloadError,
                       normalize_priority)
@@ -72,18 +73,6 @@ _REPLY_GRACE_S = 30.0
 _DEFAULT_REPLY_TIMEOUT_S = 120.0
 
 _MODEL_PATH = re.compile(r"^/models/([A-Za-z0-9._-]{1,64})/(swap|rollback)$")
-_ID_BAD = re.compile(r"[^A-Za-z0-9_.:-]")
-
-
-def _trace_id(header) -> str:
-    """The request's id: an incoming ``X-Request-Id`` with every character
-    outside ``[A-Za-z0-9_.:-]`` replaced by ``_``, cut to 64, else a fresh
-    one (the JAX package's ``new_trace_id`` contract)."""
-    if header:
-        tid = _ID_BAD.sub("_", str(header).strip())[:64]
-        if tid:
-            return tid
-    return uuid.uuid4().hex[:16]
 
 
 def _json_safe(o):
@@ -96,16 +85,33 @@ def _json_safe(o):
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
 
-    # stderr stays silent: the JAX package's access log is a telemetry
-    # event, which waits for ROADMAP.md item 8
+    # stderr stays silent: the access log is the serve_access event
     def log_message(self, fmt, *args):  # noqa: A002
         pass
 
+    def log_request(self, code="-", size="-"):
+        """One ``serve_access`` event a reply: method, path, status,
+        latency and trace id (no-op without telemetry or the ring)."""
+        try:
+            status = int(getattr(code, "value", code))
+        except (TypeError, ValueError):
+            status = 0
+        t0 = getattr(self, "_t0", None)
+        path = str(getattr(self, "path", "") or "?").split("?")[0]
+        obs.event("serve_access",
+                  method=str(getattr(self, "command", "") or "?"),
+                  path=path.rstrip("/") or path[:1] or "?",
+                  status=status,
+                  latency_ms=(round((time.perf_counter() - t0) * 1e3, 3)
+                              if t0 is not None else 0.0),
+                  trace_id=getattr(self, "_trace_id", None) or "-")
+
     def _begin(self) -> None:
-        """Per-request edge state: the start time and the trace id (an
-        incoming ``X-Request-Id`` is honoured, else minted here)."""
+        """Per-request edge state: the start times and the trace id (an
+        incoming ``X-Request-Id``, sanitized, else minted here)."""
         self._t0 = time.perf_counter()
-        self._trace_id = _trace_id(self.headers.get("X-Request-Id"))
+        self._t0_wall = time.time()
+        self._trace_id = obs.new_trace_id(self.headers.get("X-Request-Id"))
         self._status = None
 
     def _end(self) -> None:
@@ -190,19 +196,20 @@ class _Handler(BaseHTTPRequestHandler):
                                          "tenants": arena.tenants()}
                     self._reply(200, body)
             elif path == "/drift":
-                # no drift monitor is armed in the port (ROADMAP.md item
-                # 8): the JAX package's reply for an unarmed monitor
+                # each model's monitor status and quality-breach latch
                 if reg is not None:
                     self._reply(200, {"models": {
-                        m["name"]: {"drift": None, "quality_breach": None}
+                        m["name"]: {"drift": m.get("drift"),
+                                    "quality_breach": m.get(
+                                        "quality_breach")}
                         for m in reg.models()}})
                 else:
-                    self._reply(200, {"drift": None, "armed": False})
+                    dr = sess.stats().get("drift")
+                    self._reply(200, {"drift": dr, "armed": bool(dr)})
             elif path == "/debug/flight":
-                self._reply(501, {"error": "not_implemented",
-                                  "detail": "the flight recorder is not in "
-                                  "the PyTorch port yet (ROADMAP.md port "
-                                  "queue: Obs, tools and bindings)"})
+                self._reply(200, {"enabled": obs.flight_enabled(),
+                                  "ring_len": obs.flight_len(),
+                                  "events": obs.flight_snapshot()})
             else:
                 self._reply(404, {"error": "not_found", "path": self.path})
         finally:
@@ -227,6 +234,7 @@ class _Handler(BaseHTTPRequestHandler):
         explain = path == "/explain"
         reg = getattr(self.server, "registry", None)
         t0 = self._t0
+        root_id = obs.new_span_id() if obs.span_record_enabled() else None
         try:
             length = int(self.headers.get("Content-Length", 0) or 0)
             payload = json.loads(self.rfile.read(length) or b"{}")
@@ -280,17 +288,20 @@ class _Handler(BaseHTTPRequestHandler):
             if explain:
                 ticket = sess.submit_explain(X, deadline_ms=deadline_ms,
                                              trace_id=self._trace_id,
+                                             parent_id=root_id,
                                              priority=priority)
             elif arena_hit:
                 ticket = sess.submit(
                     X, model=model, deadline_ms=deadline_ms,
                     raw_score=bool(payload.get("raw_score")),
-                    trace_id=self._trace_id, priority=priority)
+                    trace_id=self._trace_id, parent_id=root_id,
+                    priority=priority)
             else:
                 ticket = sess.submit(
                     X, deadline_ms=deadline_ms,
                     raw_score=bool(payload.get("raw_score")),
-                    trace_id=self._trace_id, priority=priority)
+                    trace_id=self._trace_id, parent_id=root_id,
+                    priority=priority)
             wait_s = (float(deadline_ms) / 1e3 + _REPLY_GRACE_S
                       if deadline_ms is not None
                       else _DEFAULT_REPLY_TIMEOUT_S)
@@ -339,6 +350,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(500, {"error": type(exc).__name__,
                               "detail": str(exc)})
         finally:
+            if root_id is not None:
+                # the request's root span, parent of the session's spans
+                obs.emit_span(
+                    "explain/request" if explain else "serve/request",
+                    self._t0_wall, (time.perf_counter() - t0) * 1e3,
+                    self._trace_id, span_id=root_id,
+                    attrs={"status": self._status, "path": path})
             self._end()
 
     def _do_admin(self, name: str, action: str) -> None:

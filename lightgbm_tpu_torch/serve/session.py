@@ -33,9 +33,15 @@ error poisons the whole context, so every session on that card fails its
 probe as well.  ``_run_host`` survives only as the registry canary's
 parity oracle: it checks an answer and never gives one.
 
-The JAX package's telemetry (obs events, trace spans, the flight
-recorder, the recompile counter) waits for ROADMAP.md item 8; state
-transitions are kept in ``events`` meanwhile.
+Observability (``obs/``), as in the JAX session: state transitions,
+requests and batches are telemetry events (and kept in ``events``);
+with trace mode or the flight ring on, each request's batch phases are
+spans (``serve/queue_wait``, ``serve/coalesce`` and
+``serve/device_execute``) under its trace id; a degradation or an
+overload storm dumps the flight ring.  A model file with a
+``.quality.json`` sidecar arms a ``DriftMonitor`` (``tpu_drift``; a
+router passes one shared by its replicas), which sees every batch's raw
+rows and scores.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import Config
 from ..robust import faults
 from ..utils import log
@@ -60,10 +67,11 @@ from .packing import ServeBinSpace
 _LAT_RESERVOIR = 8192    # latency samples kept for the p50/p99 estimate
 _EVENTS_KEPT = 1024      # state-transition events kept in ``events``
 
-# a JAX-written quality-profile sidecar beside a model file arms the JAX
-# package's drift monitor; the port says once that it does not
-_QUALITY_SUFFIX = ".quality.json"
-_drift_warned = False
+# an overload storm (_STORM_N rejects inside _STORM_WINDOW_S) dumps the
+# flight ring at most once a _STORM_COOLDOWN_S
+_STORM_N = 16
+_STORM_WINDOW_S = 5.0
+_STORM_COOLDOWN_S = 60.0
 
 
 def _safe_resolve(future, result=None, error=None) -> None:
@@ -87,16 +95,6 @@ def _env_num(name: str, cast, fallback):
         except ValueError:
             log.warning("ignoring non-numeric %s=%r", name, v)
     return fallback
-
-
-def _warn_quality_sidecar(model) -> None:
-    global _drift_warned
-    if (not _drift_warned and isinstance(model, str)
-            and os.path.isfile(model + _QUALITY_SUFFIX)):
-        _drift_warned = True
-        log.warning("%s%s is not armed: drift monitoring is not in the "
-                    "PyTorch port yet (ROADMAP.md port queue: Obs, tools "
-                    "and bindings)", model, _QUALITY_SUFFIX)
 
 
 def _tensor_bytes(obj) -> int:
@@ -199,7 +197,8 @@ class PredictorSession:
                  start_iteration: int = 0, max_batch: Optional[int] = None,
                  max_wait_ms: Optional[float] = None,
                  queue_depth: Optional[int] = None,
-                 metrics: Optional[ServeMetrics] = None, device=None):
+                 metrics: Optional[ServeMetrics] = None, device=None,
+                 drift="auto"):
         from ..basic import resolve_device
         if isinstance(config, dict):
             config = Config.from_params(config)
@@ -213,7 +212,6 @@ class PredictorSession:
         gbdt, model_cfg = load_serving_model(model, self.device)
         config = config if config is not None else model_cfg
         self.config = config if config is not None else Config()
-        _warn_quality_sidecar(model)
         self.gbdt = gbdt
         self.objective = getattr(gbdt, "objective", None)
         self.objective_error = getattr(gbdt, "objective_error", None)
@@ -319,16 +317,60 @@ class PredictorSession:
             "normal": float(_env_num("LGBM_TPU_SERVE_SHED_NORMAL_FRAC", float,
                                      cfg.tpu_serve_shed_normal_frac)),
         }
+        # drift: "auto" arms for a model file with a quality sidecar
+        # (and tpu_drift on); a router passes one monitor for its replicas
+        if drift == "auto":
+            from ..obs.drift import DriftMonitor
+            self._drift = DriftMonitor.maybe_load(model, self.config)
+        else:
+            self._drift = drift or None
+        if cfg.tpu_trace:
+            obs.enable_trace()
+        if not obs.flight_enabled():
+            obs.enable_flight(obs.flight_len_from_env(cfg.tpu_flight_len))
+        self._overload_times: deque = deque(maxlen=_STORM_N)
+        self._last_flight_dump = None  # monotonic() of the last dump
         self._batcher = MicroBatcher(
             self._execute_batch, max_batch=self.max_batch,
             max_wait_s=self.max_wait_ms / 1e3,
             max_queue_rows=self.queue_depth, shed_fracs=self._shed_fracs)
+        obs.event("serve_start", trees=self.num_trees, num_class=K,
+                  num_features=F, max_batch=self.max_batch,
+                  max_wait_ms=self.max_wait_ms, queue_depth=self.queue_depth)
 
     # ------------------------------------------------------------------
     _bucket_sweep = staticmethod(bucket_sweep)
 
     def _event(self, name: str, **fields) -> None:
+        """A state transition: kept in ``events`` and sent to telemetry
+        (and the flight ring)."""
         self.events.append(dict(fields, event=name, t=time.time()))
+        obs.event(name, **fields)
+
+    def _flight_dump(self, reason: str, force: bool = False) -> None:
+        """A flight-ring dump at most once a cooldown (``force`` ignores
+        it; no-op without the ring)."""
+        now = time.monotonic()
+        with self._lock:
+            if (not force and self._last_flight_dump is not None
+                    and now - self._last_flight_dump < _STORM_COOLDOWN_S):
+                return
+            self._last_flight_dump = now
+        if obs.flight_enabled():
+            obs.flight_dump(reason, extra={"stats": self.stats()})
+
+    def _observe_drift(self, X, raw, check: bool = True) -> None:
+        """Feed the drift monitor (raw rows, raw scores); a monitor
+        failure never fails serving."""
+        if self._drift is None:
+            return
+        try:
+            if X is not None:
+                self._drift.observe(X, raw)
+            if check:
+                self._drift.maybe_check()
+        except Exception as exc:  # noqa: BLE001
+            log.warning("drift observe failed: %s", exc)
 
     def warmup(self) -> int:
         """Run every bucket shape up to the batch cap once, so the first
@@ -397,6 +439,7 @@ class PredictorSession:
                         (" (every %.3g s)" % self.reprobe_s
                          if self.reprobe_s > 0 else " (re-probing is off)"))
             self._event("serve_degraded", error=self._degraded_error)
+            self._flight_dump("serve_degraded", force=True)
 
     def _maybe_reprobe(self) -> bool:
         """While degraded, run one one-row device batch every reprobe_s;
@@ -439,6 +482,7 @@ class PredictorSession:
                         self._explain_error)
             self._event("serve_degraded", plane="explain",
                         error=self._explain_error)
+            self._flight_dump("serve_degraded", force=True)
 
     def _maybe_reprobe_explain(self) -> bool:
         """Explain twin of ``_maybe_reprobe``: the probe runs the TreeSHAP
@@ -474,14 +518,22 @@ class PredictorSession:
 
     def _note_overload(self, rows: int, queue_rows: int,
                        priority: str = "normal") -> None:
+        """Overload accounting; a storm (``_STORM_N`` rejects inside
+        ``_STORM_WINDOW_S``) dumps the flight ring."""
+        now = time.monotonic()
         with self._lock:
             self._n_overload += 1
+            self._overload_times.append(now)
+            storm = (len(self._overload_times) == _STORM_N
+                     and now - self._overload_times[0] <= _STORM_WINDOW_S)
         if self.replica_id is None:
             # sheds count client-visible rejections: inside a router a
             # sibling may still take the request, so the router counts
             self.metrics.count_shed(priority)
         self._event("serve_overload", rows=int(rows), queue_rows=queue_rows,
                     priority=priority)
+        if storm:
+            self._flight_dump("overload_storm")
 
     def _note_refused(self, exc: DeviceFailed, explain: bool) -> None:
         """A submit refused by a degraded plane: a failed request, unless
@@ -533,6 +585,7 @@ class PredictorSession:
             self.metrics.observe((time.perf_counter() - t0) * 1e3, ok=False)
             raise
         self._note_request(X.shape[0], (time.perf_counter() - t0) * 1e3)
+        self._observe_drift(X, raw)
         return self._convert(raw, raw_score)
 
     # ------------------------------------------------------------------
@@ -638,8 +691,8 @@ class PredictorSession:
                        priority: str = "normal") -> Ticket:
         """Queue rows for the next coalesced TreeSHAP batch: ``submit``'s
         chunking, deadline, backpressure and shedding, with its own queue
-        and buckets.  ``trace_id``/``parent_id`` ride along unused until
-        the trace plane (ROADMAP.md item 8)."""
+        and buckets.  ``trace_id``/``parent_id`` place its spans in a
+        trace."""
         X = self._check_input(X)
         if self._closed:
             raise RuntimeError("session is closed")
@@ -677,7 +730,9 @@ class PredictorSession:
         if not live:
             return
         rows = sum(r.n for r in live)
+        self._queue_spans(live, rows, "explain")
         bucket = 0
+        t0 = time.perf_counter()
         try:
             self._check_explain_device()
             bins = (live[0].bins if len(live) == 1
@@ -699,6 +754,10 @@ class PredictorSession:
             self._explain_batches += 1
             self._explain_rows += rows
             self._explain_padded += bucket
+        obs.event("explain_batch", rows=rows, padded=int(bucket),
+                  requests=len(live),
+                  exec_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                  degraded=False)
 
     def _note_explain_request(self, rows: int, total_ms: float,
                               priority: str = "normal") -> None:
@@ -710,6 +769,8 @@ class PredictorSession:
                 del self._xlat_ms[:_LAT_RESERVOIR // 2]
         self.metrics.observe_explain(total_ms, ok=True)
         self.metrics.count_served(priority)
+        obs.event("explain_request", rows=int(rows),
+                  total_ms=round(total_ms, 3), ok=True)
 
     # ------------------------------------------------------------------
     def submit(self, X, deadline_ms: Optional[float] = None,
@@ -785,18 +846,24 @@ class PredictorSession:
             return
         ticket.counted = True
         deadline = isinstance(exc, DeadlineExceeded)
+        reason = "deadline" if deadline else type(exc).__name__
         total_ms = (time.perf_counter() - ticket.t0) * 1e3
         if ticket.kind == "explain":
             with self._lock:
                 self._n_explain += 1
                 self._n_explain_deadline += deadline
             self.metrics.observe_explain(total_ms, ok=False)
+            obs.event("explain_request", rows=int(ticket.rows),
+                      total_ms=round(total_ms, 3), ok=False,
+                      reason=reason)
             return
         with self._lock:
             self._n_req += 1
             self._n_deadline += deadline
             self._n_failed += not deadline
         self.metrics.observe(total_ms, ok=False)
+        obs.event("serve_request", rows=int(ticket.rows),
+                  total_ms=round(total_ms, 3), ok=False, reason=reason)
 
     # ------------------------------------------------------------------
     def _execute_batch(self, reqs) -> None:
@@ -806,7 +873,10 @@ class PredictorSession:
         if not live:
             return
         rows = sum(r.n for r in live)
+        span_ctx = self._queue_spans(live, rows, "serve")
         bucket = 0
+        t0 = time.perf_counter()
+        t_exec0 = time.time()
         try:
             self._check_device()
             bins = (live[0].bins if len(live) == 1
@@ -820,14 +890,49 @@ class PredictorSession:
             for r in live:
                 _safe_resolve(r.future, error=exc)
             return
+        exec_ms = (time.perf_counter() - t0) * 1e3
+        for tid, pid in span_ctx or ():
+            # padding, the device walk and the scores' copy back
+            obs.emit_span("serve/device_execute", t_exec0, exec_ms, tid,
+                          parent_id=pid, attrs={"rows": rows,
+                                                "bucket": bucket})
+        # before the futures resolve (a buffered append), so a caller that
+        # saw its result can force a check with this batch in the sketch
+        self._observe_drift([r.raw for r in live], raw, check=False)
         off = 0
         for r in live:
             _safe_resolve(r.future, result=raw[off:off + r.n])
             off += r.n
+        self._observe_drift(None, None)
         with self._lock:
             self._batches += 1
             self._real_rows += rows
             self._padded_rows += bucket
+        obs.event("serve_batch", rows=rows, padded=int(bucket),
+                  requests=len(live), queue_rows=self._batcher.queue_rows,
+                  exec_ms=round(exec_ms, 3), degraded=False)
+
+    @staticmethod
+    def _queue_spans(live, rows: int, plane: str):
+        """Each request's queue-wait and coalesce spans; returns the
+        (trace id, parent) of each for the batch's later spans, or None
+        when no span is recorded."""
+        if not obs.span_record_enabled():
+            return None
+        now = time.monotonic()
+        t_dispatch = time.time()
+        ctx = []
+        for r in live:
+            tid = r.trace_id or obs.new_trace_id()
+            obs.emit_span(f"{plane}/queue_wait", r.t_submit_wall,
+                          (now - r.t_submit) * 1e3, tid,
+                          parent_id=r.parent_id, attrs={"rows": r.n})
+            obs.emit_span(f"{plane}/coalesce", r.t_submit_wall,
+                          max(t_dispatch - r.t_submit_wall, 0.0) * 1e3,
+                          tid, parent_id=r.parent_id,
+                          attrs={"requests": len(live), "rows": rows})
+            ctx.append((tid, r.parent_id))
+        return ctx
 
     def _check_input(self, X) -> np.ndarray:
         return as_rows(X, self.num_features)
@@ -842,6 +947,8 @@ class PredictorSession:
                 del self._lat_ms[:_LAT_RESERVOIR // 2]
         self.metrics.observe(total_ms, ok=True)
         self.metrics.count_served(priority)
+        obs.event("serve_request", rows=int(rows),
+                  total_ms=round(total_ms, 3), ok=True)
 
     # ------------------------------------------------------------------
     def resident_bytes(self) -> int:
@@ -854,10 +961,10 @@ class PredictorSession:
 
     def stats(self) -> dict:
         """Serving counters and latency percentiles (``/health``,
-        ``/stats``).  The JAX package's ``compile_count``, ``drift`` and
-        ``aot`` keys are left out: the port has no per-bucket compiles, and
-        the drift plane and the AOT store wait for their ROADMAP.md
-        items."""
+        ``/stats``).  The JAX package's ``compile_count`` and ``aot`` keys
+        are left out: the port has no per-bucket compiles, and the AOT
+        store waits for its ROADMAP.md item.  ``drift`` is the monitor's
+        status (None when unarmed)."""
         with self._lock:
             lat = sorted(self._lat_ms)
             xlat = sorted(self._xlat_ms)
@@ -910,6 +1017,8 @@ class PredictorSession:
                 "version": self.model_version,
                 "replica": self.replica_id,
                 "resident_bytes": self.resident_bytes(),
+                "drift": (self._drift.status()
+                          if self._drift is not None else None),
             }
 
     def close(self) -> None:

@@ -114,7 +114,8 @@ def trained(lgb_interp):
     lgb = lgb_interp
     X, y = _sparse_data()
     ref = lgb.train(PARAMS, lgb.Dataset(X, label=y), ROUNDS)
-    port = lt.train(PARAMS, lt.Dataset(X, label=y), ROUNDS, device="cpu")
+    port = lt.train(PARAMS, lt.Dataset(X, label=y), ROUNDS, device="cpu",
+                    keep_training_booster=True)
     return X, y, ref, port
 
 

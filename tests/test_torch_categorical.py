@@ -57,7 +57,7 @@ def trained():
     finally:
         mp.undo()
     port = lt.train(PARAMS, lt.Dataset(X, label=y, categorical_feature=CATS),
-                    ROUNDS, device="cpu")
+                    ROUNDS, device="cpu", keep_training_booster=True)
     return X, y, ref, port
 
 

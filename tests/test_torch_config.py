@@ -89,15 +89,14 @@ def test_refused_items_are_roadmap_items():
 SERVE_FIELDS = [f for f in FIELDS
                 if f.name.startswith(("tpu_serve", "tpu_explain"))]
 # the serving fields the port still refuses, by the item that brings them
-SERVE_REFUSED = {"tpu_serve_aot_dir": "serve AOT store",
-                 "tpu_serve_rollback_on_drift": "Obs, tools and bindings"}
+SERVE_REFUSED = {"tpu_serve_aot_dir": "serve AOT store"}
 
 
 @pytest.mark.parametrize("fld", SERVE_FIELDS, ids=lambda f: f.name)
 def test_serve_field_runs_or_names_its_item(fld):
     """Every ``tpu_serve_*``/``tpu_explain*`` field takes a non-default
-    value (``serve/`` reads it), except the AOT store's directory and the
-    drift rollback, refused by their items.  Floats are halved (0 becomes
+    value (``serve/`` reads it), except the AOT store's directory, refused
+    by its item.  Floats are halved (0 becomes
     0.5), so fractions stay in range."""
     d = _default(fld)
     value = ((d / 2 if d else 0.5) if isinstance(d, float)
@@ -111,3 +110,32 @@ def test_serve_field_runs_or_names_its_item(fld):
         assert pconfig.refused_item(fld.name) is None
         assert getattr(Config.from_params({fld.name: value}),
                        fld.name) == value
+
+
+# the observability fields the port runs since its obs/ plane, with a
+# non-default value each, and the ones that still name item 8B
+OBS_RUN = {"tpu_telemetry": "telemetry.jsonl", "tpu_health": "monitor",
+           "tpu_profile": True, "tpu_trace": True, "tpu_flight_len": 64,
+           "tpu_drift": False, "tpu_drift_sample_rate": 0.5,
+           "tpu_drift_check_s": 5.0, "tpu_drift_min_rows": 50,
+           "tpu_drift_psi_warn": 0.1, "tpu_quality_window": 100,
+           "tpu_quality_drop_warn": 0.1,
+           "tpu_serve_rollback_on_drift": True,
+           "tpu_quality_profile": False}
+OBS_REFUSED = {"tpu_xprof": True, "tpu_xprof_iters": 5,
+               "tpu_train_metrics_port": 8080}
+
+
+@pytest.mark.parametrize("name", sorted(OBS_RUN))
+def test_obs_field_runs(name):
+    assert pconfig.refused_item(name) is None
+    value = OBS_RUN[name]
+    assert getattr(Config.from_params({name: value}), name) == value
+
+
+@pytest.mark.parametrize("name", sorted(OBS_REFUSED))
+def test_obs_field_of_item_8b_is_refused(name):
+    assert pconfig.refused_item(name) == "Obs, tools and bindings, part B"
+    with pytest.raises(LightGBMError, match="ROADMAP.md port queue: Obs, "
+                       "tools and bindings, part B"):
+        Config.from_params({name: OBS_REFUSED[name]})

@@ -470,8 +470,11 @@ def test_http_fleet_roundtrip_swap_and_models(fleet_models):
         assert health["models"]["default"]["live_version"] == 1
         stats = _get_json(url + "/stats")
         assert stats["stats"]["n_replicas"] == 2 and "metrics" in stats
-        assert _get_json(url + "/drift") == {"models": {"default": {
-            "drift": None, "quality_breach": None}}}
+        # the JAX-written quality sidecar beside m1 arms the version's
+        # drift monitor
+        drift = _get_json(url + "/drift")["models"]["default"]
+        assert drift["quality_breach"] is None
+        assert drift["drift"]["armed"] and drift["drift"]["version"] == 1
         code, rep = _post(url + "/models/default/swap", {"model_file": m2})
         assert code == 200 and rep["ok"] and rep["to_version"] == 2
         code, body = _post(url + "/predict", {"rows": X[:4].tolist()})

@@ -49,3 +49,23 @@ def test_no_jax_in_port_sources():
                 mod = s.split()[1]
                 assert not mod.startswith(("jax", "lightgbm_tpu.")) \
                     and mod != "lightgbm_tpu", f"{path}: {s}"
+
+
+def test_exports_match_the_jax_package():
+    """The package exports the JAX package's public names (the v2.3.2
+    API, the estimators and the plots), and its obs/ and serve/quality
+    modules are part of the walk above."""
+    import importlib.util
+
+    import lightgbm_tpu_torch as lt
+    names = set(lt.__all__)
+    assert {"Dataset", "Booster", "Config", "train", "cv", "LightGBMError",
+            "early_stopping", "print_evaluation", "record_evaluation",
+            "reset_parameter", "LGBMModel", "LGBMRegressor",
+            "LGBMClassifier", "LGBMRanker", "plot_importance",
+            "plot_metric", "plot_tree", "create_tree_digraph",
+            "plot_split_value_histogram"} <= names
+    for mod in ("sklearn", "plotting", "compat", "obs", "obs.core",
+                "obs.trace", "obs.spans", "obs.memory", "obs.profile",
+                "obs.health", "obs.drift", "serve.quality"):
+        assert importlib.util.find_spec("lightgbm_tpu_torch." + mod), mod

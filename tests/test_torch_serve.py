@@ -410,20 +410,26 @@ def test_session_on_cuda_refuses_without_a_card(binary_model, monkeypatch):
             PredictorSession(binary_model, device=device)
 
 
-def test_quality_sidecar_is_not_armed(binary_model, monkeypatch):
-    """The JAX package writes a ``.quality.json`` beside a saved model;
-    the port does not arm drift monitoring from it and says so once."""
+def test_quality_sidecar_is_not_armed(binary_model):
+    """The JAX package writes a ``.quality.json`` beside a saved model.
+    Since the drift plane is ported, that sidecar arms the session's drift
+    monitor (``tpu_drift``, on by default) and ``tpu_drift=false`` leaves
+    it unarmed (the case keeps its name from before the port had the
+    plane)."""
     import os
-
-    from lightgbm_tpu_torch.serve import session as session_mod
     assert os.path.isfile(binary_model + ".quality.json")
-    seen = []
-    monkeypatch.setattr(session_mod, "_drift_warned", False)
-    monkeypatch.setattr(session_mod.log, "warning",
-                        lambda msg, *a: seen.append(msg % a))
-    for _ in range(2):
-        _session(binary_model).close()
-    assert len(seen) == 1 and "ROADMAP.md" in seen[0]
+    sess = _session(binary_model)
+    try:
+        dr = sess.stats()["drift"]
+        assert dr["armed"] and dr["source"] == binary_model + ".quality.json"
+    finally:
+        sess.close()
+    sess = PredictorSession(binary_model, config={"tpu_drift": False},
+                            device="cpu")
+    try:
+        assert sess.stats()["drift"] is None
+    finally:
+        sess.close()
 
 
 # ---------------------------------------------------------------------------
@@ -502,10 +508,15 @@ def test_http_server_roundtrip(multiclass_model):
                               {"rows": Xt[:3].tolist()})
         assert code == 200 and np.asarray(body["contributions"]).shape \
             == (3, 3 * 7)
-        assert json.loads(_get(server.url + "/drift")[1]) == {
-            "drift": None, "armed": False}
+        # the JAX-written quality sidecar arms the drift monitor, and the
+        # flight ring is on in a serving process
+        drift = json.loads(_get(server.url + "/drift")[1])
+        assert drift["armed"] and drift["drift"]["pred_rows"] >= 40
         code, text = _get(server.url + "/debug/flight")
-        assert code == 501 and "ROADMAP.md" in text
+        flight = json.loads(text)
+        assert code == 200 and flight["enabled"]
+        assert any(e.get("event") == "serve_batch"
+                   for e in flight["events"])
         # typed protocol errors, not 500s
         code, body, _ = _post(server.url + "/predict", {"rows": "nope"})
         assert code == 400 and body["error"] == "bad_request"
