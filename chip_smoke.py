@@ -244,6 +244,26 @@ live (lines start ``API``, ``obs`` and ``drift``, then ``phases 27-28``):
    no breach on in-distribution rows, a breach on shifted ones, ``/drift``
    and ``/debug/flight`` answering.
 
+The twelfth slice's phase runs last, on the phase-22 model (lines start
+``refit``, ``CLI task=refit``, ``online``, ``online continue``, then
+``phase 29`` and a ``{"refit": ...}`` line):
+
+29. (a) ``Booster.refit`` on 1,000,000 fresh HIGGS-shaped rows at decay
+   0.9, on the card twice and through the host oracle: leaves and
+   100,000 rows' predictions within 1e-6 of the oracle, the two card
+   refits' model texts byte-equal, the leaf walk and the steps timed by
+   CUDA events against their byte bounds, the ``refit`` events; (b)
+   ``task=refit`` of phase 9's model on its rows with flipped labels,
+   within 1e-10 of ``Booster.refit``; (c) ``run_online`` over HTTP (2
+   replicas on ``cuda:0``) on a 60,000-line label stream: 3 versions
+   pushed, none rejected or failed, no request lost under a client
+   thread, each reply within 1e-6 of its version's ``Booster.predict``,
+   ``/metrics``'s ``tpu_online_*`` equal to ``stats()``, the quality
+   windows armed, an ``OnlineLoop(push=None)`` replay byte-equal; a
+   40,000-line run with one ``online_refit`` fault: 1 failed, the base
+   kept; (d) ``tpu_online_mode=continue``: 10 trees on a 50,000-row
+   window, K1 counted, thresholds the base model's, logloss down.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all, by layout and by sibling form (fused or not); K2 its
@@ -252,11 +272,13 @@ of its model text (equal digests, equal trees).  Prints a
 ``{"kernels": [...]}`` line (``launches`` from each kernel's path,
 ``training_path_launches`` over the three training phases,
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
-and errors, K1's launches on the DART, RF, overlap, resume, estimator and
-observability paths, K2's on the serial grower under health), a
+and errors, K1's launches on the DART, RF, overlap, resume, estimator,
+observability and online-continue paths, K2's on the serial grower under
+health), a
 ``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
 bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
-``shap_cost`` bound), the ``{"serving": ...}`` line and, last, the
+``shap_cost`` bound), the ``{"serving": ...}`` and ``{"refit": ...}``
+lines and, last, the
 device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
 lightgbm_tpu.
@@ -1163,7 +1185,8 @@ def cli_phase(lt, kind, card, rows=200_000):
     ``PredictorSession`` (``LGBM_TPU_PREDICT_MIN_WORK=0``: the JAX
     package's route for heavy work) and its output equals
     ``Booster(model_file=...).predict`` on the file's rows, taken through
-    the Booster's stacked-forest walk (the session's arithmetic)."""
+    the Booster's stacked-forest walk (the session's arithmetic).  Returns
+    the model file, kept under ``SCRATCH`` for phase 29's ``task=refit``."""
     import tempfile
     from lightgbm_tpu_torch.boosting.gbdt import PredictorBase
     from lightgbm_tpu_torch.config import Config
@@ -1204,6 +1227,11 @@ def cli_phase(lt, kind, card, rows=200_000):
         err = float(np.abs(got - want).max())
         with open(model) as fh:
             trees = fh.read().count("\nTree=")
+        # phase 29 refits this model through task=refit
+        os.makedirs(SCRATCH, exist_ok=True)
+        kept = os.path.join(SCRATCH, "cli_model.txt")
+        with open(model) as src, open(kept, "w") as dst:
+            dst.write(src.read())
     print(f"CLI ({rows:,} x 28 TSV): task=train {walls['train']:.1f} s wall "
           f"({trees} trees), task=predict {walls['predict']:.1f} s wall "
           f"(through a PredictorSession: {via_session}); max |output - "
@@ -1211,6 +1239,7 @@ def cli_phase(lt, kind, card, rows=200_000):
           f"[{kind}, {card}]", flush=True)
     if trees != 5 or err > 1e-10 or not via_session:
         raise AssertionError("CLI output disagrees with Booster.predict")
+    return kept
 
 
 COVTYPE_ROWS = 581_012
@@ -3171,6 +3200,399 @@ def drift_phase(lt, model, X, kind, card):
         raise AssertionError("/drift or /debug/flight did not answer")
 
 
+# ---- 29: refit and the online loop (the twelfth slice) --------------------
+REFIT_ROWS = 1_000_000           # fresh rows of Booster.refit (a new seed)
+REFIT_CHECK_ROWS = 100_000       # of them, predicted by both refits
+REFIT_CLI_ROWS = 200_000         # the CLI phase's rows, labels flipped
+ONLINE_ROWS = 60_000             # lines of the label stream
+ONLINE_FAULT_ROWS = 40_000       # its first lines: the faulted run's stream
+ONLINE_WINDOW = 50_000
+ONLINE_EVERY = 20_000
+ONLINE_POOL = 20_000             # rows the online run's requests are cut from
+CONTINUE_ROWS = 50_000
+CONTINUE_TREES = 10
+
+
+def leaf_error(a, b) -> float:
+    """The largest |leaf value| difference of two boosters over one
+    forest's structure (checked equal tree by tree)."""
+    worst = 0.0
+    for ta, tb in zip(a._gbdt.models, b._gbdt.models):
+        nn = ta.num_leaves - 1
+        if (ta.num_leaves != tb.num_leaves
+                or not np.array_equal(ta.split_feature[:nn],
+                                      tb.split_feature[:nn])
+                or not np.array_equal(ta.threshold[:nn], tb.threshold[:nn])):
+            raise AssertionError("a refit changed a tree's structure")
+        worst = max(worst, float(np.abs(ta.leaf_value - tb.leaf_value).max()))
+    return worst
+
+
+def refit_bounds(forest_bytes: int, T: int, N: int, F: int) -> dict:
+    """Byte bounds of the forest walks and the refit steps over ``T``
+    trees, ``N`` rows and ``F`` features, each input read once and each
+    output written once.  The refit's leaf walk reads the stacked forest
+    (``forest_bytes``) and the u8 bins [N, F] and writes the int64 leaf
+    ids [T, N]; the steps, per tree, read its leaf ids (8 B a row), read
+    and write the f32 score, and read the label and write g and h in the
+    gradient step and read them in the sums (4 B each).  The serving walk
+    (``forest_predict_fn``) reads the forest and the int32 bins of the
+    served rows and writes one f32 score a row: at 1 row, 1,024 rows (the
+    largest bucket) and N rows."""
+    out = {"leaf_walk": bound(forest_bytes + N * F + 8 * T * N, T * N),
+           "steps": bound(T * N * (8 + 4 + 4 + 4 + 8 + 8), 10 * T * N)}
+    for n in (1, 1024, N):
+        out[f"serving_walk_{n}"] = bound(forest_bytes + n * (4 * F + 4),
+                                         T * n)
+    return out
+
+
+def refit_phase(lt, model, kind, card):
+    """(29a) ``Booster.refit`` of the served model (100 trees x 255 leaves)
+    on 1,000,000 fresh HIGGS-shaped rows at decay 0.9: the device path
+    twice, then the host oracle (``tpu_refit_device=false``); every leaf
+    within 1e-6 of the oracle, 100,000 rows' predictions within 1e-6, the
+    two device refits' model texts byte-equal; wall s by path (the new
+    rows' binning and the trainer's set-up included), the leaf walk's and
+    the steps' ms by CUDA events against their byte bounds, and the
+    ``refit`` events.  Returns the numbers."""
+    from lightgbm_tpu_torch import obs
+    Xn, yn = higgs_like(REFIT_ROWS, seed=29)
+    bst = lt.Booster(model_file=model)
+    sink = os.path.join(SCRATCH, "telemetry_refit.jsonl")
+    if os.path.exists(sink):
+        os.remove(sink)
+    obs.enable(sink)
+    walls, runs = {}, {}
+    try:
+        for name, kw in (("device", {}), ("device again", {}),
+                         ("host", {"tpu_refit_device": False})):
+            t0 = time.perf_counter()
+            runs[name] = bst.refit(Xn, yn, decay_rate=0.9, **kw)
+            walls[name] = round(time.perf_counter() - t0, 3)
+    finally:
+        obs.disable()
+    with open(sink) as fh:
+        events = [e for e in map(json.loads, fh) if e.get("event") == "refit"]
+    dev, host = runs["device"], runs["host"]
+    leaf_err = leaf_error(dev, host)
+    moved = leaf_error(dev, bst)
+    rows = Xn[:REFIT_CHECK_ROWS]
+    pred_err = float(np.abs(dev.predict(rows) - host.predict(rows)).max())
+    same_text = dev.model_to_string() == runs["device again"].model_to_string()
+    rep, again = (runs[k]._gbdt.last_refit for k in ("device",
+                                                       "device again"))
+    from lightgbm_tpu_torch.core.forest import stack_forest
+    gb = dev._gbdt
+    T = len(gb.models)
+    forest = stack_forest([gb._tree_arrays_np(t) for t in gb.models],
+                          np.zeros(T, np.int32), "cpu")
+    forest_bytes = sum(v.numel() * v.element_size() for v in forest
+                       if hasattr(v, "element_size"))
+    b = refit_bounds(forest_bytes, T, REFIT_ROWS, 28)
+    serving = {n: b[f"serving_walk_{n}"]["bound_ms"]
+               for n in (1, 1024, REFIT_ROWS)}
+    out = {"trees": T, "rows": REFIT_ROWS, "wall_s": walls,
+           "leaf_walk_ms": [rep["leaf_walk_ms"], again["leaf_walk_ms"]],
+           "steps_ms": [rep["steps_ms"], again["steps_ms"]],
+           "leaf_walk_bound_ms": b["leaf_walk"]["bound_ms"],
+           "steps_bound_ms": b["steps"]["bound_ms"],
+           "serving_walk_bound_ms": serving, "forest_bytes": forest_bytes,
+           "max_leaf_err": leaf_err, "max_pred_err": pred_err,
+           "byte_equal": same_text}
+    print(f"refit (Booster.refit, {T} trees x "
+          f"{max(t.num_leaves for t in gb.models)} leaves on {REFIT_ROWS:,} "
+          f"fresh rows, decay 0.9): wall s {walls} (binning and set-up "
+          f"included); leaf walk {rep['leaf_walk_ms']:.3f} / "
+          f"{again['leaf_walk_ms']:.3f} ms (bound "
+          f"{b['leaf_walk']['bound_ms']:.4f} ms by bytes), steps "
+          f"{rep['steps_ms']:.3f} / {again['steps_ms']:.3f} ms (bound "
+          f"{b['steps']['bound_ms']:.4f} ms by bytes) by CUDA events; max "
+          f"|leaf - host oracle| {leaf_err:.3g} (tol 1e-6), max |pred - "
+          f"oracle's| on {REFIT_CHECK_ROWS:,} rows {pred_err:.3g} (tol "
+          f"1e-6), leaves moved by up to {moved:.3g}; two device refits' "
+          f"texts byte-equal: {same_text}; the serving walk's byte bound "
+          f"at 1 / 1,024 / {REFIT_ROWS:,} rows {serving} ms (stacked "
+          f"forest {forest_bytes:,} bytes); refit events "
+          f"{json.dumps(events)} [{kind}, {card}]", flush=True)
+    if (leaf_err > 1e-6 or pred_err > 1e-6 or not same_text or moved < 1e-6
+            or [e["mode"] for e in events] != ["device", "device", "host"]):
+        raise AssertionError("the device refit disagrees with its oracle "
+                             "or with itself")
+    return out
+
+
+def cli_refit_phase(lt, cli_model, kind, card):
+    """(29b) ``python -m lightgbm_tpu_torch task=refit`` of the CLI phase's
+    model (5 trees x 255 leaves) on its 200,000 rows with flipped labels,
+    a subprocess on the card: exit 0, every tree's structure kept, the
+    leaves moved, and the output within 1e-10 of ``Booster.refit`` on the
+    same rows (the file's rows as ``load_text`` reads them).  Returns the
+    wall s."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.text_loader import load_text
+    X, y = higgs_like(REFIT_CLI_ROWS, seed=2)
+    d = os.path.join(SCRATCH, "refit_cli")
+    os.makedirs(d, exist_ok=True)
+    data = os.path.join(d, "flipped.tsv")
+    out = os.path.join(d, "refit.txt")
+    np.savetxt(data, np.column_stack([1.0 - y, X]), delimiter="\t",
+               fmt="%.9g")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=refit",
+         f"data={data}", f"input_model={cli_model}", f"output_model={out}",
+         "verbosity=-1"], capture_output=True, text=True, timeout=600,
+        env=env)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"task=refit exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    Xf, yf = load_text(data, Config())[:2]
+    orig = lt.Booster(model_file=cli_model)
+    cli = lt.Booster(model_file=out)
+    inproc = orig.refit(Xf, yf, decay_rate=0.9)
+    moved = leaf_error(orig, cli)
+    leaf_err = leaf_error(cli, inproc)
+    err = float(np.abs(cli.predict(Xf) - inproc.predict(Xf)).max())
+    print(f"CLI task=refit ({REFIT_CLI_ROWS:,} x 28 TSV, flipped labels, "
+          f"{len(cli._gbdt.models)} trees): {wall:.1f} s wall; structure "
+          f"kept, leaves moved by up to {moved:.3g}; max |output - "
+          f"Booster.refit| {err:.3g} (tol 1e-10), leaves {leaf_err:.3g} "
+          f"[{kind}, {card}]", flush=True)
+    if moved < 1e-3 or err > 1e-10:
+        raise AssertionError("task=refit disagrees with Booster.refit")
+    return round(wall, 1)
+
+
+def label_stream(path, X, y):
+    """A JSONL label stream, one ``{"x": [...], "y": label}`` line a row."""
+    with open(path, "w") as fh:
+        for xr, yr in zip(X.tolist(), y.tolist()):
+            fh.write(json.dumps({"x": xr, "y": yr}) + "\n")
+
+
+def online_phase(lt, model, kind, card):
+    """(29c) ``run_online`` in process over HTTP: a registry of 2 replicas
+    on the card serving the phase-22 model (its quality sidecar arms the
+    windows), ``PredictServer`` on a free port, a 60,000-line label stream
+    of fresh rows, window 50,000, a refit every 20,000 rows: 3 versions
+    pushed through ``POST /models/default/swap`` (the drain included), 0
+    rejected, 0 failed; a client thread's replies all 200, each within
+    1e-6 of ``Booster.predict`` of the version it names; the
+    ``tpu_online_*`` series of ``/metrics`` equal to ``stats()``; an
+    ``OnlineLoop(push=None)`` replay of the stream writes byte-equal
+    version files.  Then a 40,000-line run with one ``online_refit:raise``
+    fault: 1 failed, and the next cycle pushes a refit of the unchanged
+    base (byte-equal to ``refit_from_model`` of the served model over its
+    window).  Returns the numbers."""
+    import shutil
+    import threading
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.online import (OnlineLoop, read_label_stream,
+                                           refit_from_model, run_online)
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.serve import parse_prometheus
+    d = os.path.join(SCRATCH, "online")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    Xs, ys = higgs_like(ONLINE_ROWS, seed=31)
+    Xs = np.round(Xs, 5)
+    stream = os.path.join(d, "labels.jsonl")
+    fault_stream = os.path.join(d, "labels_fault.jsonl")
+    label_stream(stream, Xs, ys)
+    label_stream(fault_stream, Xs[:ONLINE_FAULT_ROWS], ys[:ONLINE_FAULT_ROWS])
+    pool = np.round(higgs_like(ONLINE_POOL, seed=33)[0], 5)
+    params = {"verbose": -1}
+
+    def config(source, out_dir, port):
+        return Config.from_params({
+            "task": "online", "input_model": model,
+            "tpu_online_source": source, "tpu_online_window": ONLINE_WINDOW,
+            "tpu_online_refit_every": ONLINE_EVERY,
+            "tpu_online_mode": "refit", "tpu_online_dir": out_dir,
+            "tpu_serve_replicas": 2, "tpu_serve_port": port,
+            "tpu_serve_rollback_watch_s": 0, "verbose": -1})
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    replies, status, errors = [], {}, []
+    stop = threading.Event()
+
+    def request(rng):
+        n = int(rng.integers(1, 257))
+        lo = int(rng.integers(0, len(pool) - n))
+        code, body, _ = http(url + "/predict",
+                             {"rows": pool[lo:lo + n].tolist()})
+        status[code] = status.get(code, 0) + 1
+        if code == 200:
+            replies.append((body["version"], lo, n,
+                            np.asarray(body["predictions"])))
+
+    def client():
+        rng = np.random.default_rng(7)
+        deadline = time.time() + 300
+        while not stop.is_set() and time.time() < deadline:
+            try:
+                if http(url + "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.1)
+        while not stop.is_set():
+            try:
+                request(rng)
+            except Exception as exc:  # noqa: BLE001 — a lost request
+                errors.append(f"{type(exc).__name__}: {exc}")
+
+    seen = {}
+
+    def on_drained(loop, reg, server):
+        stop.set()
+        thread.join(120)
+        rng = np.random.default_rng(8)
+        for _ in range(8):          # replies from the last version
+            request(rng)
+        _, text, _ = http(server.url + "/metrics")
+        seen["metrics"] = parse_prometheus(text)
+        seen["stats"] = loop.stats()
+        seen["sources"] = {v["version"]: v["source"]
+                           for v in reg.models()[0]["versions"]}
+        seen["quality_armed"] = loop.quality is not None
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    st = run_online(config(stream, os.path.join(d, "run"), port), params,
+                    on_drained=on_drained)
+    run_s = time.perf_counter() - t0
+    stop.set()
+    thread.join(120)
+    by_version, bad = {}, []
+    refs = {}
+    for v, lo, n, got in replies:
+        if v not in refs:
+            refs[v] = lt.Booster(model_file=seen["sources"][v]).predict(pool)
+        by_version[v] = by_version.get(v, 0) + 1
+        err = float(np.abs(got - refs[v][lo:lo + n]).max())
+        if err > 1e-6:
+            bad.append((v, lo, n, err))
+    m, sst = seen["metrics"], seen["stats"]
+    series = {k: m.get(f'tpu_online_refresh_total{{outcome="{o}"}}')
+              for k, o in (("versions", "pushed"), ("rejected", "rejected"),
+                           ("failed", "failed"), ("skipped", "skipped"))}
+    series["rows_ingested"] = m.get("tpu_online_rows_ingested_total")
+    metrics_ok = (all(series[k] == sst[k] for k in series)
+                  and m.get("tpu_online_swap_rejected_total") == sst["rejected"]
+                  and 0 <= m.get("tpu_online_last_refresh_age_seconds", -1)
+                  <= sst["last_refresh_age_s"] + 5)
+    quality = sst.get("quality") or {}
+    # the replay: the same stream through a loop that pushes nowhere
+    t1 = time.perf_counter()
+    replay = OnlineLoop(model, config=config(stream, "", 0), push=None,
+                        workdir=os.path.join(d, "replay"), params=params)
+    for batch in read_label_stream(stream):
+        replay.ingest(*batch)
+        replay.tick()
+    if replay._rows_since > 0:
+        replay.refresh()
+    replay_s = time.perf_counter() - t1
+    names = [f"model_v{i}.txt" for i in (2, 3, 4)]
+
+    def text(*parts):
+        with open(os.path.join(d, *parts)) as fh:
+            return fh.read()
+    replay_equal = all(text("run", n) == text("replay", n) for n in names)
+    # one injected refit fault: failed, the base kept, the next cycle pushes
+    faults.configure("online_refit:raise")
+    try:
+        t2 = time.perf_counter()
+        fst = run_online(config(fault_stream, os.path.join(d, "fault"),
+                                free_port()), params)
+        fault_s = time.perf_counter() - t2
+    finally:
+        faults.disarm()
+    rows = [b for b in read_label_stream(fault_stream)]
+    Xf = np.concatenate([b[0] for b in rows])
+    yf = np.concatenate([b[1] for b in rows])
+    want = refit_from_model(model, Xf[-ONLINE_WINDOW:], yf[-ONLINE_WINDOW:],
+                            params=params, decay_rate=0.9).model_to_string()
+    base_kept = text("fault", "model_v3.txt") == want
+    out = {"versions": st["versions"], "rejected": st["rejected"],
+           "failed": st["failed"], "replies": by_version,
+           "status": status, "lost": len(errors), "mismatches": len(bad),
+           "run_s": round(run_s, 1), "replay_s": round(replay_s, 1),
+           "fault_run_s": round(fault_s, 1)}
+    print(f"online (run_online over HTTP, 2 replicas on {DEV}, "
+          f"{ONLINE_ROWS:,}-line stream, window {ONLINE_WINDOW:,}, refit "
+          f"every {ONLINE_EVERY:,}): {run_s:.1f} s; pushed {st['versions']}, "
+          f"rejected {st['rejected']}, failed {st['failed']}, skipped "
+          f"{st['skipped']}, rows {st['rows_ingested']:,}; replies by "
+          f"version {by_version}, status {status}, lost {len(errors)}, "
+          f"mismatches {len(bad)} (tol 1e-6); /metrics tpu_online_* "
+          f"{series} equal to stats(): {metrics_ok}; quality windows armed "
+          f"{seen['quality_armed']} ({quality.get('windows')} windows, last "
+          f"AUC {(quality.get('last') or {}).get('auc')}); replay "
+          f"{replay_s:.1f} s, version files byte-equal: {replay_equal}; "
+          f"faulted run ({ONLINE_FAULT_ROWS:,} lines, online_refit:raise) "
+          f"{fault_s:.1f} s: failed {fst['failed']}, pushed "
+          f"{fst['versions']}, the pushed refit of the unchanged base "
+          f"byte-equal: {base_kept} [{kind}, {card}]", flush=True)
+    if (st["versions"] != 3 or st["rejected"] or st["failed"] or errors
+            or bad or set(status) != {200} or not metrics_ok
+            or not seen["quality_armed"] or not quality.get("windows")
+            or not replay_equal or max(by_version, default=0) != 4
+            or fst["failed"] != 1 or fst["versions"] != 1 or not base_kept):
+        raise AssertionError(f"the online loop misbehaved: {out} "
+                             f"{errors[:3]} {bad[:3]}")
+    return out
+
+
+def continue_phase(lt, hw, hc, model, kind, card):
+    """(29d) ``tpu_online_mode=continue``: one refresh of 10 new trees over
+    a 50,000-row window in the served model's own bin space, K1 counts
+    zeroed first; the model has 110 trees, every new threshold is one of
+    the base model's, and the window's logloss falls below the base
+    model's.  Returns (K1 launches, seconds)."""
+    from lightgbm_tpu_torch.online import OnlineLoop
+    Xw, yw = higgs_like(CONTINUE_ROWS, seed=35)
+    cfg = {"tpu_online_mode": "continue", "tpu_online_trees": CONTINUE_TREES,
+           "tpu_online_window": CONTINUE_ROWS,
+           "tpu_online_refit_every": CONTINUE_ROWS}
+    loop = OnlineLoop(model, config=cfg, push=None,
+                      workdir=os.path.join(SCRATCH, "online_continue"),
+                      params={"verbose": -1})
+    loop.ingest(Xw, yw)
+    reset_counts(hw, hc)
+    t0 = time.perf_counter()
+    rep = loop.tick()
+    secs = time.perf_counter() - t0
+    counts = read_counts(hw, hc)
+    base = lt.Booster(model_file=model)
+    cont = lt.Booster(model_file=loop.base)
+    thr = {float(t) for tr in base._gbdt.models
+           for t in tr.threshold[:max(tr.num_leaves - 1, 0)]}
+    new_ok = all(float(tr.threshold[i]) in thr
+                 for tr in cont._gbdt.models[len(base._gbdt.models):]
+                 for i in range(max(tr.num_leaves - 1, 0)))
+
+    def logloss(p):
+        p = np.clip(p, 1e-12, 1 - 1e-12)
+        return float(-np.mean(yw * np.log(p) + (1 - yw) * np.log(1 - p)))
+    before, after = logloss(base.predict(Xw)), logloss(cont.predict(Xw))
+    print(f"online continue ({CONTINUE_TREES} trees on a {CONTINUE_ROWS:,}-"
+          f"row window in the model's bin space): {secs:.2f} s, "
+          f"{cont.num_trees()} trees, new thresholds all the base model's: "
+          f"{new_ok}, window logloss {before:.6f} -> {after:.6f}; K1 "
+          f"launches {counts['k1']} ({counts}) [{kind}, {card}]", flush=True)
+    if (not rep or not rep["ok"] or not new_ok
+            or cont.num_trees() != base.num_trees() + CONTINUE_TREES
+            or not after < before or counts["k1"] == 0):
+        raise AssertionError("continue mode did not grow the model")
+    return counts["k1"], secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3360,7 +3782,7 @@ def main() -> int:
     del X, y, ds
 
     # ---- 9. CLI; (e) sparse input; (f) the CLI on LibSVM -----------------
-    cli_phase(lt, kind, card)
+    cli_model = cli_phase(lt, kind, card)
     sparse_phase(lt, kind, card)
     cli_more_phase(lt, kind, card)
 
@@ -3400,6 +3822,17 @@ def main() -> int:
     serving = {"session_buckets": serve_lat, "fleet": fleet,
                "phases_22_26_s": round(serve_s, 1)}
 
+    # ---- 29: refit and the online loop on the card ----------------------
+    t29 = time.perf_counter()
+    refit = refit_phase(lt, serve_model, kind, card)
+    refit["cli_wall_s"] = cli_refit_phase(lt, cli_model, kind, card)
+    refit["online"] = online_phase(lt, serve_model, kind, card)
+    k1_continue, continue_s = continue_phase(lt, hw, hc, serve_model, kind,
+                                             card)
+    refit["continue_s"] = round(continue_s, 2)
+    refit["phase_29_s"] = round(time.perf_counter() - t29, 1)
+    print(f"phase 29: {refit['phase_29_s']} s [{kind}, {card}]", flush=True)
+
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);
     # training_path_launches: the count summed over the three trainer
@@ -3437,7 +3870,8 @@ def main() -> int:
               resume_path_launches=counts_resume["k1_packed"],
               sklearn_path_launches=counts_sk["k1_packed"],
               obs_path_launches=counts_obs["k1_packed"],
-              obs_s_per_iter=obs_s_iter),
+              obs_s_per_iter=obs_s_iter,
+              online_continue_path_launches=k1_continue),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
@@ -3488,6 +3922,7 @@ def main() -> int:
     print(json.dumps({"pair_pass": pair}), flush=True)
     print(json.dumps({"treeshap": [shap_main, shap_multi]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"refit": refit}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@ it explains predictions by TreeSHAP (``pred_contrib``: ``explain/`` on the
 device, ``core/shap.py`` on the host) and writes a model as C code
 (``model_to_if_else``).  ``python -m lightgbm_tpu_torch`` is the CLI
 (``task=train``, ``task=predict``, ``task=convert_model``,
-``task=serve``); ``serve/`` serves models from the device.  The v2.3.2
+``task=serve``, ``task=refit``, ``task=online``); ``serve/`` serves
+models from the device, and ``online/`` refits their leaves on the device
+(``Booster.refit``) and feeds a label stream back into fresh served
+versions.  The v2.3.2
 Python API is whole: ``Dataset`` and ``Booster`` (pandas input, pickling,
 ``trees_to_dataframe`` and the rest), the scikit-learn estimators
 (``sklearn.py``) and the plots (``plotting.py``).  ``obs/`` is the

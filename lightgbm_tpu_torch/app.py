@@ -1,18 +1,21 @@
 """Command line: ``python -m lightgbm_tpu_torch task=train config=train.conf``
 (counterpart of lightgbm_tpu/app.py: ``run_train``, ``run_predict``,
-``run_serve``, ``run_convert_model``, ``main``).
+``run_serve``, ``run_convert_model``, ``run_refit``, ``main``).
 
 The analog of the reference CLI (reference: src/main.cpp,
 src/application/application.cpp:48-81 task dispatch, :198-218 Train with
 snapshots, :221-247 Predict).  Arguments are ``key=value`` pairs; a
 ``config=FILE`` pair loads a LightGBM .conf file, and pairs on the command
 line win over the file's (reference: config.cpp Config::Set ordering).
-Training, prediction and serving run on the card unless
+Training, prediction, serving and refit run on the card unless
 ``device_type=cpu``.  ``task=serve`` serves ``input_model`` over HTTP
-(``serve/``); ``task=convert_model`` writes ``input_model`` as standalone
-C scoring code to ``convert_model``.  ``input_model`` continues a model's
-forest in ``task=train``; init scores come from ``initscore_filename``
-(``valid_data_initscores`` for the valid sets) or a ``<data>.init`` file;
+(``serve/``); ``task=online`` serves it too and feeds a label stream
+back into refreshed versions (``online/loop.py``); ``task=refit`` refits
+its leaves to the rows of ``data``; ``task=convert_model`` writes
+``input_model`` as standalone C scoring code to ``convert_model``.
+``input_model`` continues a model's forest in ``task=train``; init scores
+come from ``initscore_filename`` (``valid_data_initscores`` for the valid
+sets) or a ``<data>.init`` file;
 ``two_round=true`` bins the data while streaming the file;
 ``save_binary=true`` writes the training set's binned dataset to
 ``<data>.bin``, and a data file that is such a file loads without parsing
@@ -33,12 +36,6 @@ from .engine import train as train_api
 from .io.dataset_io import is_dataset_file
 from .io.text_loader import load_init_scores, load_text, load_text_two_round
 from .utils import log
-
-# tasks of the reference CLI the port does not run yet -> ROADMAP.md item
-_UNPORTED_TASKS = {
-    "online": "the rest of queue 1: online and serve",
-    "refit": "the rest of queue 1: online and serve",
-}
 
 
 def _parse_args(argv: List[str]) -> Dict[str, str]:
@@ -217,6 +214,19 @@ def run_convert_model(cfg: Config) -> None:
     log.info("Finished converting model; code saved to %s", cfg.convert_model)
 
 
+def run_refit(cfg: Config) -> None:
+    """task=refit: ``input_model``'s trees refit to the rows of ``data``,
+    mixed by ``refit_decay_rate``, saved to ``output_model`` (reference:
+    Application task kRefitTree -> GBDT::RefitTree, gbdt.cpp:298-321)."""
+    if not cfg.input_model:
+        log.fatal("task=refit needs input_model")
+    bst = Booster(model_file=cfg.input_model, device=cfg.device_type)
+    X, label = load_text(cfg.data, cfg)[:2]
+    new_bst = bst.refit(X, label, decay_rate=cfg.refit_decay_rate)
+    new_bst.save_model(cfg.output_model)
+    log.info("Finished refit; model saved to %s", cfg.output_model)
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     params = _parse_args(argv)
@@ -228,10 +238,13 @@ def main(argv=None) -> None:
         run_predict(cfg, params)
     elif task == "serve":
         run_serve(cfg)
+    elif task == "online":
+        from .online import run_online
+        run_online(cfg, params)
+    elif task == "refit":
+        run_refit(cfg)
     elif task == "convert_model":
         run_convert_model(cfg)
-    elif task in _UNPORTED_TASKS:
-        log.refuse(f"task={task}", _UNPORTED_TASKS[task])
     else:
         log.fatal(f"Unknown task {task!r} (supported: train, predict, "
-                  "serve, convert_model)")
+                  "serve, online, refit, convert_model)")

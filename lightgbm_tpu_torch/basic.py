@@ -22,7 +22,6 @@ from .objective import create_objective
 from .utils import log
 from .utils.log import LightGBMError
 
-_ONLINE = "the rest of queue 1: online and serve"
 _PARALLEL = "the rest of queue 1: parallel and fleet planes"
 
 
@@ -415,8 +414,35 @@ class Booster:
         self._gbdt.rollback_one_iter()
         return self
 
-    def refit(self, data, label, decay_rate: float = 0.9, **kwargs):
-        log.refuse("Booster.refit", _ONLINE)
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """This model's tree structures refit to new data: each leaf
+        becomes ``decay_rate * old + (1 - decay_rate) * new`` (reference:
+        basic.py:2547 Booster.refit -> GBDT::RefitTree gbdt.cpp:298-321;
+        reference package: basic.py ``refit``).  ``kwargs`` are parameters
+        of the refit booster (``tpu_refit_device=false`` takes the host
+        oracle); a booster loaded from a file takes its objective and
+        ``num_class`` from the model.  The new rows are binned as a new
+        Dataset, and the refit runs on this booster's device."""
+        if self._gbdt is None or self._gbdt.num_trees == 0:
+            raise LightGBMError("Cannot refit an empty model")
+        if getattr(self._gbdt, "objective", None) is None:
+            raise LightGBMError("Cannot refit due to null objective "
+                                "function.")
+        params = dict(self.params or {})
+        params["refit_decay_rate"] = decay_rate
+        params.update(kwargs)
+        from .io.model_io import LoadedGBDT
+        if "objective" not in params and isinstance(self._gbdt, LoadedGBDT):
+            from .online.binspace import model_params
+            params.update(model_params(self._gbdt))
+        new_set = Dataset(data, label=label, params=params)
+        nb = Booster(params=params, train_set=new_set, device=self.device)
+        nb._gbdt.load_initial_models(
+            [copy.deepcopy(t) for t in self._gbdt.models],
+            replay_scores=False)       # the refit rebuilds the scores
+        nb._gbdt.refit_models(decay_rate)
+        return nb
 
     def eval(self, data=None, name=None, feval=None) -> List:
         """The metrics of the training set or of an attached valid set

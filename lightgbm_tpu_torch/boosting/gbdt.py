@@ -449,6 +449,7 @@ class GBDT(PredictorBase):
         self._ckpt_hook = None        # engine-installed: checkpoint on a
         #                               fatal device error
         self._boundary = None         # iteration-boundary snapshot
+        self.last_refit: Optional[dict] = None  # refit_models' report
 
     def init(self, config, train_ds, objective, metrics, device) -> None:
         self.device = torch.device(device)
@@ -1042,6 +1043,101 @@ class GBDT(PredictorBase):
         self.models.extend(models)
         self.iter_ = len(self.models) // K
         self.num_init_iteration = self.iter_
+
+    def refit_models(self, decay_rate: Optional[float] = None) -> None:
+        """Refit the loaded tree structures to this trainer's (new) data:
+        each leaf's output is recomputed from fresh gradients and mixed
+        with the old one, ``decay * old + (1 - decay) * new * shrinkage``
+        (reference: GBDT::RefitTree gbdt.cpp:298-321 and
+        SerialTreeLearner::FitByExistingTree serial_tree_learner.cpp:
+        239-264; reference package: gbdt.py ``refit_models``).  Call
+        ``load_initial_models(..., replay_scores=False)`` first: the
+        scores are rebuilt from zero.
+
+        The default path is the device refit (``online/refit.py``): one
+        stacked walk for every tree's leaf ids, then one step an
+        iteration on the training device.  ``tpu_refit_device=false``
+        runs the host loop instead, the oracle the device refit is held
+        against.  Both emit a ``refit``
+        event; the device path's report (with its CUDA-event times on
+        the card) is kept in ``last_refit``."""
+        decay = float(self.config.refit_decay_rate if decay_rate is None
+                      else decay_rate)
+        t0 = time.perf_counter()
+        if self.config.tpu_refit_device:
+            from ..online.refit import device_refit_models
+            report = device_refit_models(self, decay)
+            mode = "device"
+        else:
+            self._refit_models_host(decay)
+            report = {}
+            mode = "host"
+        self._refresh_replay_state()
+        wall = time.perf_counter() - t0
+        self.last_refit = dict(report, mode=mode, wall_s=wall)
+        if obs.enabled():
+            obs.event("refit", trees=len(self.models),
+                      rows=int(self.train_ds.num_data), decay=decay,
+                      wall_s=round(wall, 4), mode=mode,
+                      iterations=len(self.models) // max(self.num_tpi, 1))
+
+    def _refit_models_host(self, decay: float) -> None:
+        """The host refit loop, the device refit's oracle (reference
+        package: gbdt.py ``_refit_models_host``): gradients once an
+        iteration, before any of its K trees (the reference calls
+        Boosting() once an iteration, gbdt.cpp:303); each tree's leaf ids
+        from its own walk on the training device; per-leaf f64 sums by
+        ``np.bincount``; the closed form with L1, L2 and
+        ``max_delta_step`` and the decay mix in f64; the score updated
+        with the f32 leaf values."""
+        K = self.num_tpi
+        cfg = self.split_cfg
+        trees = list(self.models)
+        bins = self._train_bins_dev()
+        walk = forest_leaf_fn(self.meta, phys=self._bundled)
+        self._train_score = self._zero_score(self.train_ds.num_data)
+        for it in range(len(trees) // K):
+            g, h = self.objective.get_gradients(self._train_score)
+            for k in range(K):
+                tree = trees[it * K + k]
+                nl = tree.num_leaves
+                gk, hk = (g, h) if K == 1 else (g[:, k], h[:, k])
+                forest = stack_forest([self._tree_arrays_np(tree)],
+                                      np.zeros(1, np.int32), self.device)
+                leaf = walk(forest, bins)[0]
+                leaf_np = leaf.cpu().numpy()
+                sum_g, sum_h = (np.bincount(leaf_np,
+                                            weights=v.double().cpu().numpy(),
+                                            minlength=nl)[:nl]
+                                for v in (gk, hk))
+                sum_h = sum_h + K_EPSILON
+                sg = np.sign(sum_g) * np.maximum(
+                    np.abs(sum_g) - cfg.lambda_l1, 0.0)
+                out = -sg / (sum_h + cfg.lambda_l2)
+                if cfg.max_delta_step > 0:
+                    out = np.clip(out, -cfg.max_delta_step,
+                                  cfg.max_delta_step)
+                new_lv = (decay * tree.leaf_value[:nl]
+                          + (1.0 - decay) * out * tree.shrinkage)
+                tree.leaf_value = new_lv.astype(np.float64)
+                lv = torch.as_tensor(new_lv.astype(np.float32)).to(
+                    self.device)
+                self._train_score = self._add_to_class(self._train_score, k,
+                                                       lv[leaf])
+
+    def _refresh_replay_state(self) -> None:
+        """After a refit: the per-tree f32 leaf values and the constants
+        that replay the scores onto a valid set attached later."""
+        K = self.num_tpi
+        self._constants, self._leaf_f32 = [], []
+        for i, tree in enumerate(self.models):
+            lv = tree.leaf_value[:tree.num_leaves].astype(np.float32)
+            if tree.num_leaves <= 1:
+                if float(lv[0]) != 0.0:
+                    self._constants.append((i % K, float(lv[0])))
+                self._leaf_f32.append(None)
+            else:
+                self._leaf_f32.append(torch.as_tensor(lv).to(self.device))
 
     def _add_tree(self, k: int, arrs, leaf_id, stats,
                   init_score: float) -> None:

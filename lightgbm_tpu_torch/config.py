@@ -137,7 +137,6 @@ _OBJECTIVE_ALIASES = {
 # or accepted with no effect where the JAX package gives it none (the
 # field's comment says so).
 _AOT = "serve AOT store"
-_ONLINE = "the rest of queue 1: online and serve"
 _PARALLEL = "the rest of queue 1: parallel and fleet planes"
 # the train board, the profiler window and the rest of item 8B
 _OBS_B = "Obs, tools and bindings, part B"
@@ -148,7 +147,6 @@ _REFUSED: Dict[str, str] = {
     "num_machines": _PARALLEL, "local_listen_port": _PARALLEL,
     "time_out": _PARALLEL, "machine_list_filename": _PARALLEL,
     "machines": _PARALLEL, "tpu_mesh_shape": _PARALLEL,
-    "refit_decay_rate": _ONLINE, "tpu_refit_device": _ONLINE,
     # the JAX package persists compiled per-bucket executables here; the
     # port compiles nothing per bucket, and its store waits for its item
     "tpu_serve_aot_dir": _AOT,
@@ -156,8 +154,7 @@ _REFUSED: Dict[str, str] = {
     "tpu_train_metrics_port": _OBS_B,
 }
 # whole families, by name prefix
-_REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL),
-                   ("tpu_online", _ONLINE))
+_REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL))
 
 
 def refused_item(name: str) -> Optional[str]:
@@ -181,8 +178,8 @@ class Config:
     """Typed parameter set; field names match the reference's."""
     # ---- Core ----
     config: str = ""                    # the CLI's config file (app.py)
-    task: str = "train"                 # train, predict, serve,
-                                        # convert_model
+    task: str = "train"                 # train, predict, serve, online,
+                                        # convert_model, refit
     objective: str = "regression"
     boosting: str = "gbdt"
     data: str = ""
@@ -233,7 +230,7 @@ class Config:
     max_bin_by_feature: List[int] = field(default_factory=list)
     forcedsplits_filename: str = ""
     forcedbins_filename: str = ""
-    refit_decay_rate: float = 0.9       # task=refit (refused)
+    refit_decay_rate: float = 0.9
     cegb_tradeoff: float = 1.0
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
@@ -403,7 +400,9 @@ class Config:
     tpu_explain: bool = True
     tpu_explain_max_batch: int = 256
     tpu_explain_max_wait_ms: float = 5.0
-    # online learning and ingestion (refused)
+    # online learning (online/): the leaf refit's path (true = the
+    # device refit, online/refit.py; false = the host oracle), then the
+    # online loop's knobs (online/loop.py)
     tpu_refit_device: bool = True
     tpu_online_mode: str = "refit"
     tpu_online_window: int = 50000
@@ -415,6 +414,7 @@ class Config:
     tpu_online_source: str = ""
     tpu_online_follow: bool = False
     tpu_online_dir: str = ""
+    # streaming ingestion (refused)
     tpu_ingest: bool = False
     tpu_ingest_chunk_rows: int = 65536
     tpu_ingest_memmap: str = ""
@@ -522,6 +522,24 @@ class Config:
             log.fatal("tpu_explain_max_wait_ms should be >= 0")
         if self.tpu_serve_reprobe_s < 0:
             log.fatal("tpu_serve_reprobe_s should be >= 0")
+        if self.tpu_online_mode not in ("refit", "continue"):
+            log.fatal("tpu_online_mode should be refit or continue")
+        if self.tpu_online_window < 1:
+            log.fatal("tpu_online_window should be >= 1")
+        if self.tpu_online_refit_every < 0:
+            log.fatal("tpu_online_refit_every should be >= 0")
+        if self.tpu_online_refit_every_s < 0:
+            log.fatal("tpu_online_refit_every_s should be >= 0")
+        if self.tpu_online_trees < 1:
+            log.fatal("tpu_online_trees should be >= 1")
+        if self.tpu_online_decay > 1.0:
+            log.fatal("tpu_online_decay should be <= 1 (negative = "
+                      "inherit refit_decay_rate)")
+        if (self.task == "online" and self.tpu_online_refit_every <= 0
+                and self.tpu_online_refit_every_s <= 0):
+            log.fatal("task=online needs a refresh cadence: set "
+                      "tpu_online_refit_every (rows) and/or "
+                      "tpu_online_refit_every_s (seconds)")
         if self.tpu_block_rows < 128 or self.tpu_block_rows % 128 != 0:
             log.fatal("tpu_block_rows should be a positive multiple of 128")
         from .obs.health import parse_mode

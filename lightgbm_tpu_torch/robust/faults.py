@@ -21,8 +21,11 @@ The points the port reaches are ``device_execute`` (each tree's growth,
 (``serve/session.py``), ``serve_replica`` and ``serve_replica_<i>`` (each
 dispatch of ``serve/router.py``, so one replica can be wedged alone),
 ``serve_canary`` and ``serve_swap`` (``serve/registry.py``),
-``serve_arena_device`` and ``serve_arena_swap`` (``serve/arena.py``).
-Disarmed, :func:`check` is one ``None`` test.
+``serve_arena_device`` and ``serve_arena_swap`` (``serve/arena.py``),
+and the online loop's (``online/loop.py``): ``online_ingest`` on every
+ingest batch, ``online_refit`` at the top of a refresh and
+``online_swap`` before the registry push.  Disarmed, :func:`check` is
+one ``None`` test.
 """
 from __future__ import annotations
 

@@ -370,7 +370,8 @@ class ForestArena:
         u_num = np.zeros(F0, bool)
         u_cat = np.zeros(F0, bool)
         for ten in resident:
-            thr, _, ic, _ = collect_split_state(ten.trees, ten.num_features)
+            thr, _, ic, _, _ = collect_split_state(ten.trees,
+                                                   ten.num_features)
             nu = np.array([bool(v) for v in thr], bool)
             num_used[ten.name], cat_used[ten.name] = nu, ic
             u_num[:nu.size] |= nu

@@ -16,10 +16,11 @@ and >1 means the SLO is being violated.
 ``chip_smoke.py`` use to read the exposition back.
 
 The drift series (``tpu_serve_drift_*``) render where a model's drift
-monitor is armed.  Series the port cannot fill are left out, not reported
-as zero: the recompile counter (the port compiles nothing per bucket),
-the AOT store's series (ROADMAP.md "serve AOT store") and the online
-loop's (item 6).
+monitor is armed, and the online loop's (``tpu_online_*``) where a loop
+has parked its stats on the registry (``online/loop.py run_online``).
+Series the port cannot fill are left out, not reported as zero: the
+recompile counter (the port compiles nothing per bucket) and the AOT
+store's series (ROADMAP.md "serve AOT store").
 """
 from __future__ import annotations
 
@@ -459,7 +460,8 @@ def render_prometheus_fleet(registry) -> str:
     """Prometheus text for a ``ModelRegistry`` fleet: the default
     model's live router rendered as the primary series (so dashboards
     built against the single-session exposition keep working), plus the
-    registry-level model/version/swap/rollback series and the arena's."""
+    registry-level model/version/swap/rollback series, the arena's and
+    the online loop's."""
     ver = registry.resolve(None)
     out = [render_prometheus(ver.router).rstrip("\n")]
 
@@ -524,7 +526,45 @@ def render_prometheus_fleet(registry) -> str:
             ast = None
         if ast:
             _arena_series(out, head, ast)
+    # the online loop (online/loop.py run_online) parks its stats provider
+    # on the registry, so one fleet scrape covers serving and the refresh
+    # loop feeding it
+    prov = getattr(registry, "online_provider", None)
+    if prov is not None:
+        try:
+            ost = prov() if callable(prov) else dict(prov)
+        except Exception:  # noqa: BLE001 — a scrape never fails for a
+            # dead provider
+            ost = None
+        if ost:
+            _online_series(out, head, ost)
     return "\n".join(out) + "\n"
+
+
+def _online_series(out, head, ost) -> None:
+    """Render the online loop's ``stats()`` (online/loop.py) as the
+    ``tpu_online_*`` series, under the JAX package's names."""
+    head("tpu_online_refresh_total", "counter",
+         "Online-loop refresh outcomes (pushed = adopted by the registry, "
+         "rejected = bounced by the canary gate, failed = died before the "
+         "push, skipped = cadence fired on a stalled ingest).")
+    for outcome, key in (("pushed", "versions"), ("rejected", "rejected"),
+                         ("failed", "failed"), ("skipped", "skipped")):
+        out.append('tpu_online_refresh_total{outcome="%s"} %d'
+                   % (outcome, int(ost.get(key) or 0)))
+    head("tpu_online_swap_rejected_total", "counter",
+         "Online refreshes the canary gate refused to flip.")
+    out.append("tpu_online_swap_rejected_total %d"
+               % int(ost.get("rejected") or 0))
+    head("tpu_online_rows_ingested_total", "counter",
+         "Labeled rows the online loop has ingested.")
+    out.append("tpu_online_rows_ingested_total %d"
+               % int(ost.get("rows_ingested") or 0))
+    head("tpu_online_last_refresh_age_seconds", "gauge",
+         "Seconds since the online loop last attempted a refresh (stalls "
+         "show up as unbounded growth).")
+    out.append("tpu_online_last_refresh_age_seconds %s"
+               % _fmt(ost.get("last_refresh_age_s")))
 
 
 def parse_prometheus(text: str) -> Dict[str, float]:

@@ -32,15 +32,23 @@ from ..core.meta import DeviceMeta
 from ..io.binning import BinMapper
 
 
-def collect_split_state(models, num_features: int):
+def collect_split_state(models, num_features: int,
+                        want_cats: bool = False):
     """Walk a forest once and gather, per original feature, what a
     model-derived bin space needs: the numerical split thresholds, the
-    widest missing type, the categorical flag, and the widest node bitset
-    (in words).  Returns ``(thr_vals, miss, is_cat, words)``."""
+    widest missing type, the categorical flag, the category values the
+    node bitsets reference, and the widest node bitset (in words).
+
+    Only the online loop's continue path (``online/binspace.py``) needs
+    the category sets, to rebuild training categorical mappers:
+    ``want_cats=True`` decodes the bitsets bit by bit, and without it the
+    sets stay empty and serving pays for word counts only.  Returns
+    ``(thr_vals, miss, is_cat, cats, words)``."""
     F = int(num_features)
     thr_vals: List[List[float]] = [[] for _ in range(F)]
     miss = np.zeros(F, np.int32)
     is_cat = np.zeros(F, bool)
+    cats: List[set] = [set() for _ in range(F)]
     words = 0
     for tree in models:
         for i in range(max(tree.num_leaves - 1, 0)):
@@ -52,12 +60,20 @@ def collect_split_state(models, num_features: int):
             if tree.is_categorical(i):
                 is_cat[f] = True
                 ci = int(tree.threshold[i])
-                words = max(words, int(tree.cat_boundaries[ci + 1])
-                            - int(tree.cat_boundaries[ci]))
+                lo = int(tree.cat_boundaries[ci])
+                hi = int(tree.cat_boundaries[ci + 1])
+                words = max(words, hi - lo)
+                if want_cats:
+                    for w in range(hi - lo):
+                        bits = int(tree.cat_threshold[lo + w])
+                        while bits:
+                            b = bits & -bits
+                            cats[f].add(w * 32 + b.bit_length() - 1)
+                            bits ^= b
             else:
                 thr_vals[f].append(float(tree.threshold[i]))
                 miss[f] = max(miss[f], tree.missing_type(i))
-    return thr_vals, miss, is_cat, words
+    return thr_vals, miss, is_cat, cats, words
 
 
 class ServeBinSpace:
@@ -68,7 +84,7 @@ class ServeBinSpace:
         F = max(int(num_features), 1)
         self.num_features = F
         self.device = device
-        thr_vals, miss, is_cat, words = collect_split_state(models, F)
+        thr_vals, miss, is_cat, _, words = collect_split_state(models, F)
 
         # one zero word past the widest node bitset: the sentinel bin's
         # word gathers 0, so unseen and NaN categories route right

@@ -31,7 +31,9 @@ quality breach latched by ``serve/quality.py`` (``note_quality_breach``)
 annotate the post-swap watch's report, and roll back only with
 ``tpu_serve_rollback_on_drift``; the canary's probe rows never reach the
 monitor, and a version going live starts from an empty window.  The
-online-loop provider waits for item 6.  Fault points: ``serve_swap``
+online loop (``online/loop.py run_online``) parks its ``stats`` on
+``online_provider``, which the fleet ``/metrics`` renders as the
+``tpu_online_*`` series.  Fault points: ``serve_swap``
 before the flip, ``serve_canary`` inside the gate.  Transitions are
 telemetry events, also kept in ``events``.
 """
@@ -146,6 +148,9 @@ class ModelRegistry:
         self.rollback_on_drift = bool(_env_num(
             "LGBM_TPU_SERVE_ROLLBACK_ON_DRIFT", int,
             int(cfg.tpu_serve_rollback_on_drift)))
+        # the online loop's stats provider (online/loop.py run_online),
+        # rendered into the fleet /metrics
+        self.online_provider = None
         # multi-tenant forest arena (serve/arena.py): registered names
         # win; names only the arena knows route there
         self.arena = None

@@ -242,13 +242,28 @@ def test_dataset_get_data_and_create_valid():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("refit", "online and serve"),
+    # Booster.refit runs since online/ was ported (item None): it returns
+    # a refit booster, held against the JAX package's refit of the same
+    # model text
+    pytest.param("refit", None, id="refit-online and serve"),
     ("set_network", "parallel and fleet planes"),
     ("free_network", "parallel and fleet planes")])
-def test_methods_of_later_items_name_them(pair, method, item):
+def test_methods_of_later_items_name_them(pair, jlgb, method, item):
     X, y, _, bst = pair
-    args = {"refit": (X, y), "set_network": ("127.0.0.1",),
-            "free_network": ()}[method]
+    if item is None:
+        got = bst.refit(X, 1.0 - y, decay_rate=0.5)
+        want = jlgb.Booster(model_str=bst.model_to_string()).refit(
+            X, 1.0 - y, decay_rate=0.5)
+        assert isinstance(got, lt.Booster) and got is not bst
+        assert got.num_trees() == bst.num_trees() == 5
+        for g, w, b in zip(got._gbdt.models, want._gbdt.models,
+                           bst._gbdt.models):
+            np.testing.assert_array_equal(g.split_feature, b.split_feature)
+            np.testing.assert_allclose(g.leaf_value, w.leaf_value, rtol=0,
+                                       atol=1e-6)
+            assert not np.allclose(g.leaf_value, b.leaf_value)
+        return
+    args = {"set_network": ("127.0.0.1",), "free_network": ()}[method]
     with pytest.raises(lt.LightGBMError, match=item):
         getattr(bst, method)(*args)
 

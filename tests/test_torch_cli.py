@@ -113,14 +113,38 @@ def test_cli_predict_leaf_and_early_stop(workdir, tmp_path):
 @pytest.mark.parametrize("task,item", [
     # task=serve runs; what it still refuses is the AOT store's directory
     pytest.param("serve", "serve AOT store", id="serve-serving"),
-    ("online", "online"), ("refit", "online")])
-def test_unported_task_names_its_item(workdir, task, item):
-    extra = ["tpu_serve_aot_dir=aot"] if task == "serve" else []
-    r = _run("lightgbm_tpu_torch",
-             [f"task={task}", "input_model=model.txt", "device_type=cpu"]
-             + extra, workdir, check=False)
-    assert r.returncode != 0
-    assert "ROADMAP.md" in r.stderr and item in r.stderr
+    # task=online and task=refit run since online/ was ported (item None)
+    pytest.param("online", None, id="online-online"),
+    pytest.param("refit", None, id="refit-online")])
+def test_unported_task_names_its_item(workdir, tmp_path, task, item):
+    """A task's refusal names its ROADMAP.md item; a ported task runs:
+    ``task=refit`` writes the refit model, ``task=online`` serves the
+    model and pushes a version a cadence over a finite label stream."""
+    args = [f"task={task}", "input_model=model.txt", "device_type=cpu"]
+    if item is not None:
+        r = _run("lightgbm_tpu_torch", args + ["tpu_serve_aot_dir=aot"],
+                 workdir, check=False)
+        assert r.returncode != 0
+        assert "ROADMAP.md" in r.stderr and item in r.stderr
+        return
+    if task == "refit":
+        out = tmp_path / "refit.txt"
+        _run("lightgbm_tpu_torch", args + ["data=data.test",
+                                           f"output_model={out}"], workdir)
+        assert out.read_text().count("Tree=") == 8
+        return
+    import json
+    data = np.loadtxt(workdir / "data.train", delimiter="\t")
+    stream = tmp_path / "labels.jsonl"
+    stream.write_text("".join(json.dumps({"x": r[1:].tolist(), "y": r[0]})
+                              + "\n" for r in data))
+    _run("lightgbm_tpu_torch",
+         args + [f"tpu_online_source={stream}", "tpu_online_refit_every=300",
+                 "tpu_online_window=500", f"tpu_online_dir={tmp_path / 'v'}",
+                 "tpu_serve_replicas=1", "tpu_serve_rollback_watch_s=0"],
+         workdir)
+    assert sorted(f for f in os.listdir(tmp_path / "v")
+                  if f.endswith(".txt")) == ["model_v2.txt", "model_v3.txt"]
 
 
 @pytest.mark.parametrize("objective,cols", [

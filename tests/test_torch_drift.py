@@ -10,7 +10,7 @@ prediction histogram, mean, standard deviation and training AUC within
 1e-12 of the JAX package's on the same traffic.  The serving surfaces
 (session stats, ``/metrics``, ``/drift``, the registry's post-swap
 watch) and the event schemas are the JAX package's.  The online-loop
-case waits for ROADMAP.md item 6."""
+case is in test_torch_online_loop.py."""
 import json
 import os
 import urllib.request
