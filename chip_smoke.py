@@ -264,6 +264,37 @@ The twelfth slice's phase runs last, on the phase-22 model (lines start
    kept; (d) ``tpu_online_mode=continue``: 10 trees on a 50,000-row
    window, K1 counted, thresholds the base model's, logloss down.
 
+The thirteenth slice's phases: 31 runs after phase 28, while the
+headline rows live (lines ``parallel``, ``K1 ... (one rank's rows)``,
+``K2 ... (one rank's feature block)``, ``phase 31``); 30 runs after 29,
+on the phase-22 model (lines ``AOT``, ``phase 30``); then ``{"aot": ...}``
+and ``{"parallel": ...}`` lines:
+
+30. cold restarts of a served model: two cold subprocesses of this
+   script (``--aot-child``) serve the phase-22 model from its file with
+   the serving store (``tpu_serve_aot_dir``) in one directory, the first
+   on an empty store (a miss: packed from the model, entry written), the
+   second on the warm store (a hit); each captures one CUDA graph per
+   bucket at warm-up (11 buckets, 1 to 1,024 rows) and prints request
+   #1's ms against the steady p99 at its bucket, the captures on the
+   request path (must be 0), sync p50/p99 for every bucket with the graph
+   and with the session's eager walk beside it, and that the two answer
+   bit-equal at every bucket; the two processes' scores must be equal;
+   then a truncated entry in this process: one ``aot_fallback``, the same
+   scores;
+31. the learners across ranks: two ranks
+   (``lightgbm_tpu_torch/tools/dist_check.py``, one process each, both
+   on ``cuda:0``, gloo through the host) on the headline 1M x 28 rows with
+   phase 4's parameters, 5 rounds, ``tree_learner=data`` in 2xbf16 and
+   int16 (K1 unfused on each rank's 500,000 rows), ``voting`` and
+   ``feature`` (K2 at C = 32): s/iter, the collectives' calls and bytes,
+   K1/K2 launches, each rank's digest (the ranks must agree; int16's
+   trees must be phase 5's, legacy digest 614716ef924a0d6e; 2xbf16's
+   equality with phase 4's is printed); world size 1 through the same
+   code in this process; K1 unfused at one rank's rows (2xbf16, int16),
+   its exact int16 sums, and K2 at one rank's 14-column block against
+   their plain versions.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all, by layout and by sibling form (fused or not); K2 its
@@ -273,12 +304,14 @@ of its model text (equal digests, equal trees).  Prints a
 ``training_path_launches`` over the three training phases,
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
 and errors, K1's launches on the DART, RF, overlap, resume, estimator,
-observability and online-continue paths, K2's on the serial grower under
-health), a
+observability, online-continue and data-parallel paths (per rank), K2's
+on the serial grower under health and on the voting and feature paths
+(per rank)), a
 ``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
 bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
-``shap_cost`` bound), the ``{"serving": ...}`` and ``{"refit": ...}``
-lines and, last, the
+``shap_cost`` bound), the ``{"serving": ...}``, ``{"refit": ...}``,
+``{"aot": ...}`` and ``{"parallel": ...}`` lines, the card's name and
+power limit and, last, the
 device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
 lightgbm_tpu.
@@ -964,15 +997,13 @@ def model_digest(bst) -> str:
     return hashlib.sha256(bst.model_to_string().encode()).hexdigest()[:16]
 
 
-def legacy_digest(bst) -> str:
-    """``model_digest`` of the model text with the parameter block written
-    as the port wrote it before that block followed the JAX package's rule
-    (the fields off their default only, in field order): it reproduces
-    the digests earlier runs recorded (28b298b3082595ad for the main path,
-    PERF.md), so equal values mean the trees did not change."""
+def legacy_parts(bst):
+    """(trees text, parameter block) of ``legacy_digest``: the model text
+    before its parameters, and the block written as the port wrote it
+    before that block followed the JAX package's rule (the fields off
+    their default only, in field order)."""
     import dataclasses
-    text = bst.model_to_string()
-    head, _, _ = text.partition("\nparameters:\n")
+    head = bst.model_to_string().split("\nparameters:")[0]
     cfg = bst._gbdt.config
     block = []
     for f in dataclasses.fields(cfg):
@@ -983,9 +1014,20 @@ def legacy_digest(bst) -> str:
             if isinstance(v, (list, tuple)):
                 v = ",".join(str(x) for x in v)
             block.append(f"[{f.name}: {v}]\n")
-    text = head + "\nparameters:\n" + "".join(block) \
-        + "\nend of parameters\n"
+    return head, "".join(block)
+
+
+def legacy_text_digest(head: str, block: str) -> str:
+    text = head + "\nparameters:\n" + block + "\nend of parameters\n"
     return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def legacy_digest(bst) -> str:
+    """``model_digest`` of the model text with the parameter block of
+    ``legacy_parts``: it reproduces the digests earlier runs recorded
+    (28b298b3082595ad for the main path, PERF.md), so equal values mean
+    the trees did not change."""
+    return legacy_text_digest(*legacy_parts(bst))
 
 
 def grower_inputs(gb):
@@ -3593,6 +3635,305 @@ def continue_phase(lt, hw, hc, model, kind, card):
     return counts["k1"], secs
 
 
+AOT_CALLS = 100                  # graph-replay calls per bucket (p50/p99)
+AOT_EAGER_CALLS = 30             # eager-walk calls per bucket, beside them
+AOT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+AOT_REQ1_ROWS = 16               # request #1's rows
+
+
+def aot_child(argv) -> int:
+    """(30, child) One cold serving process: ``PredictorSession(model)``
+    with the store at ``argv[1]`` on the card; its pack (from the store or
+    the model), the warm-up that captures one CUDA graph per bucket,
+    request #1 against the steady p99 at its bucket, graph replay against
+    the session's eager walk at every bucket (bit-equal answers; sync p50
+    and p99 of each), and the captures made on the request path.  Writes
+    one JSON object to ``argv[2]``."""
+    import torch
+    t_start = time.perf_counter()
+    sys.path.insert(0, HERE)
+    from lightgbm_tpu_torch.serve import PredictorSession
+    from lightgbm_tpu_torch.serve import aot as paot
+    model, store, out_path = argv
+    X, _ = higgs_like(2048, seed=30)
+    t0 = time.perf_counter()
+    sess = PredictorSession(model, config={"tpu_serve_aot_dir": store},
+                            device=DEV)
+    pack_s = time.perf_counter() - t0
+    res = {"import_s": round(t0 - t_start, 3), "pack_s": round(pack_s, 4),
+           "aot": sess.stats()["aot"]}
+    try:
+        t0 = time.perf_counter()
+        n = sess.warmup()
+        res["warmup_s"] = round(time.perf_counter() - t0, 3)
+        res["buckets_warmed"] = n
+        captures0 = sess.stats()["graph_captures"]
+        res["captures_at_warmup"] = captures0
+        t0 = time.perf_counter()
+        first = sess.predict(X[:AOT_REQ1_ROWS])
+        res["request1_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        lat, equal = {}, {}
+        for b in AOT_BUCKETS:
+            rows = X[:b]
+            graph_ms, eager_ms = [], []
+            for _ in range(AOT_CALLS):
+                t0 = time.perf_counter()
+                got = sess.predict(rows, raw_score=True)
+                graph_ms.append((time.perf_counter() - t0) * 1e3)
+            # the same session's eager walk (no graph), measured only
+            graphs, sess._graphs = sess._graphs, None
+            try:
+                for _ in range(AOT_EAGER_CALLS):
+                    t0 = time.perf_counter()
+                    eager = sess.predict(rows, raw_score=True)
+                    eager_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                sess._graphs = graphs
+            equal[b] = bool(np.array_equal(got, eager))
+            lat[b] = {"graph_p50_ms": round(pct(graph_ms, 0.5), 4),
+                      "graph_p99_ms": round(pct(graph_ms, 0.99), 4),
+                      "eager_p50_ms": round(pct(eager_ms, 0.5), 4),
+                      "eager_p99_ms": round(pct(eager_ms, 0.99), 4)}
+        res["buckets"] = lat
+        res["graph_equals_eager"] = equal
+        res["steady_p99_ms_at_request1_bucket"] = \
+            lat[AOT_REQ1_ROWS]["graph_p99_ms"]
+        res["first_equals_steady"] = bool(np.array_equal(
+            first, sess.predict(X[:AOT_REQ1_ROWS])))
+        res["request_path_captures"] = \
+            sess.stats()["graph_captures"] - captures0
+        res["replays"] = dict(paot.graph_replays)
+        res["raw_1024"] = sess.predict(X[:1024], raw_score=True).tolist()
+        res["aot_after"] = sess.stats()["aot"]
+    finally:
+        sess.close()
+    with open(out_path, "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def aot_phase(lt, model, kind, card):
+    """(30) Cold restarts of a served model: phase 22's model (100 trees x
+    255 leaves) served by two cold subprocesses of this script on one
+    store directory, the first on an empty store (miss: it packs from the
+    model and writes the entry), the second on the warm store (hit); each
+    captures one CUDA graph per bucket at warm-up, and must answer every
+    bucket bit-equal to its eager walk, capture nothing on the request
+    path, and give the same scores as the other.  Then a corrupt entry in
+    this process: one ``aot_fallback``, the same scores.  Returns the
+    phase's record."""
+    import shutil
+
+    from lightgbm_tpu_torch.serve import PredictorSession
+    t_phase = time.perf_counter()
+    store = os.path.join(SCRATCH, "aot_store")
+    shutil.rmtree(store, ignore_errors=True)
+    runs = {}
+    for name in ("cold_empty_store", "cold_warm_store"):
+        out = os.path.join(SCRATCH, f"aot_{name}.json")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--aot-child", model, store, out],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=HERE)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"aot child {name} failed:\n{r.stdout}\n"
+                                 f"{r.stderr[-4000:]}")
+        with open(out) as fh:
+            runs[name] = json.load(fh)
+        runs[name]["process_s"] = round(wall, 2)
+    a, b = runs["cold_empty_store"], runs["cold_warm_store"]
+    for name, r in runs.items():
+        lat = r["buckets"]
+        print(f"AOT {name}: store {r['aot']['status']} (loaded "
+              f"{r['aot']['loaded']}, saved {r['aot']['saved']}), session "
+              f"built (model text loaded, forest packed or read) in "
+              f"{r['pack_s'] * 1e3:.1f} ms, warm-up {r['warmup_s']:.2f} s "
+              f"({r['captures_at_warmup']} CUDA graphs for "
+              f"{r['buckets_warmed']} buckets); request #1 "
+              f"{r['request1_ms']:.3f} ms vs steady p99 "
+              f"{r['steady_p99_ms_at_request1_bucket']:.3f} ms at bucket "
+              f"{AOT_REQ1_ROWS}; captures on the request path "
+              f"{r['request_path_captures']}; graph == eager at every "
+              f"bucket {all(r['graph_equals_eager'].values())}; process "
+              f"{r['process_s']} s [{kind}, {card}]", flush=True)
+        print(f"AOT {name} sync ms by bucket (graph p50/p99 | eager "
+              f"p50/p99): " + ", ".join(
+                  f"{k}: {v['graph_p50_ms']:.3f}/{v['graph_p99_ms']:.3f} | "
+                  f"{v['eager_p50_ms']:.3f}/{v['eager_p99_ms']:.3f}"
+                  for k, v in lat.items()) + f" [{kind}, {card}]",
+              flush=True)
+        if (r["request_path_captures"] != 0
+                or not all(r["graph_equals_eager"].values())
+                or r["captures_at_warmup"] != len(AOT_BUCKETS)
+                or not r["first_equals_steady"]):
+            raise AssertionError(f"AOT {name}: graphs and eager disagree "
+                                 "or the request path captured")
+    if (a["aot"]["status"] != "miss" or a["aot"]["saved"] != 1
+            or b["aot"]["status"] != "hit" or b["aot"]["loaded"] != 1
+            or a["raw_1024"] != b["raw_1024"]):
+        raise AssertionError("AOT: the store's miss/hit round trip failed "
+                             "or the two processes' scores differ")
+    # a corrupt entry: packed from the model, loudly, the same scores
+    for f in os.listdir(store):
+        p = os.path.join(store, f)
+        with open(p, "r+b") as fh:
+            fh.truncate(os.path.getsize(p) // 3)
+    X, _ = higgs_like(2048, seed=30)
+    with PredictorSession(model, config={"tpu_serve_aot_dir": store},
+                          device=DEV) as sess:
+        st = sess.stats()["aot"]
+        raw = sess.predict(X[:1024], raw_score=True)
+    same = raw.tolist() == a["raw_1024"]
+    print(f"AOT corrupt entry: status {st['status']}, fallbacks "
+          f"{st['fallbacks']}, rewritten {st['saved']}; scores equal to "
+          f"the cold processes' {same} [{kind}, {card}]", flush=True)
+    if st["status"] != "fallback" or st["fallbacks"] != 1 or not same:
+        raise AssertionError("AOT: a corrupt entry did not fall back")
+    shutil.rmtree(store, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 30: {secs:.1f} s [{kind}, {card}]", flush=True)
+    return {"cold_empty_store": {k: v for k, v in a.items()
+                                 if k != "raw_1024"},
+            "cold_warm_store": {k: v for k, v in b.items()
+                                if k != "raw_1024"},
+            "phase_30_s": round(secs, 1)}
+
+
+PARALLEL_ROUNDS = 5
+
+
+def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
+                   res, kind, card):
+    """(31) Multi-GPU training's path on the card's one GPU: two ranks
+    (``lightgbm_tpu_torch/tools/dist_check.py``, one process each, both on
+    ``cuda:0``, so the collectives take gloo with an explicit host copy)
+    on the headline 1,000,000 x 28 rows with phase 4's parameters, 5
+    rounds, for ``tree_learner=data`` in 2xbf16 and int16 (K1, unfused),
+    ``voting`` and ``feature`` (K2 at C=32).  Both ranks must write the
+    same model; the int16 trees must be phase 5's (legacy digest
+    614716ef924a0d6e under phase 5's parameter block); 2xbf16's equality
+    with phase 4's is reported.  Then world size 1 through the same code
+    in this process (``tree_learner=data``, int16 and 2xbf16), and K1 and
+    K2 against their plain versions at the parallel paths' shapes: K1 on
+    one rank's 500,000 rows unfused, its exact int16 sums, K2 on one
+    rank's 14-column block.  Returns (record, launches by mode)."""
+    import torch
+    from lightgbm_tpu_torch.tools.dist_check import launch
+    t_phase = time.perf_counter()
+    d = os.path.join(SCRATCH, "parallel")
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "rows.npz"), X=X, y=y)
+    modes = {"data_2xbf16": dict(params, tree_learner="data"),
+             "data_int16": dict(params, tree_learner="data",
+                                tpu_hist_dtype="int16"),
+             "voting": dict(params, tree_learner="voting"),
+             "feature": dict(params, tree_learner="feature")}
+    spec = {"data": os.path.join(d, "rows.npz"), "device": DEV,
+            "modes": [{"name": n, "params": p, "rounds": PARALLEL_ROUNDS}
+                      for n, p in modes.items()]}
+    with open(os.path.join(d, "spec.json"), "w") as fh:
+        json.dump(spec, fh)
+    t0 = time.perf_counter()
+    ranks = launch(os.path.join(d, "spec.json"), 2, d, timeout=900)
+    two_s = time.perf_counter() - t0
+    rec = {"two_ranks_s": round(two_s, 1), "modes": {}}
+    launches = {}
+    for name in modes:
+        r0, r1 = (r["modes"][name] for r in ranks)
+        head = [r["modes"][name]["model"].split("\nparameters:")[0]
+                for r in ranks]
+        dig = [hashlib.sha256(h.encode()).hexdigest()[:16] for h in head]
+        row = {"s_per_iter": [round(float(np.median(r["iter_s"][1:])), 4)
+                              for r in (r0, r1)],
+               "first_iter_s": [round(r["iter_s"][0], 4) for r in (r0, r1)],
+               "collectives": [r["collectives"] for r in (r0, r1)],
+               "k1": [r0["k1"], r1["k1"]], "k2": [r0["k2"], r1["k2"]],
+               "backend": r0["backend"], "uses_wave": r0["uses_wave"],
+               "trees_digest": dig}
+        if name.startswith("data"):
+            parts = int16_parts if name == "data_int16" else main_parts
+            row["legacy_digest"] = [legacy_text_digest(h, parts[1])
+                                    for h in head]
+            row["equals_single_process"] = [h == parts[0] for h in head]
+        rec["modes"][name] = row
+        launches[name] = r0["k1"] + r1["k1"] + r0["k2"] + r1["k2"]
+        print(f"parallel {name}: 2 ranks on cuda:0 over {row['backend']}, "
+              f"s/iter {row['s_per_iter']} (first {row['first_iter_s']}), "
+              f"K1 launches {row['k1']}, K2 launches {row['k2']}, "
+              f"collectives rank 0 {json.dumps(row['collectives'][0])}; "
+              f"trees digests {dig}"
+              + (f", legacy digests {row['legacy_digest']}, equal to the "
+                 f"one-process run {row['equals_single_process']}"
+                 if "legacy_digest" in row else "")
+              + f" [{kind}, {card}]", flush=True)
+        if dig[0] != dig[1] or r0["model"] != r1["model"]:
+            raise AssertionError(f"parallel {name}: the ranks disagree")
+        used = row["k1"] if row["uses_wave"] else row["k2"]
+        if min(used) == 0:
+            raise AssertionError(f"parallel {name}: no kernel launched")
+    if rec["modes"]["data_int16"]["legacy_digest"][0] != "614716ef924a0d6e":
+        raise AssertionError("parallel data_int16: the trees are not phase "
+                             "5's (614716ef924a0d6e)")
+    # world size 1 through the same path, in this process
+    rec["world_1"] = {}
+    for name, parts in (("data_int16", int16_parts),
+                        ("data_2xbf16", main_parts)):
+        reset_counts(hw, hc)
+        bst = lt.train(modes[name], ds, PARALLEL_ROUNDS, device=DEV)
+        head = bst.model_to_string().split("\nparameters:")[0]
+        w1 = {"legacy_digest": legacy_text_digest(head, parts[1]),
+              "equals_single_process": head == parts[0],
+              "ranks": bst._gbdt._mesh.size,
+              "s_per_iter": round(float(np.median(
+                  bst._gbdt.iter_seconds[1:])), 4),
+              "k1": hw.hist_wave.launches}
+        rec["world_1"][name] = w1
+        print(f"parallel {name} at world size 1: legacy digest "
+              f"{w1['legacy_digest']}, equal to the one-process run "
+              f"{w1['equals_single_process']}, s/iter {w1['s_per_iter']}, "
+              f"K1 launches {w1['k1']} [{kind}, {card}]", flush=True)
+        if w1["ranks"] != 1 or (name == "data_int16"
+                                and not w1["equals_single_process"]):
+            raise AssertionError(f"parallel {name} at world size 1 "
+                                 "differs from the one-process run")
+    # the kernels at the parallel paths' shapes
+    half = MAIN_ROWS // 2
+    for key, mode, seed in (("k1_dp", "2xbf16", 310),
+                            ("k1_dp_int16", "int16", 311)):
+        n0 = hw.hist_wave.launches
+        tag, res[key] = check_kernel(hw, half, 28, 256, 63, False, mode,
+                                     seed)
+        res[key].update(tag=tag + " (one rank's rows)",
+                        check_launches=hw.hist_wave.launches - n0)
+        print_check(res[key], kind, card)
+    bins, gv, hv, cv, leaf, slot, _ = wave_inputs(half, 28, 256, 63, False,
+                                                  "int16", True, 312)
+    args = (bins, gv, hv, cv, leaf, slot, 256)
+    exact = hw.hist_wave(*args, highest="int16", num_slots=63, exact=True)
+    want = hw.hist_wave_plain(*args, highest="int16", exact=True)
+    f32 = hw.hist_wave(*args, highest="int16", num_slots=63)
+    ok = (all(torch.equal(a, b) for a, b in zip(exact, want))
+          and all(torch.equal(a.float(), b) for a, b in zip(exact, f32)))
+    print(f"K1 int16 exact sums (the data-parallel reduction's input) at "
+          f"{half:,} x 28 x 256, 63 slots: equal to the plain int64 sums "
+          f"and rounding to the kernel's f32 output {ok} [{kind}, {card}]",
+          flush=True)
+    if not ok:
+        raise AssertionError("K1's exact int sums differ")
+    n0 = hc.hist_channels.launches
+    tag, res["k2_block"] = check_channels(hc, MAIN_ROWS, 14, 256, 32, 313)
+    res["k2_block"].update(tag=tag + " (one rank's feature block)",
+                           check_launches=hc.hist_channels.launches - n0)
+    print_check(res["k2_block"], kind, card)
+    secs = time.perf_counter() - t_phase
+    rec["phase_31_s"] = round(secs, 1)
+    print(f"phase 31: {secs:.1f} s (two ranks {two_s:.1f} s) "
+          f"[{kind}, {card}]", flush=True)
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3697,6 +4038,7 @@ def main() -> int:
     digest = model_digest(bst)
     main_trees = trees_digest(bst)   # before the profiled 6th iteration
     main_legacy = legacy_digest(bst)
+    main_parts = legacy_parts(bst)
     again = train_phase(lt, hw, hc, "main path (repeat)", params, ds, kind,
                         card)[0]
     print(f"main path repeat: model digests {digest} / {model_digest(again)}"
@@ -3716,6 +4058,7 @@ def main() -> int:
     if abs(auc16[-1] - auc[-1]) > 1e-3:
         raise AssertionError(f"int16 train AUC {auc16[-1]} is not within "
                              f"1e-3 of 2xbf16's {auc[-1]}")
+    int16_parts = legacy_parts(bst16)    # before the profiled iteration
     _, k1_q_ms, _ = profile_iteration(bst16, iter16_ms, kind, card)
     print(f"K1 per profiled iteration: int16 {k1_q_ms:.3f} ms vs 2xbf16 "
           f"{k1_f_ms:.3f} ms; s/iter int16 {iter16_ms / 1e3:.4f} vs 2xbf16 "
@@ -3779,6 +4122,11 @@ def main() -> int:
     print(f"phases 27-28: {time.perf_counter() - t_obs:.1f} s (27: "
           f"{api_s:.1f} s, 28 training: {obs_s:.1f} s) [{kind}, {card}]",
           flush=True)
+
+    # ---- 31. the learners across ranks --------------------------------
+    parallel, parallel_launches = parallel_phase(
+        lt, hw, hc, params, ds, X, y, int16_parts, main_parts, res, kind,
+        card)
     del X, y, ds
 
     # ---- 9. CLI; (e) sparse input; (f) the CLI on LibSVM -----------------
@@ -3833,6 +4181,9 @@ def main() -> int:
     refit["phase_29_s"] = round(time.perf_counter() - t29, 1)
     print(f"phase 29: {refit['phase_29_s']} s [{kind}, {card}]", flush=True)
 
+    # ---- 30: cold restarts of the served model, the serving store -------
+    aot = aot_phase(lt, serve_model, kind, card)
+
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);
     # training_path_launches: the count summed over the three trainer
@@ -3871,13 +4222,19 @@ def main() -> int:
               sklearn_path_launches=counts_sk["k1_packed"],
               obs_path_launches=counts_obs["k1_packed"],
               obs_s_per_iter=obs_s_iter,
-              online_continue_path_launches=k1_continue),
+              online_continue_path_launches=k1_continue,
+              data_parallel_path_launches=parallel["modes"][
+                  "data_2xbf16"]["k1"],
+              data_parallel_unfused=skewed("k1_dp")["k1_dp"]),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
                                       "k1_triple_int16", "k1_int16_skew",
                                       "k1_int16_skew_one_slot"],
-              skewed=skewed("k1_int16_skew", "k1_int16_skew_one_slot")),
+              skewed=skewed("k1_int16_skew", "k1_int16_skew_one_slot"),
+              data_parallel_path_launches=parallel["modes"][
+                  "data_int16"]["k1"],
+              data_parallel_unfused=skewed("k1_dp_int16")["k1_dp_int16"]),
         entry("hist_wave triple (K1 c)", "k1_triple", k1_src, k1_at,
               counts_triple["k1_triple"], ["k1_triple", "k1_triple_unfused",
                                            "k1_triple_int16_unfused",
@@ -3912,7 +4269,10 @@ def main() -> int:
               obs_serial_path_launches=counts_obs_serial["k2"],
               wide_histogram_root_ms=wide_ms,
               wide_histogram_bound_ms=wide_bound,
-              side_pass_in_its_place_root_ms=side_ms),
+              side_pass_in_its_place_root_ms=side_ms,
+              voting_path_launches=parallel["modes"]["voting"]["k2"],
+              feature_path_launches=parallel["modes"]["feature"]["k2"],
+              feature_block=skewed("k2_block")["k2_block"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in
@@ -3923,6 +4283,8 @@ def main() -> int:
     print(json.dumps({"treeshap": [shap_main, shap_multi]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"refit": refit}), flush=True)
+    print(json.dumps({"aot": aot}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3932,4 +4294,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--aot-child":
+        sys.exit(aot_child(sys.argv[2:]))
     sys.exit(main())

@@ -86,6 +86,11 @@ def _dataset_from_file(path: str, cfg: Config, params: Dict,
 
 
 def run_train(cfg: Config, params: Dict) -> None:
+    # the network comes up before the data (reference: application.cpp:
+    # 54-66 Network::Init): machines or machine_list_filename, num_machines,
+    # local_listen_port, time_out; a single machine touches nothing
+    from .parallel.distributed import init_distributed
+    init_distributed(cfg)
     train_set = _dataset_from_file(cfg.data, cfg, params,
                                    initscore_path=cfg.initscore_filename)
     if cfg.save_binary:

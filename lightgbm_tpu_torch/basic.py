@@ -22,8 +22,6 @@ from .objective import create_objective
 from .utils import log
 from .utils.log import LightGBMError
 
-_PARALLEL = "the rest of queue 1: parallel and fleet planes"
-
 
 def parse_categorical_spec(spec: str) -> list:
     """A ``categorical_feature`` string (``0,1,3`` or ``name:a,b``) as
@@ -627,10 +625,28 @@ class Booster:
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,
                     num_machines: int = 1) -> "Booster":
-        log.refuse("Booster.set_network", _PARALLEL)
+        """Record the machine topology (``parallel/mesh.py NETWORK``); as
+        in the reference, the network comes up when a trainer binds to
+        data: the data-, feature- or voting-parallel learner calls
+        ``parallel/distributed.py init_distributed`` with it (reference:
+        basic.py set_network -> Network::Init, network.cpp:24-74)."""
+        from .parallel import mesh as _mesh
+        from .parallel.distributed import parse_machine_list
+        if not isinstance(machines, str):
+            machines = ",".join(str(m) for m in machines)
+        hosts = parse_machine_list(machines, default_port=local_listen_port)
+        _mesh.NETWORK.update(machines=",".join(hosts),
+                             num_machines=int(num_machines),
+                             local_listen_port=int(local_listen_port),
+                             time_out=int(listen_time_out))
+        return self
 
     def free_network(self) -> "Booster":
-        log.refuse("Booster.free_network", _PARALLEL)
+        """Network::Dispose: the process group is shut down and the
+        recorded topology reset."""
+        from .parallel.distributed import shutdown
+        shutdown()
+        return self
 
     # pickling and copying go through the model text (reference:
     # basic.py:1875-1904; reference package: basic.py:642-668): the

@@ -601,6 +601,14 @@ class GBDT(PredictorBase):
                                     self.split_cfg.num_leaves)
         bf = float(config.feature_fraction_bynode)
         bynode = bf if bf < 1.0 else None
+        tl = config.tree_learner
+        self._mesh = None
+        self._rank_sharded = False
+        if tl != "serial" and bynode is not None:
+            log.warning("feature_fraction_bynode is ignored with "
+                        "tree_learner=%s (supported on the serial learner "
+                        "only)", tl)
+            bynode = None
         phys_bins = np.asarray(train_ds.phys_max_bins())
         wide = phys_bins > 256
         narrow_all = X.dtype == np.uint8 and self.B_phys <= 256
@@ -626,6 +634,10 @@ class GBDT(PredictorBase):
         self.uses_wave = not serial
         self._bynode_on = bynode is not None
         self._cegb_state = None
+        if tl != "serial" and train_ds.num_features > 0:
+            self._init_parallel(config, train_ds, tl, serial, narrow_all,
+                                forced, cegb, phys_bins, hist_mode)
+            return
         if cegb is not None:
             coupled0 = np.zeros(train_ds.num_features, np.float32)
             if cegb.coupled is not None:
@@ -690,6 +702,105 @@ class GBDT(PredictorBase):
             batched_apply=bool(config.tpu_batched_split_apply),
             overlap="on" if config.tpu_wave_overlap else "off")
         self._grow = build_wave_grow_fn(**self.wave_kw)
+
+    def _init_parallel(self, config, train_ds, tl, serial, narrow_all,
+                       forced, cegb, phys_bins, hist_mode) -> None:
+        """The learner across ranks (reference: tree_learner.cpp:13-36;
+        reference package: gbdt.py ``_init_grower``'s parallel branch):
+        ``parallel/mesh.py make_engine_grower`` over the process group's
+        world.  Under ``data`` the wave grower takes the data where the
+        serial learner would (not mixed width), else the serial grower;
+        ``voting`` and ``feature`` grow serially.  Forced splits, CEGB and
+        by-node sampling are serial-learner knobs, ignored here as in the
+        JAX package.  The bins kept on the device are this rank's block of
+        the padded rows (``data``, ``voting``) or all of them
+        (``feature``)."""
+        from ..parallel.mesh import (NETWORK, build_mesh, engine_pad_bins,
+                                     make_engine_grower, row_block)
+        if forced is not None:
+            log.warning("forcedsplits_filename is ignored with "
+                        "tree_learner=%s (supported on the serial learner "
+                        "only)", tl)
+        if cegb is not None:
+            log.warning("cegb_* penalties are ignored with tree_learner=%s "
+                        "(supported on the serial learner only)", tl)
+        if (config.num_machines > 1
+                or int(NETWORK.get("num_machines", 1)) > 1):
+            # bring up the group first (reference: Network::Init before the
+            # learner, application.cpp:54-66)
+            from ..parallel.distributed import init_distributed
+            init_distributed(config,
+                             machines=NETWORK.get("machines", ""),
+                             num_machines=int(NETWORK.get("num_machines",
+                                                          1)),
+                             local_listen_port=int(NETWORK.get(
+                                 "local_listen_port", 12400)),
+                             time_out=NETWORK.get("time_out"))
+        mesh = build_mesh(config.tpu_mesh_shape, self.device)
+        self._mesh = mesh
+        if (tl == "data" and mesh.size > 1
+                and getattr(self.objective, "supports_query_sharding", False)
+                and config.tpu_rank_sharded_grad):
+            from ..parallel.rank_shard import enable_query_sharded_grads
+            enable_query_sharded_grads(self.objective, mesh)
+            self._rank_sharded = True
+        X = train_ds.X_bin
+        use_wave = tl == "data" and not serial and narrow_all
+        wave_kw = None
+        if use_wave:
+            from ..core.wave_grower import effective_pipeline
+            if self._bundled and hist_mode in ("int16", "int8"):
+                log.info("tpu_hist_dtype=%s needs the pure-kernel "
+                         "un-bundled wave path; falling back to 2xbf16",
+                         hist_mode)
+                hist_mode = "2xbf16"
+            wave_kw = dict(
+                wave_capacity=int(config.tpu_wave_capacity),
+                highest=hist_mode,
+                gain_gate=float(config.tpu_wave_gain_gate),
+                fused_sibling=bool(config.tpu_fused_sibling),
+                quant_seed=int(config.seed), B_phys=self.B_phys,
+                bundled=self._bundled,
+                batched_apply=bool(config.tpu_batched_split_apply),
+                overlap="on" if config.tpu_wave_overlap else "off")
+            _, _, fused = effective_pipeline(
+                wave_kw["wave_capacity"], fused_sibling=wave_kw[
+                    "fused_sibling"], bundled=self._bundled,
+                data_parallel=True)
+            self.wave_kw = dict(meta=self.meta, cfg=self.split_cfg, B=self.B,
+                                **dict(wave_kw, fused_sibling=fused))
+            self.hist_mode = hist_mode
+            self._wave_mixed = None
+            fm = engine_pad_bins(np.ascontiguousarray(X.T), mesh.size, True)
+            lo, hi = row_block(mesh, X.shape[0])
+            self._bins_fm = torch.as_tensor(np.ascontiguousarray(
+                fm[:, lo:hi])).to(self.device)
+        else:
+            if hist_mode in ("int16", "int8"):
+                log.info("tpu_hist_dtype=%s is a wave-grower mode; the "
+                         "serial grower sums f32 histograms", hist_mode)
+            self.hist_mode = "highest"
+            wide = np.asarray(phys_bins) > 256
+            xbt = X.T
+            if tl != "feature":
+                xbt = engine_pad_bins(np.ascontiguousarray(xbt), mesh.size,
+                                      True)
+                lo, hi = row_block(mesh, X.shape[0])
+                xbt = xbt[:, lo:hi]
+            self._bins_fm = tuple(
+                torch.as_tensor(np.ascontiguousarray(
+                    xbt[idx]).astype(dt)).to(self.device) if len(idx)
+                else None
+                for idx, dt in ((np.flatnonzero(~wide), np.uint8),
+                                (np.flatnonzero(wide), np.int32)))
+        self.uses_wave = use_wave
+        self._grow = make_engine_grower(
+            tl, self.meta, self.split_cfg, self.B, mesh, phys_bins,
+            wave_kw=wave_kw, top_k=int(config.top_k), B_phys=self.B_phys,
+            bundled=self._bundled)
+        log.info("Using %s-parallel tree learner over %d rank(s) (rank %d, "
+                 "%s)", tl, mesh.size, mesh.rank,
+                 "the wave grower" if use_wave else "the serial grower")
 
     def _train_bins_dev(self) -> torch.Tensor:
         """The training set's row-major bins on the device, made once."""

@@ -136,7 +136,6 @@ _OBJECTIVE_ALIASES = {
 # field of the JAX package's ``Config`` is a field here too: implemented,
 # or accepted with no effect where the JAX package gives it none (the
 # field's comment says so).
-_AOT = "serve AOT store"
 _PARALLEL = "the rest of queue 1: parallel and fleet planes"
 # the train board, the profiler window and the rest of item 8B
 _OBS_B = "Obs, tools and bindings, part B"
@@ -144,17 +143,18 @@ _OBS_B = "Obs, tools and bindings, part B"
 # never carries on on the CPU
 _FALLBACK = "CPU fallback of a failed device step"
 _REFUSED: Dict[str, str] = {
-    "num_machines": _PARALLEL, "local_listen_port": _PARALLEL,
-    "time_out": _PARALLEL, "machine_list_filename": _PARALLEL,
-    "machines": _PARALLEL, "tpu_mesh_shape": _PARALLEL,
-    # the JAX package persists compiled per-bucket executables here; the
-    # port compiles nothing per bucket, and its store waits for its item
-    "tpu_serve_aot_dir": _AOT,
     "tpu_xprof": _OBS_B, "tpu_xprof_iters": _OBS_B,
     "tpu_train_metrics_port": _OBS_B,
 }
-# whole families, by name prefix
+# whole families, by name prefix: the ingest and fleet planes of item 7
 _REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL))
+# tree_learner's LightGBM aliases (reference: config.cpp GetTreeLearnerType)
+_TREE_LEARNERS = {
+    "serial_tree_learner": "serial", "feature_parallel": "feature",
+    "feature_parallel_tree_learner": "feature", "data_parallel": "data",
+    "data_parallel_tree_learner": "data", "voting_parallel": "voting",
+    "voting_parallel_tree_learner": "voting", "voting_tree_learner": "voting",
+}
 
 
 def refused_item(name: str) -> Optional[str]:
@@ -303,7 +303,8 @@ class Config:
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
 
-    # ---- Network (refused: parallel and fleet planes) ----
+    # ---- Network (parallel/; the fleet family is refused: parallel and
+    # fleet planes) ----
     num_machines: int = 1
     local_listen_port: int = 12400
     time_out: int = 120
@@ -393,8 +394,7 @@ class Config:
     tpu_serve_shed_normal_frac: float = 0.85
     tpu_serve_retry_after_s: float = 1.0
     tpu_serve_swap_warmup: bool = True
-    tpu_serve_aot: bool = True          # no effect: it arms a store only
-                                        # with tpu_serve_aot_dir (refused)
+    tpu_serve_aot: bool = True          # false disarms the serving store
     tpu_serve_aot_dir: str = ""
     tpu_serve_arena_bytes: int = 0
     tpu_explain: bool = True
@@ -461,18 +461,20 @@ class Config:
         self.objective = parse_objective_alias(self.objective)
         self.boosting = {"gbrt": "gbdt", "random_forest": "rf"}.get(
             self.boosting, self.boosting)
-        self.tree_learner = {"serial_tree_learner": "serial"}.get(
-            self.tree_learner, self.tree_learner)
+        self.tree_learner = _TREE_LEARNERS.get(self.tree_learner,
+                                               self.tree_learner)
+        if self.tree_learner not in ("serial", "feature", "data", "voting"):
+            log.fatal(f"Unknown tree learner type {self.tree_learner}")
         self.is_parallel = (self.tree_learner != "serial"
                             or self.num_machines > 1)
+        if self.is_parallel and self.monotone_constraints:
+            log.fatal("Cannot use monotone constraints in parallel learning")
         if self.boosting not in ("gbdt", "goss", "dart", "rf"):
             log.fatal(f"Unknown boosting type {self.boosting}")
         for f in dataclasses.fields(self):
             item = refused_item(f.name)
             if item is not None and getattr(self, f.name) != _default(f):
                 log.refuse(f"{f.name}={getattr(self, f.name)!r}", item)
-        if self.tree_learner != "serial":
-            log.refuse(f"tree_learner={self.tree_learner!r}", _PARALLEL)
         if self.boosting == "rf" and (self.bagging_freq <= 0 or not (
                 0.0 < self.bagging_fraction < 1.0)):
             log.fatal("bagging_freq and bagging_fraction (in (0,1)) are "

@@ -116,9 +116,68 @@ def bynode_masks(tree_seed: int, count: int, F: int, keep: int) -> np.ndarray:
     return r >= th
 
 
+def phys_hist_fn(phys_bins: np.ndarray, B_phys: int, cols=None,
+                 pad_to: int = None):
+    """``hist(bins, rows, gv, hv, mv) -> f32 [F', B_phys, 3]``: the leaf
+    histogram of the physical columns ``cols`` (default: all, in order) of
+    the rows ``rows`` (None: all), zero columns appended up to ``pad_to``.
+    ``bins`` is the pair (uint8 [Fn, N], int32 [Fw, N]) of the columns of
+    up to 256 bins and of more (``phys_bins`` [F_phys] says which): the
+    first go through K2 (``hist_channels_fm``), the second through
+    ``hist_fixed_point``, and both are merged in ``cols`` order."""
+    phys_bins = np.asarray(phys_bins)
+    wide = phys_bins > 256
+    narrow_all, wide_all = np.flatnonzero(~wide), np.flatnonzero(wide)
+    B_narrow = (_padded_bin_width(int(phys_bins[~wide].max()))
+                if len(narrow_all) else 0)
+    pos = np.zeros(len(phys_bins), np.int64)
+    pos[narrow_all] = np.arange(len(narrow_all))
+    pos[wide_all] = np.arange(len(wide_all))
+    every = cols is None
+    cols = np.arange(len(phys_bins)) if every else np.asarray(cols, np.int64)
+    groups = (cols[~wide[cols]], cols[wide[cols]])
+    order = np.argsort(np.concatenate(groups))
+    merge = len(groups[0]) and len(groups[1])
+    pad = 0 if pad_to is None else int(pad_to) - len(cols)
+
+    def hist(bins, rows, gv, hv, mv):
+        if rows is not None:
+            gv, hv, mv = gv[rows], hv[rows], mv[rows]
+        parts = []
+        for b, sel, hist_k, width in ((bins[0], groups[0], hist_channels_fm,
+                                       B_narrow),
+                                      (bins[1], groups[1], hist_fixed_point,
+                                       B_phys)):
+            if not len(sel):
+                continue
+            if not every:
+                b = b.index_select(0, torch.as_tensor(pos[sel]).to(b.device))
+            if rows is not None:
+                b = b.index_select(1, rows)
+            hp = hist_k(b, gv, hv, mv, width)
+            if width < B_phys:
+                hp = torch.nn.functional.pad(hp, (0, 0, 0, B_phys - width))
+            parts.append(hp)
+        if not parts:
+            out = torch.zeros((0, B_phys, 3), dtype=torch.float32,
+                              device=gv.device)
+        elif merge:
+            out = torch.cat(parts, 0)[torch.as_tensor(order).to(
+                parts[0].device)]
+        else:
+            out = parts[0]
+        if pad > 0:
+            out = torch.nn.functional.pad(out, (0, 0, 0, 0, 0, pad))
+        return out
+
+    return hist
+
+
 def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
                   B_phys: int = None, bundled: bool = False,
-                  cegb: CegbConfig = None, forced=None, bynode: float = None):
+                  cegb: CegbConfig = None, forced=None, bynode: float = None,
+                  hist_fn=None, reduce_fn=None, best_split_fn=None,
+                  subtract_sibling: bool = True):
     """The serial grower: ``grow(bins, g, h, sample_mask, feature_mask,
     cegb_state=None, tree_seed=None) -> (TreeArrays, leaf_id, (passes,
     rows))``, tensors on the bins' device, then the leaf histograms taken
@@ -161,7 +220,25 @@ def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
     ``round(bynode * F)`` features (``bynode_masks``) from the tree's key
     ``PRNGKey(tree_seed)``: ``fold_in`` 2k and 2k + 1 for the children of
     step k, 2(L - 1) for the root (reference: col_sampler GetByNode,
-    serial_tree_learner.cpp:404)."""
+    serial_tree_learner.cpp:404).
+
+    The learners across ranks (``parallel/mesh.py``) set the JAX
+    package's hooks:
+
+    - ``hist_fn(bins, rows, gv, hv, mv)``: the physical leaf histogram
+      (default ``phys_hist_fn`` over every column); the feature-parallel
+      learner histograms its rank's block of columns;
+    - ``reduce_fn``: the reduction of every leaf histogram and of the root
+      sums across ranks (data parallel: a sum, the reference's
+      ReduceScatter, data_parallel_tree_learner.cpp:119-164); it may
+      return ``(hist, alive)``, the voting gate's surviving columns;
+    - ``best_split_fn(hist, sg, sh, sc, min_c, max_c, feature_mask,
+      penalty)``: the split search (feature parallel: the block's scan,
+      then the winner across ranks, SyncUpGlobalBestSplit,
+      parallel_tree_learner.h:190-213), returning global feature ids;
+    - ``subtract_sibling=False`` histograms the larger child too instead
+      of taking parent minus smaller child: the voting gate may keep
+      other columns in the parent's pass than in the child's."""
     L = cfg.num_leaves
     B_phys = B if B_phys is None else int(B_phys)
     W = bitset_words(B)
@@ -171,14 +248,11 @@ def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
     has_cat = bool(meta_np["is_categorical"].any())
     phys_bins = np.asarray(phys_bins)
     wide = phys_bins > 256
-    narrow_idx, wide_idx = np.flatnonzero(~wide), np.flatnonzero(wide)
-    B_narrow = (_padded_bin_width(int(phys_bins[~wide].max()))
-                if len(narrow_idx) else 0)
     pos = np.zeros(len(phys_bins), np.int64)
-    pos[narrow_idx] = np.arange(len(narrow_idx))
-    pos[wide_idx] = np.arange(len(wide_idx))
-    mixed = len(narrow_idx) and len(wide_idx)
-    inv_perm = np.argsort(np.concatenate([narrow_idx, wide_idx]))
+    pos[wide] = np.arange(int(wide.sum()))
+    pos[~wide] = np.arange(int((~wide).sum()))
+    if hist_fn is None:
+        hist_fn = phys_hist_fn(phys_bins, B_phys)
     if forced is not None:
         FL, FF, FT = (np.asarray(a, np.int64) for a in forced)
     if bynode is not None:
@@ -189,34 +263,19 @@ def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
         lazy_vec = (np.asarray(cegb.lazy, np.float32) * cegb.tradeoff
                     if lazy_on else None)
 
-    def phys_hist(bins, rows, gv, hv, mv):
-        """f32 [F_phys, B_phys, 3] of the rows ``rows`` (None: all)."""
-        if rows is not None:
-            gv, hv, mv = gv[rows], hv[rows], mv[rows]
-        parts = []
-        for b, hist_fn, width in ((bins[0], hist_channels_fm, B_narrow),
-                                  (bins[1], hist_fixed_point, B_phys)):
-            if b is None:
-                continue
-            if rows is not None:
-                b = b.index_select(1, rows)
-            hp = hist_fn(b, gv, hv, mv, width)
-            if width < B_phys:
-                hp = torch.nn.functional.pad(hp, (0, 0, 0, B_phys - width))
-            parts.append(hp)
-        if not mixed:
-            return parts[0]
-        return torch.cat(parts, 0)[torch.as_tensor(inv_perm).to(
-            parts[0].device)]
-
     def hist_leaf(bins, rows, gv, hv, mv, totals):
-        hp = phys_hist(bins, rows, gv, hv, mv)
+        hp = hist_fn(bins, rows, gv, hv, mv)
+        alive = None
+        if reduce_fn is not None:
+            hp = reduce_fn(hp)
+            if isinstance(hp, tuple):
+                hp, alive = hp
         if not bundled:
             return hp
         hp = expand_bundled(hp, meta, B)
         tg, th, tc = (torch.tensor(v, dtype=torch.float32, device=hp.device)
                       for v in totals)
-        return fix_default_bins(hp, tg, th, tc, meta)
+        return fix_default_bins(hp, tg, th, tc, meta, alive=alive)
 
     def column(bins, f: int):
         """Feature ``f``'s bins over all rows, decoded from its column."""
@@ -308,9 +367,13 @@ def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
 
         def col(key):
             return torch.as_tensor(st[key][leaves]).to(dev)
-        bs = best_split(hist, col("g"), col("h"), col("c"), meta, cfg,
-                        col("min_c"), col("max_c"), feature_mask=fmask,
-                        has_cat=has_cat, penalty_sub=pen)
+        if best_split_fn is not None:
+            bs = best_split_fn(hist, col("g"), col("h"), col("c"),
+                               col("min_c"), col("max_c"), fmask, pen)
+        else:
+            bs = best_split(hist, col("g"), col("h"), col("c"), meta, cfg,
+                            col("min_c"), col("max_c"), feature_mask=fmask,
+                            has_cat=has_cat, penalty_sub=pen)
         res = torch.cat([torch.stack(
             [bs.gain, bs.feature.float(), bs.threshold.float(),
              bs.default_left.float(), bs.left_g, bs.left_h, bs.left_c,
@@ -351,6 +414,8 @@ def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
             fmasks = fmasks & torch.as_tensor(bynode_masks(
                 seed, 2 * L - 1, F, keep)).to(dev)
         root = torch.stack([(gv * mv).sum(), (hv * mv).sum(), mv.sum()])
+        if reduce_fn is not None:
+            root = reduce_fn(root)
         root_out = leaf_output(root[0], root[1], cfg)
         sum_g, sum_h, cnt, out0 = torch.cat(
             [root, root_out[None]]).cpu().numpy()
@@ -437,7 +502,15 @@ def build_grow_fn(meta, cfg, B: int, phys_bins: np.ndarray,
             parent_hist = hist[leaf].clone()
             hs = hist_leaf(bins, rows, gv, hv, mv, totals)
             hist[small] = hs
-            hist[large] = parent_hist - hs
+            if subtract_sibling:
+                hist[large] = parent_hist - hs
+            else:
+                rows_l = torch.nonzero((leaf_id == large) & sampled)[:, 0]
+                hist[large] = hist_leaf(
+                    bins, rows_l, gv, hv, mv,
+                    (rg, rh, rc) if left_smaller else (lg, lh, lc))
+                passes += 1
+                n_rows += int(rows_l.numel())
             passes += 1
             n_rows += int(rows.numel())
 

@@ -156,14 +156,20 @@ def expand_bundled(hist_phys, meta, B_out: int):
     return out * valid[..., None]
 
 
-def fix_default_bins(hist, tg, th, tc, meta):
+def fix_default_bins(hist, tg, th, tc, meta, alive=None):
     """Rebuild each bundled member's elided default-bin mass from the leaf
     totals (reference: Dataset::FixHistogram, src/io/dataset.cpp:1044-1063):
     ``hist[..., f, default_bin_f] += total - sum_b hist[..., f, b]``.
-    hist: f32 [..., F, B, 3]; tg/th/tc: the leaf totals, [...]."""
+    hist: f32 [..., F, B, 3]; tg/th/tc: the leaf totals, [...].
+    ``alive`` (bool [F_phys]) marks the physical columns that survived
+    the voting learner's gate: members of a gated-off column stay zero
+    (a fix would put the whole leaf at their default bin)."""
     sums = hist.sum(-2)                                          # [..., F, 3]
     totals = torch.stack([tg, th, tc], -1).to(hist.dtype)[..., None, :]
-    resid = torch.where(meta.needs_fix[:, None], totals - sums,
+    fix = meta.needs_fix
+    if alive is not None:
+        fix = fix & alive[meta.feat2phys.long()]
+    resid = torch.where(fix[:, None], totals - sums,
                         torch.zeros((), dtype=hist.dtype,
                                     device=hist.device))
     F = hist.shape[-3]

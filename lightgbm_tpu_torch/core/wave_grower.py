@@ -86,14 +86,16 @@ class MixedWidth(NamedTuple):
 
 def effective_pipeline(wave_capacity: int, packed: bool = True,
                        fused_sibling: bool = True, mixed: bool = False,
-                       bundled: bool = False):
+                       bundled: bool = False, data_parallel: bool = False):
     """The (packed, capacity, fused) triple ``build_wave_grow_fn`` runs —
-    the reference's gate (its data-parallel case is not in the port):
-    packed is off under ``mixed`` (the side-pass speaks the triple layout),
-    fusion needs an unmixed, unbundled wave (bundles rebuild default bins
-    before the subtraction).  Capacity 63 packed, 42 triple."""
+    the reference's gate: packed is off under ``mixed`` (the side-pass
+    speaks the triple layout), fusion needs an unmixed, unbundled wave on
+    one rank (bundles rebuild default bins before the subtraction, and
+    across ranks the sibling is parent minus the GLOBAL child, taken
+    after the reduction).  Capacity 63 packed, 42 triple."""
     packed = bool(packed) and not mixed
-    fused = bool(fused_sibling) and not mixed and not bundled
+    fused = (bool(fused_sibling) and not mixed and not bundled
+             and not data_parallel)
     return packed, max(1, min(int(wave_capacity),
                               wave_capacity_max(packed))), fused
 
@@ -242,7 +244,8 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                        quant_seed: int = 0, B_phys: int = None,
                        bundled: bool = False, mixed: MixedWidth = None,
                        cegb: CegbConfig = None, batched_apply: bool = True,
-                       overlap: str = "off"):
+                       overlap: str = "off", reduce_fn=None,
+                       reduce_max_fn=None):
     """``grow(bins_fm, g, h, sample_mask, feature_mask, cegb_state=None)``
     with K1 on the bins' device.  Returns ``(TreeArrays, leaf_id, (waves,
     rows))``: tensors on that device, then the K1 launches taken and the
@@ -270,13 +273,30 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
     loop body later, so a phase commits on gains one wave old.  "on"
     scans them after the next wave's K1 launch is queued, "serial"
     before it; both grow the same trees (different from "off").  The
-    scan waits for the launch on the card's one stream either way."""
+    scan waits for the launch on the card's one stream either way.
+
+    ``reduce_fn`` (``parallel/mesh.py``: a sum across ranks) makes the
+    grower row-shard aware: the root sums and every wave's K1 histograms
+    are reduced, so every rank takes the same split decisions while K1
+    reads its own rows; K1 then runs unfused and the sibling is taken
+    after the reduction.  In the int modes K1 hands over its exact int64
+    sums, reduced as integers and rounded to f32 once, and the scales
+    come from the global maxima (``reduce_max_fn``), so the trees are the
+    single-process ones bit for bit."""
     L = cfg.num_leaves
     packed, P, fused = effective_pipeline(wave_capacity, packed,
                                           fused_sibling, mixed is not None,
-                                          bundled)
+                                          bundled,
+                                          data_parallel=reduce_fn is not None)
     mode = resolve_mode(highest)
     quant = mode in QUANT_MODES
+    if reduce_fn is not None and mixed is not None:
+        raise ValueError("the learners across ranks shard one bins array; "
+                         "mixed width grows on the serial grower there")
+    if quant and reduce_fn is not None and reduce_max_fn is None:
+        raise ValueError("data-parallel quantized growth needs "
+                         "reduce_max_fn: every rank must quantize in the "
+                         "same units")
     if quant and (bundled or mixed is not None):
         raise ValueError("quantized histogram modes need the pure-kernel "
                          "unbundled wave path; the trainer falls back to "
@@ -440,9 +460,17 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         ``mixed``, merged in physical-column order."""
         kern = obs_profile.wrap("hist_wave", hist_wave,
                                 cost=hist_wave_call_cost)
+        exact = quant and reduce_fn is not None
         hw = kern(bins_n, gv, hv, cv, leaf, slot_t, B_kern,
                   highest=mode, packed=packed, parent=kern_parent,
-                  num_slots=n)
+                  num_slots=n, exact=exact)
+        if reduce_fn is not None:
+            # the global histograms: every rank now scans the same wave
+            hw = (tuple(reduce_fn(x) for x in hw) if packed
+                  else reduce_fn(hw))
+            if exact:
+                hw = (tuple(x.float() for x in hw) if packed
+                      else hw.float())
         if mixed is None:
             return hw
         hw_w = hist_wave_side(wide_rm, gv, hv, cv, leaf, slot_t, B_phys,
@@ -538,15 +566,31 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             # and stay zeros.  Root sums are integer totals times the scale.
             qmax = torch.tensor(QUANT_QMAX[mode], device=dev)
             tiny = torch.tensor(1e-30, device=dev)
-            s_g = torch.maximum(gv.abs().amax(), tiny) / qmax
-            s_h = torch.maximum(hv.abs().amax(), tiny) / qmax
+            amax = torch.stack([gv.abs().amax(), hv.abs().amax()]) if N \
+                else torch.zeros(2, dtype=torch.float32, device=dev)
+            if reduce_max_fn is not None:
+                amax = reduce_max_fn(amax)
+            s_g = torch.maximum(amax[0], tiny) / qmax
+            s_h = torch.maximum(amax[1], tiny) / qmax
             gv = stochastic_round(gv / s_g, quant_seed)
             hv = stochastic_round(hv / s_h, quant_seed ^ SEED_H_XOR)
             scales = torch.stack([s_g, s_h, torch.ones_like(s_g)])
-            root = torch.stack([gv.double().sum().float() * s_g,
-                                hv.double().sum().float() * s_h, cv.sum()])
+            if reduce_fn is None:
+                root = torch.stack([gv.double().sum().float() * s_g,
+                                    hv.double().sum().float() * s_h,
+                                    cv.sum()])
+            else:
+                # integer totals, exact in f64, summed across ranks before
+                # their one rounding
+                tot = reduce_fn(torch.stack([gv.double().sum(),
+                                             hv.double().sum(),
+                                             cv.double().sum()]))
+                root = torch.stack([tot[0].float() * s_g,
+                                    tot[1].float() * s_h, tot[2].float()])
         else:
             root = torch.stack([gv.sum(), hv.sum(), cv.sum()])
+            if reduce_fn is not None:
+                root = reduce_fn(root)
         root_out = leaf_output(root[0], root[1], cfg)
         sum_g, sum_h, cnt, out0 = torch.cat(
             [root, root_out[None]]).cpu().numpy()

@@ -110,6 +110,10 @@ def pair_lambdas(score: torch.Tensor, blocks, sigmoid: float, norm: bool,
 
 class LambdarankNDCG(Objective):
     name = "lambdarank"
+    # the data-parallel learner may split the pair pass on query
+    # boundaries across ranks (parallel/rank_shard.py)
+    supports_query_sharding = True
+    _shard = None
 
     def __init__(self, config):
         super().__init__(config)
@@ -137,5 +141,8 @@ class LambdarankNDCG(Objective):
             device=self.device)
 
     def get_gradients(self, score):
-        g, h = pair_lambdas(score, self.qblocks, self.sigmoid, self.norm)
+        if self._shard is not None:
+            g, h = self._shard(score)
+        else:
+            g, h = pair_lambdas(score, self.qblocks, self.sigmoid, self.norm)
         return self._apply_weight(g, h)

@@ -400,12 +400,14 @@ def report() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Collective traffic (no caller until the parallel planes are ported)
+# Collective traffic (parallel/mesh.py, parallel/distributed.py)
 # ---------------------------------------------------------------------------
 
 def record_collective(kind: str, x) -> None:
-    """Account one collective on tensor ``x`` (calls and bytes, attributed
-    to the active phase)."""
+    """Account one device collective on tensor ``x`` (calls and bytes,
+    attributed to the active phase).  The counters keep the JAX package's
+    ``traced_*`` names; the port has no trace, so each call of a
+    collective counts once, as it runs."""
     if _path is None:
         return
     try:

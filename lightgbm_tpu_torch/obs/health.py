@@ -23,9 +23,9 @@ check runs where the tensor is, or raises):
 - :func:`model_fingerprint`: f32 sums of the scores and of the
   iteration's trees, hashed into a ``fingerprint`` event.
 
-:func:`divergence_audit` compares the fingerprints of the ranks; alone
-(one process) it has nothing to compare and returns.  The multi-rank
-gather comes with the parallel planes.
+:func:`divergence_audit` compares the fingerprints of the ranks, gathered
+by ``parallel/distributed.py rank_allgather_stats``; alone (one process)
+it has nothing to compare and returns.
 """
 from __future__ import annotations
 
@@ -294,11 +294,17 @@ def divergence_audit(stats: np.ndarray, *, iteration: int) -> bool:
     raises :class:`TrainingHealthError` in every mode.  One process has
     nothing to compare (``_gather_override`` stands in for the gather in
     tests)."""
-    if not _mode or _gather_override is None:
+    if not _mode:
         return True
-    gathered = np.asarray(_gather_override(np.asarray(stats, np.float64)),
-                          np.float64)
-    if gathered is None or gathered.shape[0] <= 1:
+    if _gather_override is not None:
+        gathered = _gather_override(np.asarray(stats, np.float64))
+    else:
+        from ..parallel.distributed import rank_allgather_stats
+        gathered = rank_allgather_stats(stats)
+    if gathered is None:
+        return True
+    gathered = np.asarray(gathered, np.float64)
+    if gathered.shape[0] <= 1:
         return True
     core.count("health/divergence_checks")
     digests = [_digest_of(gathered[r]) for r in range(gathered.shape[0])]

@@ -99,7 +99,7 @@ def hist_wave_cost(N: int, F: int, B: int, rows: int, packed: bool = True,
 
 def hist_wave_call_cost(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
                         highest="bf16", packed: bool = True, parent=None,
-                        num_slots=None):
+                        num_slots=None, exact: bool = False):
     """``hist_wave_cost`` of a call with ``hist_wave``'s arguments; every
     row counts as slotted, as the wave grower hands K1 only the rows of
     its pending leaves."""
@@ -141,14 +141,17 @@ def _int_stream(gv, hv, cv, leaf_id):
 
 
 def hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
-                    highest="bf16", packed: bool = True, parent=None):
+                    highest="bf16", packed: bool = True, parent=None,
+                    exact: bool = False):
     """Plain PyTorch K1 with ``hist_pallas_wave``'s data arguments and
     outputs (its TPU tiling knobs have no counterpart).
 
     bins_fm: uint8 [F, N]; gv/hv/cv: f32 [N] (bag-masked g, h and count
     weights; integer-valued in the int modes); leaf_id: int [N];
     slot_leaf: int32 [128] lane -> leaf (-1 unused).  Returns the layout's
-    output (module docstring); with ``parent`` ``(child, sibling)``."""
+    output (module docstring); with ``parent`` ``(child, sibling)``.
+    ``exact`` (int modes, no ``parent``): the int64 sums themselves,
+    before their one rounding to f32."""
     mode = resolve_mode(highest)
     F, N = bins_fm.shape
     dev = bins_fm.device
@@ -187,7 +190,8 @@ def hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
         idx = (fb + b) * C_MAX + write[s][None, :]
         outs[o].index_add_(0, idx[keep],
                            val[r][None, :].expand(F, -1)[keep].to(acc_dtype))
-    outs = [o.float().reshape(F, B, C_MAX) for o in outs]
+    outs = [(o if exact and acc_dtype == torch.int64 else o.float())
+            .reshape(F, B, C_MAX) for o in outs]
     child = tuple(outs) if packed else outs[0]
     if parent is None:
         return child
@@ -211,19 +215,27 @@ def _check(name, t, dtype, shape=None, device=None):
 
 def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
               highest="bf16", packed: bool = True, parent=None,
-              num_slots: int = None):
+              num_slots: int = None, exact: bool = False):
     """K1 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Same arguments and results as
     ``hist_wave_plain``; ``num_slots`` (default: the layout's capacity)
     tells the kernel how many leading slots are in use, which sizes its
-    accumulator.
+    accumulator.  ``exact`` (int modes, no ``parent``) returns the int64
+    sums in the layout, read from the kernel's packed accumulator
+    (``decode_packed``): a sum of them across ranks, rounded to f32 once,
+    is the single-process histogram bit for bit.
 
     Kernel preconditions (the wave grower meets them): the lanes of each
     slot s < ``num_slots`` map to one leaf, lanes past them are -1, no
     leaf in two slots, ``B <= 256``."""
+    if exact and (parent is not None
+                  or resolve_mode(highest) not in QUANT_MODES):
+        raise ValueError("hist_wave: exact sums are the int modes' and "
+                         "unfused")
     if bins_fm.device.type == "cpu":
         return hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B,
-                               highest=highest, packed=packed, parent=parent)
+                               highest=highest, packed=packed, parent=parent,
+                               exact=exact)
     if not bins_fm.is_cuda:
         raise ValueError(f"hist_wave: no kernel for device {bins_fm.device}")
     mode = resolve_mode(highest)
@@ -299,10 +311,48 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
     hist_wave.layout_launches["packed" if packed else "triple"] += 1
     hist_wave.sibling_launches["fused" if parent is not None
                                else "unfused"] += 1
+    if exact:
+        return decode_packed(acc, F, B, S, packed)
     child = tuple(outs) if packed else outs[0]
     if parent is None:
         return child
     return child, (tuple(sibs) if packed else sibs[0])
+
+
+_FIELDS = (21, 21, 22)      # csrc/hist_wave.cu kField0, kField1, the rest
+
+
+def _sext(x, bits: int):
+    """The low ``bits`` of int64 ``x`` as a signed value."""
+    return torch.bitwise_right_shift(
+        torch.bitwise_left_shift(x, 64 - bits), 64 - bits)
+
+
+def decode_packed(acc, F: int, B: int, S: int, packed: bool = True):
+    """K1's int accumulator ``[F, B, S, 4]`` int64 (the packed word W of a
+    cell's (g, h, count) and the three correction words,
+    ``csrc/hist_wave.cu`` ``PackedAcc``) as the layout's int64 sums: field
+    k of W plus correction k, W's fields unpacked as the kernel's
+    ``unpack`` does."""
+    a = acc.reshape(F, B, S, 4)
+    w = a[..., 0]
+    d = []
+    for k, bits in enumerate(_FIELDS):
+        v = _sext(w, bits)
+        d.append(v + a[..., 1 + k])
+        if k < 2:
+            # (w - v) >> bits, a logical shift of the unsigned word
+            w = torch.bitwise_and(torch.bitwise_right_shift(w - v, bits),
+                                  (1 << (64 - bits)) - 1)
+    sums = torch.stack(d, -1)                             # [F, B, S, 3]
+    out = [torch.zeros((F, B, C_MAX), dtype=torch.int64, device=acc.device)
+           for _ in range(2 if packed else 1)]
+    if packed:
+        out[0][..., :2 * S] = sums[..., :2].reshape(F, B, 2 * S)
+        out[1][..., :S] = sums[..., 2]
+        return tuple(out)
+    out[0][..., :3 * S] = sums.reshape(F, B, 3 * S)
+    return out[0]
 
 
 hist_wave.launches = 0                                   # all launches

@@ -50,9 +50,12 @@ from .batcher import (DeadlineExceeded, DeviceFailed, MicroBatcher, Request,
                       ServeOverloadError, normalize_priority)
 from .metrics import percentile
 from .packing import ServeBinSpace, collect_split_state
-from .session import (Ticket, _env_num, _safe_resolve, _tensor_bytes,
-                      as_rows, bucket_sweep, live_requests, load_serving_model,
-                      model_feature_count, pow2_bucket)
+from .aot import (GATE, AOTStore, BucketGraphs, resolve_aot_dir,
+                  trees_digest)
+from .session import (Ticket, _capture, _decode_pack, _encode_pack, _env_num,
+                      _safe_resolve, _tensor_bytes, as_rows, bucket_sweep,
+                      live_requests, load_serving_model, model_feature_count,
+                      pow2_bucket)
 
 _LAT_RESERVOIR = 8192
 _CANARY_ROWS = 64      # pinned parity probe per admitted or swapped tenant
@@ -141,10 +144,10 @@ class _ArenaState:
     """One immutable pack generation, swapped in whole on a repack."""
 
     __slots__ = ("generation", "space", "forest", "fn", "K", "F",
-                 "order", "bytes", "colmaps")
+                 "order", "bytes", "colmaps", "graphs")
 
     def __init__(self, generation, space, forest, fn, K, F, order,
-                 nbytes, colmaps=None):
+                 nbytes, colmaps=None, graphs=None):
         self.generation = generation
         self.space = space
         self.forest = forest
@@ -156,6 +159,9 @@ class _ArenaState:
         # tenant -> union column of each model feature (only tenants with
         # a categorical/numerical conflict)
         self.colmaps: dict = colmaps or {}
+        # one CUDA graph per bucket on the card (serve/aot.py), freed with
+        # the generation
+        self.graphs = graphs
 
 
 class ForestArena:
@@ -211,6 +217,11 @@ class ForestArena:
         self._buckets: set = set()
         self._lat_ms: List[float] = []
         self.events: list = []
+        # the serving store (serve/aot.py): each pack generation loads or
+        # writes its own entry
+        aot_dir = resolve_aot_dir(cfg)
+        self._aot = AOTStore(aot_dir) if aot_dir else None
+        self._aot_status = None
         self._batcher = MicroBatcher(
             self._execute_batch, max_batch=self.max_batch,
             max_wait_s=self.max_wait_ms / 1e3,
@@ -398,14 +409,40 @@ class ForestArena:
                 all_trees.append(tree)
                 class_ids.append(i % ten.num_tpi)
                 model_ids.append(mid)
-        space = ServeBinSpace(all_trees, F, self.device)
-        forest = space.pack(all_trees, np.asarray(class_ids, np.int32),
-                            model_ids=np.asarray(model_ids, np.int32))
+        packed = None
+        if self._aot is not None:
+            digest = trees_digest(all_trees, f"K={K}|F={F}|arena|" + "|".join(
+                f"{t.name}:{t.mid}" for t in resident) + "|" + "|".join(
+                f"{n}:{cm.tolist()}" for n, cm in sorted(colmaps.items())))
+            key = self._aot.key("arena", self.max_batch, digest,
+                                device=self.device)
+            status, packed = self._aot.load(
+                "arena", key, self.device,
+                decode=lambda p: _decode_pack(p, self.device, len(all_trees),
+                                              F, self.max_batch))
+            self._aot_status = status
+        if packed is not None:
+            space, forest = packed
+        else:
+            space = ServeBinSpace(all_trees, F, self.device)
+            forest = space.pack(all_trees, np.asarray(class_ids, np.int32),
+                                model_ids=np.asarray(model_ids, np.int32))
+            if self._aot is not None:
+                self._aot.save("arena", key,
+                               _encode_pack(space, forest, self.max_batch),
+                               device=self.device,
+                               note={"tenants": [t.name for t in resident]})
+        fn = arena_predict_fn(space.meta, K)
+        graphs = None
+        if self.device.type == "cuda":
+            graphs = BucketGraphs(
+                lambda bins, rm: fn(forest, bins, rm), self.device, "arena",
+                [(lambda b: (b, F), torch.int32),
+                 (lambda b: (b,), torch.int32)])
         self._generation += 1
-        return _ArenaState(self._generation, space, forest,
-                           arena_predict_fn(space.meta, K), K, F,
+        return _ArenaState(self._generation, space, forest, fn, K, F,
                            [t.name for t in resident], _tensor_bytes(forest),
-                           colmaps=colmaps)
+                           colmaps=colmaps, graphs=graphs)
 
     # ---- serving ------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -413,13 +450,18 @@ class ForestArena:
 
     def warmup(self) -> int:
         """Run every bucket of the current generation once (pad rows
-        only).  Returns the bucket count."""
+        only), each captured as a CUDA graph first on the card; a failed
+        capture raises ``DeviceFailed``.  A later generation (an admission,
+        an eviction, a swap) captures a bucket at its first walk.  Returns
+        the bucket count."""
         with self._lock:
             state = self._state
         if state is None:
             return 0
+        state.space.bin_matrix(np.zeros((1, state.F)))   # lazy host loads
         n = 0
         for size in bucket_sweep(self.max_batch):
+            _capture(state.graphs, size, "arena")
             self._dispatch(state, np.zeros((size, state.F), np.int32),
                            np.full(size, -1, np.int32))
             n += 1
@@ -439,9 +481,15 @@ class ForestArena:
         with self._lock:
             self._buckets.add(b)
         faults.check("serve_arena_device")
-        out = state.fn(state.forest, torch.from_numpy(bins).to(self.device),
-                       torch.from_numpy(row_model).to(self.device))
-        return out.cpu().numpy().astype(np.float64)[:n], b
+        if state.graphs is not None:
+            out = state.graphs.run(b, bins, row_model)
+        else:
+            with GATE.walk():
+                out = state.fn(state.forest,
+                               torch.from_numpy(bins).to(self.device),
+                               torch.from_numpy(row_model).to(
+                                   self.device)).cpu().numpy()
+        return out.astype(np.float64)[:n], b
 
     def _resolve(self, model: Optional[str]) -> _Tenant:
         """Tenant lookup with transparent re-admission: an evicted tenant
@@ -702,6 +750,11 @@ class ForestArena:
                 "buckets": sorted(self._buckets),
                 "max_batch": self.max_batch,
                 "device": str(self.device),
+                "graph_captures": (state.graphs.captures
+                                   if state is not None and state.graphs
+                                   is not None else 0),
+                "aot": (None if self._aot is None else {
+                    **self._aot.stats(), "status": self._aot_status}),
                 "queue_rows": (0 if self._closed
                                else self._batcher.queue_rows),
                 "uptime_s": round(time.time() - self._t_start, 1),

@@ -18,9 +18,10 @@ and >1 means the SLO is being violated.
 The drift series (``tpu_serve_drift_*``) render where a model's drift
 monitor is armed, and the online loop's (``tpu_online_*``) where a loop
 has parked its stats on the registry (``online/loop.py run_online``).
-Series the port cannot fill are left out, not reported as zero: the
-recompile counter (the port compiles nothing per bucket) and the AOT
-store's series (ROADMAP.md "serve AOT store").
+The serving store's series (``tpu_serve_aot_*``, ``serve/aot.py``)
+render where a store is armed, under the JAX package's names.  The
+recompile counter is left out, not reported as zero: the port compiles
+nothing per bucket.
 """
 from __future__ import annotations
 
@@ -219,6 +220,34 @@ def _fmt(v) -> str:
     if isinstance(v, float) and v.is_integer():
         return str(int(v))
     return repr(v) if isinstance(v, float) else str(v)
+
+
+def _aot_series(out, head, ao) -> None:
+    """Render one store's stats (``serve/aot.py AOTStore.stats()``) as the
+    ``tpu_serve_aot_*`` series.  The fallbacks counter is the alert
+    surface: a fleet that packs from the model at every boot shows up
+    here, not in a crash log."""
+    head("tpu_serve_aot_entries", "gauge",
+         "Packed-forest entries resident in the serving store directory.")
+    out.append("tpu_serve_aot_entries %d" % int(ao.get("entries") or 0))
+    head("tpu_serve_aot_loaded_total", "counter",
+         "Entries loaded from the serving store (each one a bin-space "
+         "rebuild and forest pack the boot path did not pay).")
+    out.append("tpu_serve_aot_loaded_total %d" % int(ao.get("loaded")
+                                                     or 0))
+    head("tpu_serve_aot_saved_total", "counter",
+         "Entries written into the serving store by this process.")
+    out.append("tpu_serve_aot_saved_total %d" % int(ao.get("saved") or 0))
+    head("tpu_serve_aot_fallbacks_total", "counter",
+         "Store entries present but unusable (corrupt, truncated or "
+         "foreign); each one was packed from the model, loudly.")
+    out.append("tpu_serve_aot_fallbacks_total %d"
+               % int(ao.get("fallbacks") or 0))
+    head("tpu_serve_aot_save_errors_total", "counter",
+         "Failed attempts to write a store entry (costs the next boot a "
+         "pack, never this process a request).")
+    out.append("tpu_serve_aot_save_errors_total %d"
+               % int(ao.get("save_errors") or 0))
 
 
 def _arena_series(out, head, ast) -> None:
@@ -453,6 +482,11 @@ def render_prometheus(session) -> str:
     dr = st.get("drift")
     if isinstance(dr, dict) and dr.get("armed"):
         _drift_series(out, head, dr)
+    # the serving store (serve/aot.py): rendered only when armed, so a
+    # storeless session's exposition is unchanged
+    ao = st.get("aot")
+    if isinstance(ao, dict):
+        _aot_series(out, head, ao)
     return "\n".join(out) + "\n"
 
 
@@ -526,6 +560,11 @@ def render_prometheus_fleet(registry) -> str:
             ast = None
         if ast:
             _arena_series(out, head, ast)
+            # the default router's section may already carry the store's
+            # series (one directory): the arena's copy renders otherwise
+            if (isinstance(ast.get("aot"), dict)
+                    and "tpu_serve_aot_entries" not in out[0]):
+                _aot_series(out, head_once, ast["aot"])
     # the online loop (online/loop.py run_online) parks its stats provider
     # on the registry, so one fleet scrape covers serving and the refresh
     # loop feeding it

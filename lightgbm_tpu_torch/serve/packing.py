@@ -112,6 +112,35 @@ class ServeBinSpace:
             missing_types=t(miss), monotone=t(np.zeros(F, np.int32)),
             penalties=t(np.ones(F, np.float32)), is_categorical=t(is_cat))
 
+    def state(self) -> dict:
+        """The space as numpy and plain values (``serve/aot.py`` entries);
+        ``from_state`` rebuilds it without the trees."""
+        from .aot import to_host
+        return {"num_features": self.num_features,
+                "cat_words": self.cat_words, "min_words": self.min_words,
+                "sentinel": self.sentinel, "is_cat": self._is_cat.copy(),
+                "mappers": [None if m is None else m.to_dict()
+                            for m in self.mappers],
+                "meta": to_host(self.meta)}
+
+    @classmethod
+    def from_state(cls, state: dict, device="cpu") -> "ServeBinSpace":
+        from .aot import from_host
+        self = cls.__new__(cls)
+        self.num_features = int(state["num_features"])
+        self.device = device
+        self.cat_words = int(state["cat_words"])
+        self.min_words = int(state["min_words"])
+        self.sentinel = int(state["sentinel"])
+        self._is_cat = np.asarray(state["is_cat"], bool)
+        self.mappers = [None if m is None else BinMapper.from_dict(m)
+                        for m in state["mappers"]]
+        if not (len(self.mappers) == len(self._is_cat)
+                == self.num_features):
+            raise ValueError("bin space state has inconsistent widths")
+        self.meta = from_host(DeviceMeta, state["meta"], device)
+        return self
+
     def bin_matrix(self, X: np.ndarray) -> np.ndarray:
         """Bin raw rows into this space: [N, F] int32.  Columns no tree
         splits on are never read by the walk and stay zero."""

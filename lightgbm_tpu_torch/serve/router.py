@@ -414,6 +414,14 @@ class ReplicaRouter:
         agg["resident_bytes"] = self.resident_bytes()
         agg["drift"] = (self.drift.status() if self.drift is not None
                         else None)
+        agg["graph_captures"] = sum(int(s.get("graph_captures") or 0)
+                                    for s in per)
+        # the replicas share one store directory; each counts its own loads
+        aots = [s["aot"] for s in per if s.get("aot")]
+        agg["aot"] = (None if not aots else {
+            **aots[0], **{k: sum(int(a[k]) for a in aots)
+                          for k in ("loaded", "saved", "fallbacks",
+                                    "save_errors")}})
         agg["replicas"] = rows
         return agg
 

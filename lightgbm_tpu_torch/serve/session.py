@@ -14,8 +14,12 @@
 - every device call pads its rows to the next power of two up to the
   batch cap, so ``stats()`` reports the JAX package's buckets, occupancy
   and pad waste.  The port's walk is eager torch ops, so a bucket
-  compiles nothing; the pow2 buckets keep the batch shapes (and the
-  ``stats()`` contract) of the JAX package;
+  compiles nothing; on the card ``warmup`` captures each bucket's walk as
+  one CUDA graph and a batch replays it (``serve/aot.py``), where the CPU
+  walks eagerly;
+- with ``tpu_serve_aot_dir`` armed, the packed forest and bin space come
+  from the store when it holds this window, and are written to it when
+  it does not (``serve/aot.py``);
 - the bins of a batch go to the device in one copy; its scores come back
   in one ``.cpu()`` copy, which waits for that batch's work alone (no
   device-wide synchronize, so replicas on one card do not serialize).
@@ -171,6 +175,41 @@ def pow2_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _capture(graphs, bucket: int, plane: str) -> None:
+    """Capture one bucket's CUDA graph at warm-up (no-op on the CPU); a
+    failed capture raises ``DeviceFailed``: nothing walks in its place."""
+    if graphs is None:
+        return
+    try:
+        graphs.capture(bucket)
+    except Exception as exc:  # noqa: BLE001 — the failure point
+        raise DeviceFailed(f"{plane}: CUDA graph capture of bucket "
+                           f"{bucket} failed ({type(exc).__name__}: "
+                           f"{exc})") from exc
+
+
+def _encode_pack(space, forest, max_batch: int) -> dict:
+    """A store entry's payload: the bin space, the stacked forest and the
+    bucket ladder, as numpy (``serve/aot.py``)."""
+    from .aot import to_host
+    return {"space": space.state(), "forest": to_host(forest),
+            "ladder": list(bucket_sweep(max_batch))}
+
+
+def _decode_pack(payload: dict, device, T: int, F: int, max_batch: int):
+    """(space, forest) of a store entry on ``device``; raises when the
+    entry does not fit the window (T trees, F features, the ladder)."""
+    from ..core.forest import ForestArrays
+    from .aot import from_host
+    if payload.get("ladder") != list(bucket_sweep(max_batch)):
+        raise ValueError("bucket ladder differs")
+    space = ServeBinSpace.from_state(payload["space"], device)
+    forest = from_host(ForestArrays, payload["forest"], device)
+    if space.num_features != max(F, 1) or len(forest.depth) != T:
+        raise ValueError("entry packs another window")
+    return space, forest
+
+
 class Ticket:
     """Handle of an asynchronous submission (one or more batcher requests:
     oversize submissions are chunked to the batch cap).  ``kind`` is
@@ -271,17 +310,52 @@ class PredictorSession:
         self._explain_degraded = False
         self._last_explain_probe = 0.0
 
-        # ---- pack once: bin space + stacked forest --------------------
-        self.space = ServeBinSpace(trees, F, self.device)
-        class_ids = np.asarray([i % K for i in range(len(trees))], np.int32)
-        self.forest = self.space.pack(trees, class_ids)
-        from ..core.forest import forest_predict_fn
         # the port's early-stop spec reads the config it is given: the
         # session's, so a loaded model's pred_early_stop acts as in the
         # JAX session
         self.early_stop = gbdt._early_stop_spec(self.config)
+
+        # ---- pack once: bin space + stacked forest --------------------
+        # from the store (serve/aot.py) when it holds this window, else
+        # from the trees (then written to the store)
+        from ..core.forest import forest_predict_fn
+        from .aot import AOTStore, resolve_aot_dir, trees_digest
+        aot_dir = resolve_aot_dir(self.config)
+        self._aot = AOTStore(aot_dir) if aot_dir else None
+        self._aot_status = None
+        packed = None
+        if self._aot is not None:
+            digest = trees_digest(trees, f"K={K}|F={F}|es="
+                                  f"{self.early_stop!r}")
+            key = self._aot.key("predict", self.max_batch, digest,
+                                device=self.device)
+            self._aot_status, packed = self._aot.load(
+                "predict", key, self.device,
+                decode=lambda p: _decode_pack(p, self.device, len(trees),
+                                              F, self.max_batch))
+        if packed is not None:
+            self.space, self.forest = packed
+        else:
+            self.space = ServeBinSpace(trees, F, self.device)
+            class_ids = np.asarray([i % K for i in range(len(trees))],
+                                   np.int32)
+            self.forest = self.space.pack(trees, class_ids)
+            if self._aot is not None:
+                self._aot.save("predict", key,
+                               _encode_pack(self.space, self.forest,
+                                            self.max_batch),
+                               device=self.device,
+                               note={"trees": len(trees), "K": K, "F": F})
         self._device_fn = forest_predict_fn(self.space.meta, K,
                                             self.early_stop)
+        # on the card every bucket's walk is one CUDA graph (captured at
+        # warm-up); the CPU walks eagerly
+        self._graphs = None
+        if self.device.type == "cuda":
+            from .aot import BucketGraphs
+            self._graphs = BucketGraphs(
+                lambda bins: self._device_fn(self.forest, bins), self.device,
+                "predict", [(lambda b: (b, F), torch.int32)])
 
         # ---- serving state ---------------------------------------------
         self._degraded = False
@@ -373,11 +447,16 @@ class PredictorSession:
             log.warning("drift observe failed: %s", exc)
 
     def warmup(self) -> int:
-        """Run every bucket shape up to the batch cap once, so the first
-        request finds the allocator's blocks cached.  Returns the bucket
-        count."""
+        """Run every bucket shape up to the batch cap once.  On the card
+        each bucket's walk is captured as a CUDA graph first, so requests
+        replay and never capture; a capture that fails raises
+        ``DeviceFailed``.  One row goes through the host binning too, so
+        its lazy loads (the native binning library) are not request #1's.
+        Returns the bucket count."""
+        self.space.bin_matrix(np.zeros((1, self.num_features)))
         n = 0
         for size in bucket_sweep(self.max_batch):
+            _capture(self._graphs, size, "predict")
             self._run_device(np.zeros((size, self.num_features), np.int32))
             n += 1
         return n
@@ -387,8 +466,10 @@ class PredictorSession:
 
     def _run_device(self, bins: np.ndarray, pad: bool = True):
         """Pad to the pow2 bucket, walk the forest on the device, slice
-        the pad off.  Returns ([n, K] f64 raw scores, bucket).  With
-        ``pad=False`` the rows are walked as they are (bucket None)."""
+        the pad off.  Returns ([n, K] f64 raw scores, bucket).  On the card
+        a bucket's walk is its CUDA graph's replay.  With ``pad=False``
+        the rows are walked as they are, eagerly (bucket None): an input
+        above the batch cap, a walk no bucket's graph covers."""
         n = bins.shape[0]
         b = self._bucket(n) if pad else None
         if pad:
@@ -398,9 +479,14 @@ class PredictorSession:
             with self._lock:
                 self._buckets.add(b)
         faults.check("serve_device")
-        out = self._device_fn(self.forest,
-                              torch.from_numpy(bins).to(self.device))
-        raw = out.cpu().numpy().astype(np.float64)[:n]
+        if pad and self._graphs is not None:
+            out = self._graphs.run(b, bins)
+        else:
+            from .aot import GATE
+            with GATE.walk():
+                out = self._device_fn(self.forest, torch.from_numpy(
+                    bins).to(self.device)).cpu().numpy()
+        raw = out.astype(np.float64)[:n]
         if self.average_factor:
             raw /= self.average_factor
         return raw, b
@@ -618,14 +704,24 @@ class PredictorSession:
                     max_wait_s=self.explain_max_wait_ms / 1e3,
                     max_queue_rows=self.queue_depth,
                     name="lgbm-serve-explain", shed_fracs=self._shed_fracs)
-                self._explain = (self.forest, arrays, fn, batcher)
+                graphs = None
+                if self.device.type == "cuda":
+                    from .aot import BucketGraphs
+                    forest = self.forest
+                    graphs = BucketGraphs(
+                        lambda bins: fn(forest, arrays, bins), self.device,
+                        "explain", [(lambda b: (b, F), torch.int32)])
+                self._explain = (self.forest, arrays, fn, batcher, graphs)
         return self._explain
 
     def warmup_explain(self) -> int:
-        """Run every explain bucket shape once.  Returns the count."""
-        self._ensure_explain()
+        """Run every explain bucket shape once, each captured as a CUDA
+        graph first on the card (``warmup``'s rule).  Returns the
+        count."""
+        graphs = self._ensure_explain()[4]
         n = 0
         for size in bucket_sweep(self.explain_max_batch):
+            _capture(graphs, size, "explain")
             self._run_device_explain(
                 np.zeros((size, self.num_features), np.int32))
             n += 1
@@ -637,7 +733,7 @@ class PredictorSession:
     def _run_device_explain(self, bins: np.ndarray):
         """Pad to the explain pow2 bucket, run the TreeSHAP pass, slice
         the pad off.  Returns ([n, K, F+1] f64 contributions, bucket)."""
-        forest, arrays, fn, _ = self._ensure_explain()
+        forest, arrays, fn, _, graphs = self._ensure_explain()
         n = bins.shape[0]
         b = self._bucket_explain(n)
         if b > n:
@@ -646,8 +742,14 @@ class PredictorSession:
         with self._lock:
             self._explain_buckets.add(b)
         faults.check("serve_explain_device")
-        out = fn(forest, arrays, torch.from_numpy(bins).to(self.device))
-        return out.cpu().numpy().astype(np.float64)[:n], b
+        if graphs is not None:
+            out = graphs.run(b, bins)
+        else:
+            from .aot import GATE
+            with GATE.walk():
+                out = fn(forest, arrays, torch.from_numpy(bins).to(
+                    self.device)).cpu().numpy()
+        return out.astype(np.float64)[:n], b
 
     def _convert_explain(self, contrib: np.ndarray) -> np.ndarray:
         """[n, K, F+1] -> the ``predict_contrib`` layout: [n, F+1], or
@@ -698,7 +800,7 @@ class PredictorSession:
             raise RuntimeError("session is closed")
         faults.check("serve_explain_submit")
         priority = normalize_priority(priority)
-        _, _, _, batcher = self._ensure_explain()
+        batcher = self._ensure_explain()[3]
         try:
             self._check_explain_device()
         except DeviceFailed as exc:
@@ -961,10 +1063,11 @@ class PredictorSession:
 
     def stats(self) -> dict:
         """Serving counters and latency percentiles (``/health``,
-        ``/stats``).  The JAX package's ``compile_count`` and ``aot`` keys
-        are left out: the port has no per-bucket compiles, and the AOT
-        store waits for its ROADMAP.md item.  ``drift`` is the monitor's
-        status (None when unarmed)."""
+        ``/stats``).  The JAX package's ``compile_count`` is left out (the
+        port compiles nothing per bucket); ``graph_captures`` counts this
+        session's CUDA graphs (none on the CPU) and ``aot`` is the store's
+        counters with this session's load status, None when unarmed.
+        ``drift`` is the monitor's status (None when unarmed)."""
         with self._lock:
             lat = sorted(self._lat_ms)
             xlat = sorted(self._xlat_ms)
@@ -1019,7 +1122,18 @@ class PredictorSession:
                 "resident_bytes": self.resident_bytes(),
                 "drift": (self._drift.status()
                           if self._drift is not None else None),
+                "graph_captures": self._graph_captures(),
+                "graph_buckets": ([] if self._graphs is None
+                                  else self._graphs.buckets()),
+                "aot": (None if self._aot is None else {
+                    **self._aot.stats(), "status": self._aot_status}),
             }
+
+    def _graph_captures(self) -> int:
+        n = 0 if self._graphs is None else self._graphs.captures
+        if self._explain is not None and self._explain[4] is not None:
+            n += self._explain[4].captures
+        return n
 
     def close(self) -> None:
         if not self._closed:
@@ -1027,6 +1141,10 @@ class PredictorSession:
             self._batcher.close()
             if self._explain is not None:
                 self._explain[3].close()
+                if self._explain[4] is not None:
+                    self._explain[4].free()
+            if self._graphs is not None:
+                self._graphs.free()
 
     def __enter__(self) -> "PredictorSession":
         return self

@@ -246,10 +246,28 @@ def test_dataset_get_data_and_create_valid():
     # a refit booster, held against the JAX package's refit of the same
     # model text
     pytest.param("refit", None, id="refit-online and serve"),
-    ("set_network", "parallel and fleet planes"),
-    ("free_network", "parallel and fleet planes")])
+    # set_network and free_network run since parallel/ was ported: the
+    # topology is recorded in the JAX package's NETWORK shape, and freed
+    ("set_network", None), ("free_network", None)])
 def test_methods_of_later_items_name_them(pair, jlgb, method, item):
     X, y, _, bst = pair
+    if method in ("set_network", "free_network"):
+        from lightgbm_tpu.parallel import mesh as jmesh
+        from lightgbm_tpu_torch.parallel import mesh as pmesh
+        jb = jlgb.Booster(model_str=bst.model_to_string())
+        try:
+            for b, m in ((bst, pmesh), (jb, jmesh)):
+                b.set_network("10.0.0.1,10.0.0.2:13", local_listen_port=12,
+                              listen_time_out=4, num_machines=2)
+                if method == "free_network":
+                    b.free_network()
+            assert pmesh.NETWORK == jmesh.NETWORK
+        finally:
+            for m in (pmesh, jmesh):
+                m.NETWORK.clear()
+                m.NETWORK.update(machines="", num_machines=1, rank=0,
+                                 local_listen_port=12400)
+        return
     if item is None:
         got = bst.refit(X, 1.0 - y, decay_rate=0.5)
         want = jlgb.Booster(model_str=bst.model_to_string()).refit(

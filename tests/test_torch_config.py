@@ -89,15 +89,15 @@ def test_refused_items_are_roadmap_items():
 SERVE_FIELDS = [f for f in FIELDS
                 if f.name.startswith(("tpu_serve", "tpu_explain"))]
 # the serving fields the port still refuses, by the item that brings them
-SERVE_REFUSED = {"tpu_serve_aot_dir": "serve AOT store"}
+# (none since serve/aot.py was ported)
+SERVE_REFUSED = {}
 
 
 @pytest.mark.parametrize("fld", SERVE_FIELDS, ids=lambda f: f.name)
 def test_serve_field_runs_or_names_its_item(fld):
     """Every ``tpu_serve_*``/``tpu_explain*`` field takes a non-default
-    value (``serve/`` reads it), except the AOT store's directory, refused
-    by its item.  Floats are halved (0 becomes
-    0.5), so fractions stay in range."""
+    value (``serve/`` reads it, the store's directory included).  Floats
+    are halved (0 becomes 0.5), so fractions stay in range."""
     d = _default(fld)
     value = ((d / 2 if d else 0.5) if isinstance(d, float)
              else _other_value(d))
@@ -139,3 +139,52 @@ def test_obs_field_of_item_8b_is_refused(name):
     with pytest.raises(LightGBMError, match="ROADMAP.md port queue: Obs, "
                        "tools and bindings, part B"):
         Config.from_params({name: OBS_REFUSED[name]})
+
+
+# the network fields and the parallel learners run since parallel/ was
+# ported; the fleet and ingest families still name item 7
+NETWORK_RUN = {"num_machines": 2, "local_listen_port": 13000, "time_out": 5,
+               "machine_list_filename": "mlist.txt",
+               "machines": "10.0.0.1:1,10.0.0.2:1", "tpu_mesh_shape": "data:2"}
+
+
+@pytest.mark.parametrize("name", sorted(NETWORK_RUN))
+def test_network_field_runs(name):
+    assert pconfig.refused_item(name) is None
+    value = NETWORK_RUN[name]
+    assert getattr(Config.from_params({name: value}), name) == value
+
+
+@pytest.mark.parametrize("alias,want", [
+    ("serial", "serial"), ("serial_tree_learner", "serial"),
+    ("feature", "feature"), ("feature_parallel", "feature"),
+    ("feature_parallel_tree_learner", "feature"), ("data", "data"),
+    ("data_parallel", "data"), ("data_parallel_tree_learner", "data"),
+    ("voting", "voting"), ("voting_parallel", "voting"),
+    ("voting_parallel_tree_learner", "voting"),
+    ("voting_tree_learner", "voting")])
+def test_tree_learner_aliases_match_the_jax_package(alias, want):
+    cfg = Config.from_params({"tree_learner": alias})
+    assert cfg.tree_learner == want
+    assert cfg.is_parallel == (want != "serial")
+    pytest.importorskip("jax")
+    from lightgbm_tpu.config import Config as JConfig
+    assert JConfig.from_params({"tree_learner": alias}).tree_learner == want
+
+
+def test_tree_learner_errors_match_the_jax_package():
+    with pytest.raises(LightGBMError, match="Unknown tree learner"):
+        Config.from_params({"tree_learner": "gpu"})
+    with pytest.raises(LightGBMError, match="monotone constraints"):
+        Config.from_params({"tree_learner": "data",
+                            "monotone_constraints": [1, 0]})
+    with pytest.raises(LightGBMError, match="monotone constraints"):
+        Config.from_params({"num_machines": 2,
+                            "monotone_constraints": [1]})
+
+
+@pytest.mark.parametrize("name", sorted(
+    f.name for f in FIELDS if f.name.startswith(("tpu_fleet", "tpu_ingest"))))
+def test_fleet_and_ingest_fields_name_item_7(name):
+    assert pconfig.refused_item(name) == \
+        "the rest of queue 1: parallel and fleet planes"

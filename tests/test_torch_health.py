@@ -4,8 +4,9 @@ with the same attribution (phase, iteration, objective, first bad row and
 class, node and feature), monitor mode streams events the JAX package's
 ``obs/report.py`` validates and summarizes, fingerprints follow
 ``tpu_fingerprint_freq``, and off is a boolean check.  The multi-rank
-divergence audit waits for ROADMAP.md item 7; its single-process no-op
-and the simulated gather are here.  The messages are compared with the
+divergence audit gathers through ``parallel/distributed.py
+rank_allgather_stats``; its single-process no-op and the simulated gather
+are here.  The messages are compared with the
 JAX package's, character for character."""
 import numpy as np
 import pytest

@@ -69,3 +69,27 @@ def test_exports_match_the_jax_package():
                 "obs.trace", "obs.spans", "obs.memory", "obs.profile",
                 "obs.health", "obs.drift", "serve.quality"):
         assert importlib.util.find_spec("lightgbm_tpu_torch." + mod), mod
+
+
+def test_the_parallel_and_store_modules_are_walked():
+    """The modules of the parallel learners and the serving store are in
+    the no-jax walk above and import no distributed backend at import."""
+    import lightgbm_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        lightgbm_tpu_torch.__path__, "lightgbm_tpu_torch.")}
+    assert {"lightgbm_tpu_torch.parallel",
+            "lightgbm_tpu_torch.parallel.distributed",
+            "lightgbm_tpu_torch.parallel.mesh",
+            "lightgbm_tpu_torch.parallel.rank_shard",
+            "lightgbm_tpu_torch.serve.aot",
+            "lightgbm_tpu_torch.utils.compile_cache"} <= names
+    # the multi-rank worker (a script of tools/, outside the walk) too
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.modules['jax'] = None; sys.path.insert(0, %r); "
+         "import lightgbm_tpu_torch.parallel, lightgbm_tpu_torch.serve.aot;"
+         " import lightgbm_tpu_torch.tools.dist_check;"
+         " import torch.distributed as d; print(d.is_initialized())"
+         % str(ROOT)], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("False")

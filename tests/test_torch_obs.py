@@ -8,8 +8,9 @@ it streams the JAX package's ``dataset``, ``train_start``,
 ``iteration``, ``kernel_profile`` and ``summary`` events, which the JAX
 package's ``obs/report.py`` and ``tools/telemetry_report.py`` summarize.
 Profile mode records each K1 launch against the port's own bound
-(``ops/hist_wave.py hist_wave_cost``).  The shard_map psum accounting
-waits for ROADMAP.md item 7.  The memory census reads the CUDA caching
+(``ops/hist_wave.py hist_wave_cost``).  The collectives of the learners
+across ranks are counted once a call (``parallel/mesh.py``), under the
+JAX package's counter names.  The memory census reads the CUDA caching
 allocator, so on the CPU it records nothing (its card case is marked
 ``cuda``)."""
 import importlib

@@ -21,8 +21,8 @@ packages load the same model text and refit it on the same new rows:
   unused features stay out of the continue dataset.
 
 The JAX package's 2-device mesh case (``test_device_refit_matches_host_
-mesh_2dev``) waits for the data-parallel learner (ROADMAP.md item 7).
-The card-only cases (marked ``cuda``) hold the refit on the card against
+mesh_2dev``) has its twin in two gloo ranks of the data-parallel learner
+(``test_device_refit_matches_host_two_ranks``).  The card-only cases (marked ``cuda``) hold the refit on the card against
 the host oracle and against itself, byte for byte."""
 import importlib
 
@@ -345,3 +345,45 @@ def test_device_refit_on_card_repeatable_and_matches_host():
     cpu = lt.Booster(model_str=bst.model_to_string(), device="cpu").refit(
         Xn, yn, decay_rate=0.9)
     assert _worst(cpu, a) <= REFIT_ATOL
+
+
+def test_device_refit_matches_host_two_ranks(tmp_path, jlgb):
+    """Twin of tests/test_online.py::test_device_refit_matches_host_mesh_
+    2dev: a data-sharded trainer (two gloo ranks, ``tree_learner=data``)
+    refits on the device and with the host oracle; per leaf within 1e-6,
+    both ranks the same model, and the JAX package's host refit of that
+    model within 1e-6 too."""
+    import json
+
+    from lightgbm_tpu_torch.tools.dist_check import launch
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(1024, 6))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.2 * rng.normal(size=1024) > 0)
+    Xn = np.random.default_rng(10).normal(size=(512, 6))
+    yn = (Xn[:, 0] + Xn[:, 1] * Xn[:, 2] > 0).astype(np.float64)
+    np.savez(tmp_path / "rows.npz", X=X, y=y.astype(np.float64))
+    np.savez(tmp_path / "new.npz", X=Xn, y=yn)
+    spec = {"device": "cpu", "refit": {
+        "params": dict(PARAMS, tree_learner="data"), "rounds": 5,
+        "data_train": str(tmp_path / "rows.npz"),
+        "data": str(tmp_path / "new.npz"), "decay": 0.6}}
+    with open(tmp_path / "spec.json", "w") as fh:
+        json.dump(spec, fh)
+    res = launch(str(tmp_path / "spec.json"), 2, str(tmp_path), timeout=300)
+    for r in res:
+        assert r["refit"]["trees"] == 5
+        assert r["refit"]["leaf_parity"] <= REFIT_ATOL
+    assert res[0]["refit"]["model"] == res[1]["refit"]["model"]
+    # the JAX package refits the base model the ranks trained (its model
+    # text equals the refit's tree structure) on the same rows
+    got = lt.Booster(model_str=res[0]["refit"]["model"], device="cpu")
+    p = dict(PARAMS, tree_learner="data")
+    base = lt.train(p, lt.Dataset(X, label=y.astype(np.float64), params=p),
+                    5, device="cpu")
+    want = jlgb.Booster(model_str=base.model_to_string()).refit(
+        Xn, yn, decay_rate=0.6, tpu_refit_device=False)
+    for a, b in zip(got._gbdt.models, want._gbdt.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature[
+            :len(a.split_feature)])
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                                   atol=REFIT_ATOL)

@@ -214,3 +214,56 @@ def test_ndcg_on_card_matches_host_loop():
     host = m.eval_host(score.astype(np.float64))
     np.testing.assert_allclose([d[1] for d in dev], [h[1] for h in host],
                                rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# query-aligned shards of the data-parallel learner (parallel/rank_shard.py)
+# ---------------------------------------------------------------------------
+
+def test_query_shard_plan_equals_reference():
+    """``plan_query_shards`` against the JAX package's at D = 2, 3, 4, 8:
+    the same cuts on query boundaries, shard rows and gather map."""
+    pytest.importorskip("jax")
+    from lightgbm_tpu.parallel.rank_shard import plan_query_shards as jplan
+
+    from lightgbm_tpu_torch.parallel.rank_shard import plan_query_shards
+    bounds, _, _ = _queries()
+    N = int(bounds[-1])
+    for D in (2, 3, 4, 8):
+        got, want = plan_query_shards(bounds, D), jplan(bounds, D)
+        np.testing.assert_array_equal(got.query_cuts, want.query_cuts)
+        np.testing.assert_array_equal(got.row_cuts, want.row_cuts)
+        assert got.S == want.S
+        np.testing.assert_array_equal(got.gather, want.gather)
+        assert set(got.row_cuts.tolist()) <= set(bounds.tolist())
+        assert (got.gather < N).sum() == N
+
+
+def test_query_sharded_grads_at_two_ranks(tmp_path):
+    """The twin of tests/test_rank_device.py's 2-device differential: two
+    gloo ranks each run the pair pass on their whole queries, and the
+    gathered g/h equal the single pass's bit for bit on both ranks; the
+    plan is the JAX package's."""
+    import json
+
+    from lightgbm_tpu_torch.tools.dist_check import launch
+    bounds, label, _ = _queries()
+    n = int(bounds[-1])
+    X = np.random.default_rng(2).normal(size=(n, 3))
+    np.savez(tmp_path / "rank.npz", X=X, y=label,
+             group=np.diff(bounds).astype(np.int64))
+    spec = {"device": "cpu", "rank_grads": {
+        "data": str(tmp_path / "rank.npz"),
+        "params": {"objective": "lambdarank", "verbose": -1,
+                   "min_data_in_leaf": 1}}}
+    with open(tmp_path / "spec.json", "w") as fh:
+        json.dump(spec, fh)
+    res = launch(str(tmp_path / "spec.json"), 2, str(tmp_path), timeout=300)
+    for r in res:
+        assert r["rank_grads"]["equal"], r["rank_grads"]
+    assert res[0]["rank_grads"] == res[1]["rank_grads"]
+    pytest.importorskip("jax")
+    from lightgbm_tpu.parallel.rank_shard import plan_query_shards as jplan
+    want = jplan(bounds, 2)
+    assert res[0]["rank_grads"]["row_cuts"] == want.row_cuts.tolist()
+    assert res[0]["rank_grads"]["S"] == want.S

@@ -133,24 +133,65 @@ def test_convert_round_trips(trained):
 
 
 @pytest.mark.parametrize("params", [
-    {"tpu_mesh_shape": "data:2"},
-    {"tree_learner": "feature"},
     # the trace and telemetry planes run; the profiler window and the
     # train board do not
-    {"tpu_xprof": True}, {"tree_learner": "data"},
-    {"num_machines": 2}, {"tpu_train_metrics_port": 8080},
-    {"tpu_serve_aot_dir": "aot"},   # serving runs; its AOT store does not
-    {"tree_learner": "voting"},
+    {"tpu_xprof": True}, {"tpu_xprof_iters": 9},
+    {"tpu_train_metrics_port": 8080},
     # the online knobs train since online/ was ported
-    # (test_torch_online_loop.py test_online_knobs_train); still-refused
-    # families take their slots
-    {"tree_learner": "data_parallel"}, {"tpu_fleet": 2},
-    {"tpu_ingest": True}, {"tree_learner": "voting_parallel"}])
+    # (test_torch_online_loop.py test_online_knobs_train), the parallel
+    # learners and the serving store since parallel/ and serve/aot.py
+    # were (test_parallel_knobs_train_at_world_one); the ingest and fleet
+    # families of item 7 take their slots
+    {"tpu_fleet": 2}, {"tpu_fleet_dir": "fleet"},
+    {"tpu_fleet_heartbeat_s": 5.0}, {"tpu_fleet_transport": "tcp"},
+    {"tpu_ingest": True}, {"tpu_ingest_chunk_rows": 1000},
+    {"tpu_ingest_memmap": "mm"}, {"tpu_ingest_shards": 2},
+    {"tpu_fleet_min_ranks": 2}])
 def test_outside_the_slice_is_refused(params):
     X, y = _data(n=300)
     with pytest.raises(lt.LightGBMError, match="ROADMAP"):
         lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 1,
                  device="cpu")
+
+
+@pytest.mark.parametrize("params", [
+    {"tpu_mesh_shape": "data:2"}, {"tree_learner": "feature"},
+    {"tree_learner": "data"}, {"tree_learner": "voting"},
+    {"tree_learner": "data_parallel"}, {"tree_learner": "voting_parallel"},
+    {"tree_learner": "feature_parallel", "top_k": 3},
+    {"tpu_serve_aot_dir": "aot"}])
+def test_parallel_knobs_train_at_world_one(params):
+    """The parallel learners run in one process as a world of one rank
+    (the collectives as identities); the serving store's directory is a
+    serving knob, which training accepts.  One intra-op thread: the serial
+    grower's small ops crawl under a parallel run's oversubscribed
+    threads."""
+    import torch
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        X, y = _data(n=300)
+        bst = lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 2,
+                       device="cpu")
+    finally:
+        torch.set_num_threads(prev)
+    assert bst.num_trees() == 2
+    learner = bst._gbdt.config.tree_learner
+    assert learner in ("serial", "data", "feature", "voting")
+    if learner != "serial":
+        assert bst._gbdt._mesh.size == 1
+
+
+def test_num_machines_without_a_rank_is_fatal(monkeypatch):
+    """Two machines and nothing naming this process's rank: the trainer
+    cannot join a group (the JAX package would wait on cluster
+    auto-detection)."""
+    for var in ("RANK", "LGBM_TPU_RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    X, y = _data(n=300)
+    with pytest.raises(lt.LightGBMError, match="rank"):
+        lt.train({**PARAMS, "num_machines": 2, "tree_learner": "data"},
+                 lt.Dataset(X, label=y), 1, device="cpu")
 
 
 def test_no_cpu_fallback_for_cuda():
