@@ -143,7 +143,8 @@ after phase 8 on phase 4's Dataset, and after phase 9), labelled (a)-(f):
    densifying (host seconds, tracemalloc peak), 3 rounds on the grower the
    JAX package's rule picks, prediction from the CSR on the card (the
    used columns gathered; within 1e-6 of the host walk on 20,000 rows);
-(f) the CLI on LibSVM files: a 200,000-row MSLR-shaped file with ``qid:``
+(f) the CLI on LibSVM files, in this process (``app.main``; phase 9 runs
+   it as a subprocess): a 200,000-row MSLR-shaped file with ``qid:``
    through ``objective=lambdarank`` gives the same trees with and without
    ``two_round``; a binary file with ``.weight`` and ``.init`` sidecars
    and ``save_binary=true``; ``input_model`` continuation; training from
@@ -165,7 +166,7 @@ booster (TreeSHAP's multiclass case in phase 12):
    torch pass (``explain/``): the call and the pass by CUDA events, rows/s,
    P and L, the bound from ``ops/treeshap.py shap_cost`` (FP32 peak, the
    slots the pass runs), local accuracy within 1e-4, the f64 host
-   recursion within 1e-5 on 200 rows (all the main path's trees, the
+   recursion within 1e-5 on 100 rows (all the main path's trees, the
    multiclass model's first iteration) and on 50 (the multiclass model's
    last iteration);
 18. checkpoint and resume: a crash (an injected ``raise`` at the device
@@ -285,15 +286,46 @@ and ``{"parallel": ...}`` lines:
 31. the learners across ranks: two ranks
    (``lightgbm_tpu_torch/tools/dist_check.py``, one process each, both
    on ``cuda:0``, gloo through the host) on the headline 1M x 28 rows with
-   phase 4's parameters, 5 rounds, ``tree_learner=data`` in 2xbf16 and
-   int16 (K1 unfused on each rank's 500,000 rows), ``voting`` and
-   ``feature`` (K2 at C = 32): s/iter, the collectives' calls and bytes,
+   phase 4's parameters, ``tree_learner=data`` in 2xbf16 and int16 (K1
+   unfused on each rank's 500,000 rows; 5 rounds), ``voting`` and
+   ``feature`` (K2 at C = 32; 3 rounds since phases 32-33 joined the
+   script): s/iter, the collectives' calls and bytes,
    K1/K2 launches, each rank's digest (the ranks must agree; int16's
    trees must be phase 5's, legacy digest 614716ef924a0d6e; 2xbf16's
    equality with phase 4's is printed); world size 1 through the same
    code in this process; K1 unfused at one rank's rows (2xbf16, int16),
    its exact int16 sums, and K2 at one rank's 14-column block against
    their plain versions.
+
+The ingestion and fleet phases run after 31, once the headline rows are
+freed (lines ``ingest``, ``ingested``, ``fleet``, ``phase 32``, ``phase
+33``, then an ``{"ingest": ..., "fleet": ...}`` line):
+
+32. out-of-core ingestion at HIGGS's size: an 11,000,000 x 28
+   HIGGS-shaped ``.npy`` (``higgs_like``, seed 0; 2.46 GB of f64) and its
+   ``.y.npy`` sidecar streamed through ``ingest.open_source`` in 65,536-row
+   chunks into a memmap-backed bin matrix: each pass's seconds and rows/s,
+   the host peak (tracemalloc) against the raw matrix (under a quarter of
+   it); phase 4's parameters for 5 rounds on the card (K1 once a wave or
+   more, train AUC > 0.7); K1 at 11M rows against its plain version,
+   ``index_add_`` and its bound.  Guard 1: the first 1,000,000 rows with
+   ``bin_construct_sample_cnt`` at the row count, streamed, have
+   ``from_matrix``'s bins, mappers and labels and train its trees; guard 2:
+   ``task=train tpu_ingest=true`` on a 200,000 x 28 TSV (seed 2) trains the
+   trees of ``task=train``.  The files are deleted;
+33. the fleet on the one card, on that TSV with phase 4's parameters and
+   ``tpu_ingest=true``: (a) ``tpu_fleet=2`` over the host transport, 5
+   rounds: the elected model and each rank's copy have the
+   single-process CLI's trees, and no ``member_dead``, ``resize`` or
+   ``fleet_stall``; (b) 3 ranks, 6 rounds, a checkpoint every 2,
+   ``LGBM_TPU_FAULTS=fleet_die:raise@iter=3`` on rank 1: rank 1 exits
+   137, the fleet 0, ``member_dead`` and ``resize`` in the events, the
+   never-failed single-process model's trees; (c) ``tpu_fleet=2`` with
+   ``auto``, the device transport on the card (sharded ingest, the
+   data-parallel learner over ``torch.distributed``, both ranks on
+   ``cuda:0``) in int16: every rank's trees the single-process int16
+   model's.  Each rank's s/iter, start-up seconds and K1 launches (from
+   its ``rank<N>.stats.json``).
 
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
@@ -304,13 +336,15 @@ of its model text (equal digests, equal trees).  Prints a
 ``training_path_launches`` over the three training phases,
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
 and errors, K1's launches on the DART, RF, overlap, resume, estimator,
-observability, online-continue and data-parallel paths (per rank), K2's
+observability, online-continue, data-parallel, ingest and fleet paths
+(per rank), and at the ingested 11M rows, K2's
 on the serial grower under health and on the voting and feature paths
 (per rank)), a
 ``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
 bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
 ``shap_cost`` bound), the ``{"serving": ...}``, ``{"refit": ...}``,
-``{"aot": ...}`` and ``{"parallel": ...}`` lines, the card's name and
+``{"aot": ...}``, ``{"parallel": ...}`` and ``{"ingest": ...,
+"fleet": ...}`` lines, the card's name and
 power limit and, last, the
 device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
@@ -705,16 +739,19 @@ def small_reference(lt):
 
 
 def profile_iteration(bst, iter_ms, kind, card):
-    """One more boosting iteration under torch.profiler: where the
-    iteration's time goes on the card (the phase's counts are read before
-    this).  The profiler slows the host side many times over, so the idle
-    share is taken against ``iter_ms``, the median unprofiled iteration.
-    Returns (device busy ms, K1 ms, idle share)."""
+    """One more boosting iteration under torch.profiler, its CUDA activity
+    only: where the iteration's time goes on the card (the phase's counts
+    are read before this).  The profiler slows the host side many times
+    over, so the idle share is taken against ``iter_ms``, the median
+    unprofiled iteration.  The CPU activity is not recorded: it doubled
+    a profiled iteration's wall (33-41 s for the serial grower's against
+    18-20, NVIDIA H100 80GB HBM3 at 700 W) for no number this reads.  Returns (device busy ms, K1 ms,
+    idle share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         bst.update()
         torch.cuda.synchronize()
@@ -1385,7 +1422,7 @@ def multiclass_phase(lt, hw, hc, res, kind, card):
     if ran["predict"] != 1 or err > 1e-6 or prob.shape != (COVTYPE_ROWS, 7):
         raise AssertionError("multiclass device predict disagrees with the "
                              "host walk")
-    # the first iteration's trees on 200 rows, the last's (the deepest
+    # the first iteration's trees on 100 rows, the last's (the deepest
     # paths) on 50
     last = bst._gbdt.current_iteration()
     shap = treeshap_phase(bst, X, "multiclass", SHAP_MULTICLASS_ROWS,
@@ -1927,7 +1964,8 @@ def sparse_phase(lt, kind, card):
 
 
 def cli_more_phase(lt, kind, card, rows=200_000):
-    """(f) The CLI on LibSVM input: a 200,000-row MSLR-shaped file (``qid:``
+    """(f) The CLI on LibSVM input, in this process (``app.main``; phase 9
+    runs it as a subprocess): a 200,000-row MSLR-shaped file (``qid:``
     tokens, 136 features numbered from 1, grades 0-4) through
     ``task=train objective=lambdarank`` gives the same trees with
     ``two_round=true`` as with ``two_round=false``; a binary LibSVM file
@@ -1938,20 +1976,12 @@ def cli_more_phase(lt, kind, card, rows=200_000):
     X, y, sizes = mslr_like(rows)
     n = X.shape[0]
     qid = np.repeat(np.arange(len(sizes)), sizes)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     walls = {}
 
-    def cli(tag, d, *args):
+    def cli(tag, *args):
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
-                            "task=train", "verbosity=-1", *args], cwd=d,
-                           env=env, capture_output=True, text=True,
-                           timeout=600)
+        cli_train(["verbosity=-1", *args])
         walls[tag] = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise AssertionError(f"CLI {tag} exited {r.returncode}: "
-                                 f"{r.stderr[-2000:]}")
 
     def trees(path):
         with open(path) as fh:
@@ -1967,9 +1997,10 @@ def cli_more_phase(lt, kind, card, rows=200_000):
         common = ["num_trees=3", "num_leaves=255", "min_data_in_leaf=50",
                   "min_sum_hessian_in_leaf=5", "learning_rate=0.1"]
         for tr in ("false", "true"):
-            cli(f"lambdarank two_round={tr}", d, f"data={rank}",
+            cli(f"lambdarank two_round={tr}", f"data={rank}",
                 "objective=lambdarank", f"two_round={tr}",
-                f"output_model=rank_{tr}.txt", *common)
+                f"output_model={os.path.join(d, f'rank_{tr}.txt')}",
+                *common)
         same = trees(os.path.join(d, "rank_false.txt")) == trees(
             os.path.join(d, "rank_true.txt"))
         binary = os.path.join(d, "bin.svm")
@@ -1980,14 +2011,15 @@ def cli_more_phase(lt, kind, card, rows=200_000):
                    delimiter=" ")
         np.savetxt(binary + ".weight", rng.uniform(0.5, 2.0, n), fmt="%.6g")
         np.savetxt(binary + ".init", rng.normal(size=n) * 0.1, fmt="%.6g")
-        cli("binary + .weight + .init, save_binary", d, f"data={binary}",
-            "objective=binary", "save_binary=true", "output_model=b.txt",
+        cli("binary + .weight + .init, save_binary", f"data={binary}",
+            "objective=binary", "save_binary=true",
+            f"output_model={os.path.join(d, 'b.txt')}", *common)
+        cli("input_model continuation", f"data={binary}",
+            "objective=binary", f"input_model={os.path.join(d, 'b.txt')}",
+            f"output_model={os.path.join(d, 'c.txt')}", *common)
+        cli("from the binary dataset file", f"data={binary}.bin",
+            "objective=binary", f"output_model={os.path.join(d, 'b2.txt')}",
             *common)
-        cli("input_model continuation", d, f"data={binary}",
-            "objective=binary", "input_model=b.txt", "output_model=c.txt",
-            *common)
-        cli("from the binary dataset file", d, f"data={binary}.bin",
-            "objective=binary", "output_model=b2.txt", *common)
         with open(os.path.join(d, "c.txt")) as fh:
             n_cont = fh.read().count("\nTree=")
         same_bin = trees(os.path.join(d, "b.txt")) == trees(
@@ -2011,7 +2043,7 @@ SCRATCH = os.path.join(HERE, "build", "chip_smoke")
 DART = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.0,
         "drop_seed": 37}
 SHAP_ROWS = 100_000              # rows of the TreeSHAP pass on the card
-SHAP_ORACLE_ROWS = 200           # rows held against the f64 recursion
+SHAP_ORACLE_ROWS = 100           # rows held against the f64 recursion
 # 20x fewer rows for the multiclass model: 7x the trees and paths ~3x as
 # deep (P 29 against 11) as the main path's, so ~20x the work a row
 SHAP_MULTICLASS_ROWS = 5_000
@@ -3802,6 +3834,9 @@ def aot_phase(lt, model, kind, card):
 
 
 PARALLEL_ROUNDS = 5
+# the voting and feature legs (3.4-3.7 and 1.9-2.1 s an iteration on one
+# card) run 3 rounds: the script's time limit, since phases 32-33
+PARALLEL_ROUNDS_SERIAL_GROWER = 3
 
 
 def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
@@ -3810,8 +3845,8 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
     (``lightgbm_tpu_torch/tools/dist_check.py``, one process each, both on
     ``cuda:0``, so the collectives take gloo with an explicit host copy)
     on the headline 1,000,000 x 28 rows with phase 4's parameters, 5
-    rounds, for ``tree_learner=data`` in 2xbf16 and int16 (K1, unfused),
-    ``voting`` and ``feature`` (K2 at C=32).  Both ranks must write the
+    rounds for ``tree_learner=data`` in 2xbf16 and int16 (K1, unfused),
+    3 for ``voting`` and ``feature`` (K2 at C=32).  Both ranks must write the
     same model; the int16 trees must be phase 5's (legacy digest
     614716ef924a0d6e under phase 5's parameter block); 2xbf16's equality
     with phase 4's is reported.  Then world size 1 through the same code
@@ -3831,7 +3866,9 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
              "voting": dict(params, tree_learner="voting"),
              "feature": dict(params, tree_learner="feature")}
     spec = {"data": os.path.join(d, "rows.npz"), "device": DEV,
-            "modes": [{"name": n, "params": p, "rounds": PARALLEL_ROUNDS}
+            "modes": [{"name": n, "params": p,
+                       "rounds": (PARALLEL_ROUNDS if n.startswith("data")
+                                  else PARALLEL_ROUNDS_SERIAL_GROWER)}
                       for n, p in modes.items()]}
     with open(os.path.join(d, "spec.json"), "w") as fh:
         json.dump(spec, fh)
@@ -3932,6 +3969,318 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
     print(f"phase 31: {secs:.1f} s (two ranks {two_s:.1f} s) "
           f"[{kind}, {card}]", flush=True)
     return rec, launches
+
+
+# ---- out-of-core ingestion (32), the elastic fleet (33) -------------------
+HIGGS_ROWS = 11_000_000          # the HIGGS data set's rows
+INGEST_CHUNK_ROWS = 65_536
+INGEST_GUARD_ROWS = 1_000_000    # guard 1: the in-memory oracle's rows
+FLEET_ROWS = 200_000             # the CLI guard's and the fleet's TSV
+# a fleet gather's deadline runs from its first arrival: ranks that start
+# CUDA side by side arrive seconds apart, well inside it
+FLEET_HEARTBEAT_S = 60
+
+
+class TimedWalks:
+    """A chunk source whose every walk is timed: ingestion walks it twice
+    (pass 1 samples, pass 2 bins)."""
+
+    def __init__(self, src):
+        self.src = src
+        self.walks = []
+
+    def __getattr__(self, name):
+        return getattr(self.src, name)
+
+    def __iter__(self):
+        t0 = time.perf_counter()
+        yield from self.src
+        self.walks.append(time.perf_counter() - t0)
+
+
+def trees_of_file(path) -> str:
+    with open(path) as fh:
+        return fh.read().split("\nparameters:")[0]
+
+
+def cli_train(args):
+    """``python -m lightgbm_tpu_torch task=train`` in this process (the
+    card's context is up already); the log level is kept."""
+    from lightgbm_tpu_torch import app
+    from lightgbm_tpu_torch.utils import log
+    level = log.verbosity()
+    try:
+        app.main(["task=train", *args])
+    finally:
+        log.set_verbosity(level)
+
+
+def ingest_phase(lt, hw, hc, params, res, kind, card):
+    """(32) Out-of-core ingestion at HIGGS's size: an 11,000,000 x 28
+    HIGGS-shaped ``.npy`` (``higgs_like``, seed 0; 2.46 GB of f64) with a
+    ``.y.npy`` sidecar, streamed through ``ingest.open_source`` in
+    65,536-row chunks into a memmap-backed bin matrix, then phase 4's
+    parameters for 5 rounds on the card.  Prints each pass's seconds and
+    rows/s, the ingest's host peak (tracemalloc) against the raw matrix,
+    s/iter and K1 at 11M rows against its plain version, ``index_add_`` and
+    its bound; train AUC > 0.7.  Guard 1: on the first 1,000,000 rows with
+    ``bin_construct_sample_cnt`` at the row count, the streamed dataset
+    (bins, mappers, labels) and its trees equal ``from_matrix``'s.  Guard
+    2: ``task=train tpu_ingest=true`` on a 200,000 x 28 TSV (seed 2) gives
+    the trees of ``task=train``; its model is phase 33's oracle.  Returns
+    (record, K1 counts of the 11M training, the TSV, that model)."""
+    import tracemalloc
+
+    import torch
+    from lightgbm_tpu_torch import ingest
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+    t_phase = time.perf_counter()
+    d = os.path.join(SCRATCH, "ingest")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "higgs.npy")
+    t0 = time.perf_counter()
+    X, y = higgs_like(HIGGS_ROWS)
+    raw_bytes = X.nbytes
+    np.save(path, X)
+    np.save(os.path.join(d, "higgs.y.npy"), y)
+    del X, y
+    write_s = time.perf_counter() - t0
+    p = dict(params, tpu_ingest_chunk_rows=INGEST_CHUNK_ROWS,
+             tpu_ingest_memmap=os.path.join(d, "bins.npy"))
+    from lightgbm_tpu_torch.config import Config
+    src = TimedWalks(ingest.open_source(
+        path, Config.from_params(p),
+        chunk_rows=ingest.chunk_rows_from_config(Config.from_params(p))))
+    tracemalloc.start()
+    base = tracemalloc.get_traced_memory()[0]
+    t0 = time.perf_counter()
+    ds = ingest.dataset_from_stream(src, p)
+    ingest_s = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1] - base
+    tracemalloc.stop()
+    h = ds._handle
+    rec = {"rows": HIGGS_ROWS, "write_s": round(write_s, 1),
+           "ingest_s": round(ingest_s, 2),
+           "pass_s": [round(w, 2) for w in src.walks],
+           "bin_finding_s": round(ingest_s - sum(src.walks), 2),
+           "rows_per_s": [round(HIGGS_ROWS / w) for w in src.walks],
+           "host_peak_bytes": int(peak), "raw_bytes": int(raw_bytes),
+           "bin_bytes": int(h.X_bin.nbytes),
+           "memmap": isinstance(h.X_bin, np.memmap)}
+    print(f"ingest {HIGGS_ROWS:,} x 28 .npy ({raw_bytes / 1e9:.2f} GB f64, "
+          f"written in {write_s:.1f} s): {ingest_s:.2f} s; pass 1 "
+          f"{rec['pass_s'][0]} s ({rec['rows_per_s'][0]:,} rows/s), pass 2 "
+          f"{rec['pass_s'][1]} s ({rec['rows_per_s'][1]:,} rows/s), bin "
+          f"finding on the sample {rec['bin_finding_s']} s; host "
+          f"peak {peak / 1e6:.1f} MB (tracemalloc) against the raw "
+          f"matrix's {raw_bytes / 1e9:.2f} GB; bins {h.X_bin.dtype} "
+          f"{h.X_bin.shape} memmap-backed {rec['memmap']} [{kind}, {card}]",
+          flush=True)
+    if not rec["memmap"] or len(src.walks) != 2 or peak >= raw_bytes / 4:
+        raise AssertionError(f"ingest: not out of core: {rec}")
+    bst, counts, curves, iter_ms = train_phase(
+        lt, hw, hc, f"ingested {HIGGS_ROWS:,} rows", params, ds, kind, card)
+    auc = curves["auc"][-1]
+    rec.update(s_per_iter=round(iter_ms / 1e3, 4), auc=auc,
+               k1_launches=counts["k1"])
+    del bst, ds, h
+    torch.cuda.empty_cache()
+    if auc <= 0.7:
+        raise AssertionError(f"ingested rows: train AUC {auc} <= 0.7")
+    n0 = hw.hist_wave.launches
+    tag, res["k1_11m"] = check_kernel(hw, HIGGS_ROWS, 28, 256, 63, True,
+                                      "2xbf16", 320)
+    res["k1_11m"].update(tag=tag + " (the ingested rows)",
+                         check_launches=hw.hist_wave.launches - n0)
+    print_check(res["k1_11m"], kind, card)
+    torch.cuda.empty_cache()
+
+    # guard 1: the first 1M rows, streamed and in memory
+    G = INGEST_GUARD_ROWS
+    mm = np.load(path, mmap_mode="r")
+    yg = np.load(os.path.join(d, "higgs.y.npy"))[:G]
+    pg = dict(params, bin_construct_sample_cnt=G)
+    streamed = ingest.dataset_from_stream(ingest.ArraySource(
+        mm[:G], label=yg, chunk_rows=INGEST_CHUNK_ROWS), pg)
+    mem = lt.Dataset(np.asarray(mm[:G]), label=yg, params=pg).construct()
+    a, b = streamed._handle, mem._handle
+    same_ds = (np.array_equal(a.X_bin, b.X_bin)
+               and [m.to_dict() for m in a.bin_mappers]
+               == [m.to_dict() for m in b.bin_mappers]
+               and np.array_equal(a.metadata.label, b.metadata.label))
+    trees = [trees_digest(lt.train(pg, x, 5, device=DEV))
+             for x in (streamed, mem)]
+    del mm, streamed, mem, a, b
+    rec["guard_1"] = {"dataset_equal": bool(same_ds), "trees": trees}
+    print(f"ingest guard 1 ({G:,} rows, sample of every row): streamed "
+          f"dataset equal to from_matrix's {same_ds}, trees digests "
+          f"{trees} [{kind}, {card}]", flush=True)
+    if not same_ds or trees[0] != trees[1]:
+        raise AssertionError("ingest guard 1: the streamed dataset differs "
+                             "from the in-memory one")
+    for f in os.listdir(d):
+        os.remove(os.path.join(d, f))
+
+    # guard 2: the CLI with and without tpu_ingest on a TSV
+    fd = os.path.join(SCRATCH, "fleet")
+    os.makedirs(fd, exist_ok=True)
+    tsv = os.path.join(fd, "higgs.tsv")
+    X, y = higgs_like(FLEET_ROWS, seed=2)
+    np.savetxt(tsv, np.column_stack([y, X]), delimiter="\t", fmt="%.9g")
+    del X, y
+    common = cli_args(tsv)
+    out = {}
+    for flag in ("false", "true"):
+        out[flag] = os.path.join(fd, f"cli_ingest_{flag}.txt")
+        cli_train([*common, f"tpu_ingest={flag}",
+                   f"output_model={out[flag]}"])
+    same_cli = trees_of_file(out["false"]) == trees_of_file(out["true"])
+    rec["guard_2"] = same_cli
+    print(f"ingest guard 2: task=train tpu_ingest=true on a {FLEET_ROWS:,}"
+          f" x 28 TSV gives the trees of task=train {same_cli} "
+          f"[{kind}, {card}]", flush=True)
+    if not same_cli:
+        raise AssertionError("ingest guard 2: tpu_ingest changed the trees")
+    rec["phase_32_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"phase 32: {rec['phase_32_s']} s [{kind}, {card}]", flush=True)
+    return rec, counts, tsv, out["true"]
+
+
+def cli_args(tsv, rounds=5):
+    """Phase 4's parameters as CLI pairs, on ``tsv``."""
+    return [f"data={tsv}", "objective=binary", f"num_iterations={rounds}",
+            "num_leaves=255", "max_bin=255", "min_data_in_leaf=100",
+            "learning_rate=0.1", "verbosity=-1"]
+
+
+def fleet_leg(name, params, fleet_dir, world, per_rank_env=None):
+    """One gang launch from this process; returns (launch result, seconds,
+    events, per-rank stats).  Fails with every rank's log tail."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.fleet.launch import launch_fleet
+    t0 = time.perf_counter()
+    res = launch_fleet(Config.from_params(params), params,
+                       per_rank_env=per_rank_env)
+    secs = time.perf_counter() - t0
+    ev_path = os.path.join(fleet_dir, "fleet_events.jsonl")
+    events = ([json.loads(line) for line in open(ev_path)]
+              if os.path.exists(ev_path) else [])
+    stats = {}
+    for mid in range(world + res["heals"]):
+        sp = os.path.join(fleet_dir, f"rank{mid}.stats.json")
+        if os.path.exists(sp):
+            with open(sp) as fh:
+                stats[mid] = json.load(fh)
+
+    def fail(msg):
+        tails = []
+        for mid in range(world + res["heals"]):
+            lp = os.path.join(fleet_dir, f"rank{mid}.log")
+            if os.path.exists(lp):
+                with open(lp, errors="replace") as fh:
+                    tails.append(f"--- rank {mid}\n{fh.read()[-3000:]}")
+        raise AssertionError(f"fleet {name}: {msg} ({res})\n"
+                             + "\n".join(tails))
+    return res, secs, events, stats, fail
+
+
+def fleet_train_phase(lt, tsv, oracle, kind, card):
+    """(33) The fleet on one H100, on phase 32's 200,000 x 28 TSV with
+    phase 4's parameters and ``tpu_ingest=true``: (a) ``tpu_fleet=2`` over
+    the host transport, 5 rounds: the elected model and each ``.rank{r}``
+    copy have the single-process CLI's trees; no ``member_dead``,
+    ``resize`` or ``fleet_stall``; (b) the kill leg: 3 ranks, 6 rounds, a
+    checkpoint every 2, ``fleet_die`` at iteration 3 on rank 1: rank 1
+    exits 137, the fleet 0, the events hold ``member_dead`` and
+    ``resize``, the trees are the never-failed single-process model's; (c)
+    ``tpu_fleet=2`` with ``auto`` (the device transport here: sharded
+    ingest, the data-parallel learner over ``torch.distributed``, both
+    ranks on ``cuda:0``) in int16: the ranks' trees equal each other's
+    and the single-process int16 CLI model's.  Prints each rank's s/iter,
+    start-up seconds and K1 launches.  Returns the record."""
+    t_phase = time.perf_counter()
+    d = os.path.dirname(tsv)
+    base = {"task": "train", "data": tsv, "objective": "binary",
+            "num_iterations": "5", "num_leaves": "255", "max_bin": "255",
+            "min_data_in_leaf": "100", "learning_rate": "0.1",
+            "tpu_ingest": "true", "verbosity": "-1"}
+    rec = {}
+    legs = (
+        ("host_2", 2, dict(base, tpu_fleet="2", tpu_fleet_transport="host"),
+         None, oracle),
+        ("host_3_kill", 3, dict(base, tpu_fleet="3", num_iterations="6",
+                                tpu_checkpoint_freq="2",
+                                tpu_fleet_transport="host"),
+         {1: {"LGBM_TPU_FAULTS": "fleet_die:raise@iter=3"}}, None),
+        ("auto_2_int16", 2, dict(base, tpu_fleet="2",
+                                 tpu_fleet_transport="auto",
+                                 tpu_hist_dtype="int16"), None, None))
+    for name, world, params, env, want in legs:
+        fd = os.path.join(d, name)
+        params = dict(params, tpu_fleet_dir=fd,
+                      tpu_fleet_heartbeat_s=str(FLEET_HEARTBEAT_S),
+                      output_model=os.path.join(d, f"{name}.txt"))
+        if want is None:
+            # the single-process oracle: the same pairs, no fleet
+            want = os.path.join(d, f"{name}_oracle.txt")
+            cli_train([f"{k}={v}" for k, v in params.items()
+                       if k != "task" and not k.startswith("tpu_fleet")
+                       and k != "output_model"]
+                      + [f"output_model={want}"])
+        res, secs, events, stats, fail = fleet_leg(name, params, fd, world,
+                                                   env)
+        names = [e["name"] for e in events]
+        ranks = sorted(stats)
+        row = {"s": round(secs, 1), "rcs": res["rcs"], "heals": res["heals"],
+               "events": names,
+               "s_per_iter": {m: round(float(np.median(
+                   stats[m]["iter_s"][1:] or [0])), 4) for m in ranks},
+               "startup_s": {m: round(stats[m]["startup_s"], 2)
+                             for m in ranks},
+               "ingest_s": {m: round(stats[m]["ingest_s"], 2)
+                            for m in ranks},
+               "k1": {m: stats[m]["k1_launches"] for m in ranks},
+               "transport": sorted({stats[m]["transport"] for m in ranks})}
+        if not res["ok"]:
+            fail("the fleet did not finish")
+        want_trees = trees_of_file(want)
+        copies = [params["output_model"]] + [
+            f"{params['output_model']}.rank{m}" for m in ranks]
+        same = [trees_of_file(c) == want_trees for c in copies]
+        row["trees_equal_single_process"] = same
+        rec[name] = row
+        print(f"fleet {name}: {secs:.1f} s, rcs {res['rcs']}, heals "
+              f"{res['heals']}, transport {row['transport']}, events "
+              f"{names}; per rank s/iter {row['s_per_iter']}, start-up s "
+              f"{row['startup_s']}, ingest s {row['ingest_s']}, K1 launches "
+              f"{row['k1']}; the elected model and each rank's copy have "
+              f"the single-process trees {same} [{kind}, {card}]",
+              flush=True)
+        if not all(same):
+            fail("the trees differ from the single-process model's")
+        if min(row["k1"].values()) == 0:
+            fail("a rank launched no K1")
+        if name == "host_2" and (
+                res["rcs"] != {0: 0, 1: 0} or set(names) & {
+                    "member_dead", "resize", "fleet_stall"}):
+            fail("the healthy fleet lost a rank or stalled")
+        if name == "host_3_kill" and not (
+                res["rcs"][1] == 137 and res["rc"] == 0
+                and "member_dead" in names and "resize" in names):
+            fail("the kill leg did not recover as it should")
+        if name == "auto_2_int16" and row["transport"] != ["device"]:
+            fail("auto did not take the device transport on the card")
+        if "fleet_stall" in names:
+            print(f"fleet {name}: fleet_stall events "
+                  f"{[e for e in events if e['name'] == 'fleet_stall']}",
+                  flush=True)
+    for f in os.listdir(d):
+        path = os.path.join(d, f)
+        if os.path.isfile(path):
+            os.remove(path)
+    rec["phase_33_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"phase 33: {rec['phase_33_s']} s [{kind}, {card}]", flush=True)
+    return rec
 
 
 def main() -> int:
@@ -4129,6 +4478,11 @@ def main() -> int:
         card)
     del X, y, ds
 
+    # ---- 32. out-of-core ingestion at HIGGS's size; 33. the fleet --------
+    ingest_rec, counts_ingest, fleet_tsv, fleet_oracle = ingest_phase(
+        lt, hw, hc, params, res, kind, card)
+    fleet_rec = fleet_train_phase(lt, fleet_tsv, fleet_oracle, kind, card)
+
     # ---- 9. CLI; (e) sparse input; (f) the CLI on LibSVM -----------------
     cli_model = cli_phase(lt, kind, card)
     sparse_phase(lt, kind, card)
@@ -4225,7 +4579,11 @@ def main() -> int:
               online_continue_path_launches=k1_continue,
               data_parallel_path_launches=parallel["modes"][
                   "data_2xbf16"]["k1"],
-              data_parallel_unfused=skewed("k1_dp")["k1_dp"]),
+              data_parallel_unfused=skewed("k1_dp")["k1_dp"],
+              ingest_path_launches=counts_ingest["k1_packed"],
+              ingested_11m_rows=skewed("k1_11m")["k1_11m"],
+              fleet_host_path_launches=fleet_rec["host_2"]["k1"],
+              fleet_kill_path_launches=fleet_rec["host_3_kill"]["k1"]),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
@@ -4234,7 +4592,8 @@ def main() -> int:
               skewed=skewed("k1_int16_skew", "k1_int16_skew_one_slot"),
               data_parallel_path_launches=parallel["modes"][
                   "data_int16"]["k1"],
-              data_parallel_unfused=skewed("k1_dp_int16")["k1_dp_int16"]),
+              data_parallel_unfused=skewed("k1_dp_int16")["k1_dp_int16"],
+              fleet_device_path_launches=fleet_rec["auto_2_int16"]["k1"]),
         entry("hist_wave triple (K1 c)", "k1_triple", k1_src, k1_at,
               counts_triple["k1_triple"], ["k1_triple", "k1_triple_unfused",
                                            "k1_triple_int16_unfused",
@@ -4285,6 +4644,7 @@ def main() -> int:
     print(json.dumps({"refit": refit}), flush=True)
     print(json.dumps({"aot": aot}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"ingest": ingest_rec, "fleet": fleet_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

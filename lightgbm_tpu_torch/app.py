@@ -17,6 +17,10 @@ its leaves to the rows of ``data``; ``task=convert_model`` writes
 come from ``initscore_filename`` (``valid_data_initscores`` for the valid
 sets) or a ``<data>.init`` file;
 ``two_round=true`` bins the data while streaming the file;
+``tpu_ingest=true`` loads every data file through the chunked readers of
+``ingest/`` (CSV/TSV, LibSVM, ``.npy``/``.npz``), a shard's rows only
+under ``tpu_ingest_shards``; ``tpu_fleet=N`` makes ``task=train`` the gang
+launcher of an N-rank elastic fleet (``fleet/``);
 ``save_binary=true`` writes the training set's binned dataset to
 ``<data>.bin``, and a data file that is such a file loads without parsing
 or binning.
@@ -60,7 +64,17 @@ def _dataset_from_file(path: str, cfg: Config, params: Dict,
                        reference=None, initscore_path: str = "") -> Dataset:
     """A data file as a Dataset (reference package: app.py
     ``_dataset_from_file``): a binned dataset file as it is, else the text
-    loaded in memory or, with ``two_round``, binned while streaming."""
+    loaded in memory or, with ``two_round``, binned while streaming, or,
+    with ``tpu_ingest``, streamed through ``ingest/``."""
+    if cfg.tpu_ingest and not is_dataset_file(path):
+        from .io.text_loader import _ParseError
+        try:
+            return _dataset_ingest(path, cfg, params, reference,
+                                   initscore_path)
+        except _ParseError as exc:
+            log.warning("tpu_ingest streaming needs the strict native "
+                        "parser for text input (%s); loading in memory",
+                        exc)
     if is_dataset_file(path):
         log.info("Loading the binned dataset %s", path)
         ds = Dataset(path, params=dict(params), reference=reference)
@@ -81,6 +95,37 @@ def _dataset_from_file(path: str, cfg: Config, params: Dict,
                      reference=reference)
     init_score = load_init_scores(path, initscore_path)
     if init_score is not None:
+        ds.set_init_score(init_score)
+    return ds
+
+
+def _dataset_ingest(path: str, cfg: Config, params: Dict,
+                    reference=None, initscore_path: str = "") -> Dataset:
+    """``tpu_ingest=true`` loading (reference package: app.py
+    ``_dataset_ingest``): the two-pass streaming ingestion of
+    ``ingest/stream.py``, whose shard plan keeps this process's rows; a
+    whole-stream init-score file is cut to them, class by class."""
+    from .ingest.stream import ingest_file
+
+    ref = reference.construct()._handle if reference is not None else None
+    handle, label, weight, group, names = ingest_file(
+        path, cfg, categorical_features=parse_categorical_spec(
+            cfg.categorical_feature), reference=ref)
+    ds = Dataset(None, params=dict(params), feature_name=names,
+                 reference=reference)
+    ds._handle = handle
+    ds.label, ds.weight, ds.group = label, weight, group
+    init_score = load_init_scores(path, initscore_path)
+    if init_score is not None:
+        lo, hi = handle.ingest_row_range
+        n_global = handle.ingest_num_rows
+        if len(init_score) % n_global != 0:
+            log.fatal(f"init score length {len(init_score)} is not a "
+                      f"multiple of the data rows ({n_global})")
+        if handle.num_data != n_global:
+            k = len(init_score) // n_global
+            init_score = np.ascontiguousarray(
+                init_score.reshape(k, n_global)[:, lo:hi]).ravel()
         ds.set_init_score(init_score)
     return ds
 
@@ -238,6 +283,13 @@ def main(argv=None) -> None:
     cfg = Config.from_params(params)
     task = cfg.task
     if task == "train":
+        # tpu_fleet=N: this process becomes the gang launcher of N
+        # ``python -m lightgbm_tpu_torch.fleet`` ranks and exits with the
+        # fleet's verdict (fleet/launch.py); a spawned rank never recurses
+        from .fleet.launch import launch_fleet, should_gang_launch
+        if should_gang_launch(cfg):
+            res = launch_fleet(cfg, params)
+            raise SystemExit(0 if res["ok"] else (res["rc"] or 1))
         run_train(cfg, params)
     elif task in ("predict", "prediction", "test"):
         run_predict(cfg, params)

@@ -808,12 +808,23 @@ class GBDT(PredictorBase):
             self._train_bins = self._device_phys_bins(self.train_ds.X_bin)
         return self._train_bins
 
+    # rows a block of ``_device_phys_bins``'s upload
+    _UPLOAD_ROWS = 1 << 18
+
     def _device_phys_bins(self, X_bin: np.ndarray) -> torch.Tensor:
         """A binned matrix of this dataset's layout on the device, row
-        major: uint8 as it is, wider bins as int32."""
-        if X_bin.dtype != np.uint8:
-            X_bin = X_bin.astype(np.int32)
-        return torch.as_tensor(np.ascontiguousarray(X_bin)).to(self.device)
+        major: uint8 as it is, wider bins as int32.  Filled in row blocks:
+        the host never holds a widened (or, from a read-only memmap, a
+        whole) copy of the matrix."""
+        n, f = X_bin.shape
+        dtype = torch.uint8 if X_bin.dtype == np.uint8 else torch.int32
+        out = torch.empty((n, f), dtype=dtype, device=self.device)
+        for lo in range(0, n, self._UPLOAD_ROWS):
+            blk = np.array(X_bin[lo:lo + self._UPLOAD_ROWS],
+                           dtype=np.uint8 if dtype == torch.uint8
+                           else np.int32)
+            out[lo:lo + len(blk)].copy_(torch.from_numpy(blk))
+        return out
 
     def add_valid(self, valid_ds, name: str) -> None:
         """Attach a valid set binned with the training mappers; the trees

@@ -136,7 +136,6 @@ _OBJECTIVE_ALIASES = {
 # field of the JAX package's ``Config`` is a field here too: implemented,
 # or accepted with no effect where the JAX package gives it none (the
 # field's comment says so).
-_PARALLEL = "the rest of queue 1: parallel and fleet planes"
 # the train board, the profiler window and the rest of item 8B
 _OBS_B = "Obs, tools and bindings, part B"
 # tpu_on_device_error=fallback: a step that launched kernels on the card
@@ -146,8 +145,6 @@ _REFUSED: Dict[str, str] = {
     "tpu_xprof": _OBS_B, "tpu_xprof_iters": _OBS_B,
     "tpu_train_metrics_port": _OBS_B,
 }
-# whole families, by name prefix: the ingest and fleet planes of item 7
-_REFUSED_PREFIX = (("tpu_fleet", _PARALLEL), ("tpu_ingest", _PARALLEL))
 # tree_learner's LightGBM aliases (reference: config.cpp GetTreeLearnerType)
 _TREE_LEARNERS = {
     "serial_tree_learner": "serial", "feature_parallel": "feature",
@@ -160,12 +157,7 @@ _TREE_LEARNERS = {
 def refused_item(name: str) -> Optional[str]:
     """The ROADMAP.md item a parameter waits for, or None when the port
     runs every value of it."""
-    if name in _REFUSED:
-        return _REFUSED[name]
-    for prefix, item in _REFUSED_PREFIX:
-        if name.startswith(prefix):
-            return item
-    return None
+    return _REFUSED.get(name)
 
 
 def parse_objective_alias(name: str) -> str:
@@ -303,8 +295,7 @@ class Config:
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
 
-    # ---- Network (parallel/; the fleet family is refused: parallel and
-    # fleet planes) ----
+    # ---- Network (parallel/; the tpu_fleet family: fleet/) ----
     num_machines: int = 1
     local_listen_port: int = 12400
     time_out: int = 120
@@ -414,7 +405,7 @@ class Config:
     tpu_online_source: str = ""
     tpu_online_follow: bool = False
     tpu_online_dir: str = ""
-    # streaming ingestion (refused)
+    # streaming ingestion (ingest/)
     tpu_ingest: bool = False
     tpu_ingest_chunk_rows: int = 65536
     tpu_ingest_memmap: str = ""
@@ -542,6 +533,24 @@ class Config:
             log.fatal("task=online needs a refresh cadence: set "
                       "tpu_online_refit_every (rows) and/or "
                       "tpu_online_refit_every_s (seconds)")
+        if self.tpu_ingest_chunk_rows < 1:
+            log.fatal("tpu_ingest_chunk_rows should be >= 1")
+        if self.tpu_ingest_shards < 0:
+            log.fatal("tpu_ingest_shards should be >= 0")
+        if (self.tpu_ingest_shards > 1
+                and self.tpu_ingest_shard_id >= self.tpu_ingest_shards):
+            log.fatal("tpu_ingest_shard_id should be < tpu_ingest_shards "
+                      "(or -1 for the process rank)")
+        if self.tpu_fleet < 0:
+            log.fatal("tpu_fleet should be >= 0")
+        if self.tpu_fleet_heartbeat_s <= 0:
+            log.fatal("tpu_fleet_heartbeat_s should be > 0 (seconds)")
+        if self.tpu_fleet_transport not in ("auto", "jax", "host"):
+            log.fatal("tpu_fleet_transport should be auto, jax or host")
+        if self.tpu_fleet_min_ranks < 1:
+            log.fatal("tpu_fleet_min_ranks should be >= 1")
+        if self.tpu_fleet_max_recoveries < 0:
+            log.fatal("tpu_fleet_max_recoveries should be >= 0")
         if self.tpu_block_rows < 128 or self.tpu_block_rows % 128 != 0:
             log.fatal("tpu_block_rows should be a positive multiple of 128")
         from .obs.health import parse_mode

@@ -295,10 +295,16 @@ class BinnedDataset:
         ds.bundle = reference.bundle
         return ds
 
-    def _alloc_X(self) -> None:
-        """The binned matrix of ``num_data`` rows, to fill by chunks."""
+    def _alloc_X(self, path: Optional[str] = None) -> None:
+        """The binned matrix of ``num_data`` rows, to fill by chunks: in
+        RAM, or an ``np.memmap`` ``.npy`` file at ``path`` (streaming
+        ingestion's ``tpu_ingest_memmap``)."""
         cols, dtype = self._bin_matrix_spec()
-        self.X_bin = np.zeros((self.num_data, cols), dtype=dtype)
+        if path:
+            self.X_bin = np.lib.format.open_memmap(
+                path, mode="w+", dtype=dtype, shape=(self.num_data, cols))
+        else:
+            self.X_bin = np.zeros((self.num_data, cols), dtype=dtype)
 
     def _binarize_csc(self, X_csc, row0: Optional[int] = None) -> None:
         """Scatter the stored non-default bins into the physical matrix

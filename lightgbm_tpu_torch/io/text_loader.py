@@ -335,22 +335,21 @@ def load_text_two_round(path: str, config, categorical_features=(),
     ``bin_construct_sample_cnt`` lines (``np.random.default_rng(
     data_random_seed)``, chunk by chunk, as the JAX package draws them);
     the sampled lines are parsed once for the mappers; pass 2 bins each
-    chunk into ``X_bin``.  LibSVM files: pass 1 counts the rows and keeps
-    the labels and ``qid:`` tokens, pass 2 gathers the sample rows that
-    ``from_csr`` would draw, pass 3 bins each window's stored entries;
-    the dataset is the in-memory one's.  A file the strict native parser
-    rejects loads in memory instead."""
+    chunk into ``X_bin``.  LibSVM files stream through the chunked ingest
+    reader (``ingest/``): a reservoir sample over the whole file, then
+    chunk-by-chunk binning of the stored entries.  A dense file the strict
+    native parser rejects loads in memory instead."""
     from .dataset import BinnedDataset
     if not os.path.exists(path):
         log.fatal(f"Data file {path} does not exist")
     with open(path) as fh:
         first = fh.readline()
+    if _is_libsvm(first, config):
+        return _two_round_libsvm(path, config, categorical_features,
+                                 reference)
     try:
         if _native.lib() is None:
             raise _ParseError("native library unavailable")
-        if _is_libsvm(first, config):
-            return _two_round_libsvm(path, config, categorical_features,
-                                     reference)
         delim = _sniff_delimiter(first.rstrip("\n"))
         names: List[str] = []
         skip = 0
@@ -452,54 +451,26 @@ def _two_round_dense(path, config, categorical_features, reference, names,
     return handle, label, weight, group, feat_names
 
 
-def _libsvm_windows(path: str):
-    """(labels, qids, CSR triplets, largest index) of each mmap window."""
-    for mm, lo, hi in _mmap_windows(path, 0):
-        out = _native.libsvm_parse(mm, offset=lo, length=hi - lo)
-        if out is None:
-            raise _ParseError("malformed LibSVM line")
-        yield out
-
-
 def _two_round_libsvm(path, config, categorical_features, reference):
-    import scipy.sparse as sp
-
-    from ..utils.random import Random
-    from .dataset import BinnedDataset
-    labels, qids, max_idx = [], [], -1
-    for lab, qid, _, _, _, mf in _libsvm_windows(path):
-        labels.append(lab)
-        qids.append(qid)
-        max_idx = max(max_idx, mf)
-    label, qids = np.concatenate(labels), np.concatenate(qids)
-    n, p = len(label), max_idx + 1
-    names = [f"Column_{i}" for i in range(p)]
-    if reference is None:
-        cnt = min(int(config.bin_construct_sample_cnt), n)
-        pick = (np.arange(n, dtype=np.int64) if cnt >= n
-                else Random(config.data_random_seed).sample(n, cnt).astype(
-                    np.int64))
-        parts, row0 = [], 0
-        for _, _, indptr, idx, vals, _ in _libsvm_windows(path):
-            rows = len(indptr) - 1
-            sel = pick[(pick >= row0) & (pick < row0 + rows)] - row0
-            if len(sel):
-                parts.append(sp.csr_matrix((vals, idx, indptr),
-                                           shape=(rows, p))[sel])
-            row0 += rows
-        handle = BinnedDataset.from_sample(
-            sp.vstack(parts, format="csr"), n, config,
-            _categorical_indices(categorical_features, names), names)
-    else:
-        handle = BinnedDataset._like(reference, n, p)
-    handle._alloc_X()
-    row0 = 0
-    for _, _, indptr, idx, vals, _ in _libsvm_windows(path):
-        rows = len(indptr) - 1
-        handle._binarize_csc(sp.csr_matrix((vals, idx, indptr),
-                                           shape=(rows, p)).tocsc(), row0)
-        row0 += rows
-    log.check(row0 == n, "data file changed between two_round passes")
-    weight, group = _load_sidecars(path, None, None)
-    return handle, label, weight, (group if group is not None
-                                   else _qid_group(qids)), names
+    """LibSVM two_round through ``ingest/`` (reference package:
+    text_loader.py ``load_text_two_round``): the whole file, in RAM,
+    whatever the ingest shard and memmap knobs say; the sidecars where
+    the file gives no weights or query ids."""
+    from ..ingest.readers import LibSVMSource
+    from ..ingest.stream import chunk_rows_from_config, ingest_dataset
+    log.info("two_round: streaming LibSVM input through the chunked "
+             "ingest reader")
+    src = LibSVMSource(path, chunk_rows=chunk_rows_from_config(config))
+    handle = ingest_dataset(src, config,
+                            categorical_features=categorical_features,
+                            reference=reference, num_shards=1, shard_id=0,
+                            memmap_path="")
+    md = handle.metadata
+    group_sizes = (np.diff(md.query_boundaries)
+                   if md.query_boundaries is not None else None)
+    weight, group = _load_sidecars(path, md.weights, group_sizes)
+    if weight is not None and md.weights is None:
+        handle.metadata.set_weights(weight)
+    if group is not None and group_sizes is None:
+        handle.metadata.set_query(group)
+    return handle, md.label, weight, group, list(handle.feature_names)

@@ -60,15 +60,28 @@ _DIGEST_SKIP = frozenset((
     "is_parallel",
 ))
 
+# world-shape knobs, neutralized (hashed at their defaults) when
+# ``tpu_fleet`` is set: a fleet checkpoint resumes at any world size,
+# world 1 included; outside a fleet they still refuse a resume, since
+# they change the local rows
+_DIGEST_SKIP_FLEET_WORLD = frozenset((
+    "tpu_ingest_shards", "tpu_ingest_shard_id",
+    "num_machines", "machines", "machine_list_filename",
+    "local_listen_port", "time_out",
+))
+
 
 def config_digest(config) -> str:
     """Stable hash of the training-relevant config surface; the histogram
     mode hashes resolved, so its aliases never refuse a resume."""
+    fleet = bool(getattr(config, "tpu_fleet", 0))
     items = {}
     for f in dataclasses.fields(config):
         if f.name in _DIGEST_SKIP or f.name.startswith("tpu_fleet"):
             continue
         v = getattr(config, f.name)
+        if fleet and f.name in _DIGEST_SKIP_FLEET_WORLD:
+            v = f.default
         if isinstance(v, (list, tuple)):
             v = list(v)
         if f.name == "tpu_hist_dtype":
@@ -76,6 +89,14 @@ def config_digest(config) -> str:
         items[f.name] = v
     blob = json.dumps(items, sort_keys=True, default=str)
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _world_size() -> int:
+    """The world size stamped into a checkpoint's meta, for post-mortems
+    of a fleet; never part of the digest (a shrunk-world resume is the
+    point of the elastic fleet)."""
+    from ..parallel.distributed import world_size
+    return int(world_size())
 
 
 def _sha256_file(path: str) -> str:
@@ -147,6 +168,21 @@ class CheckpointManager:
                 out.append((int(m.group(1)), d))
         return [d for _, d in sorted(out, reverse=True)]
 
+    def trim_to(self, iteration: int) -> int:
+        """Drop every checkpoint newer than ``iteration`` (the elastic
+        rollback: survivors agree on the newest common iteration and trim
+        to it, so the auto-resume lands there on every rank); returns the
+        number removed."""
+        removed = 0
+        for d in self.list_checkpoints():
+            m = _CKPT_RE.search(os.path.basename(d))
+            if m and int(m.group(1)) > int(iteration):
+                shutil.rmtree(d, ignore_errors=True)
+                removed += 1
+                log.info("checkpoint: trimmed %s (rollback to iteration "
+                         "%d)", d, iteration)
+        return removed
+
     def _sweep_orphans(self) -> None:
         for d in glob.glob(os.path.join(self.dir, ".tmp-*")):
             shutil.rmtree(d, ignore_errors=True)
@@ -179,7 +215,7 @@ class CheckpointManager:
                 "reason": reason,
                 "config_digest": self.digest or config_digest(booster.config),
                 "num_data": int(gbdt.train_ds.num_data),
-                "world_size": 1,
+                "world_size": _world_size(),
                 "num_class": int(gbdt.num_tpi),
                 "best_iteration": int(booster.best_iteration),
                 "eval_history": [[int(it), [list(e) for e in entries]]

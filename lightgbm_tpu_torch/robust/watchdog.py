@@ -118,8 +118,10 @@ class DeviceGuard:
         return self.enabled or faults.armed()
 
     def _deadline_s(self) -> float:
-        """Explicit timeout wins; else 4x the rolling per-step p99 once 8
-        steps are measured, floored."""
+        """Explicit timeout wins (negative: no stall deadline); else 4x
+        the rolling per-step p99 once 8 steps are measured, floored."""
+        if self.stall_timeout_s < 0:
+            return 0.0
         if self.stall_timeout_s > 0:
             return self.stall_timeout_s
         with self._lock:

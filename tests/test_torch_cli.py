@@ -112,8 +112,10 @@ def test_cli_predict_leaf_and_early_stop(workdir, tmp_path):
 
 @pytest.mark.parametrize("task,item", [
     # task=serve runs, its store directory too since serve/aot.py was
-    # ported; what it still refuses is the fleet family of item 7
-    pytest.param("serve", "parallel and fleet planes", id="serve-serving"),
+    # ported, and the fleet family since fleet/ was; what it still
+    # refuses is the train board of item 8B
+    pytest.param("serve", "Obs, tools and bindings, part B",
+                 id="serve-serving"),
     # task=online and task=refit run since online/ was ported (item None)
     pytest.param("online", None, id="online-online"),
     pytest.param("refit", None, id="refit-online")])
@@ -123,7 +125,7 @@ def test_unported_task_names_its_item(workdir, tmp_path, task, item):
     model and pushes a version a cadence over a finite label stream."""
     args = [f"task={task}", "input_model=model.txt", "device_type=cpu"]
     if item is not None:
-        r = _run("lightgbm_tpu_torch", args + ["tpu_fleet=2"],
+        r = _run("lightgbm_tpu_torch", args + ["tpu_train_metrics_port=1"],
                  workdir, check=False)
         assert r.returncode != 0
         assert "ROADMAP.md" in r.stderr and item in r.stderr

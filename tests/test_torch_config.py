@@ -142,7 +142,7 @@ def test_obs_field_of_item_8b_is_refused(name):
 
 
 # the network fields and the parallel learners run since parallel/ was
-# ported; the fleet and ingest families still name item 7
+# ported
 NETWORK_RUN = {"num_machines": 2, "local_listen_port": 13000, "time_out": 5,
                "machine_list_filename": "mlist.txt",
                "machines": "10.0.0.1:1,10.0.0.2:1", "tpu_mesh_shape": "data:2"}
@@ -183,8 +183,23 @@ def test_tree_learner_errors_match_the_jax_package():
                             "monotone_constraints": [1]})
 
 
+# the fleet and ingest families of item 7 run since fleet/ and ingest/
+# were ported: a value besides the default of each
+FLEET_INGEST_RUN = {
+    "tpu_fleet": 2, "tpu_fleet_heartbeat_s": 5.0,
+    "tpu_fleet_transport": "host", "tpu_fleet_dir": "fleet",
+    "tpu_fleet_port": 13100, "tpu_fleet_min_ranks": 2,
+    "tpu_fleet_heal": False, "tpu_fleet_max_recoveries": 3,
+    "tpu_ingest": True, "tpu_ingest_chunk_rows": 1000,
+    "tpu_ingest_memmap": "bins.npy", "tpu_ingest_shards": 2,
+    "tpu_ingest_shard_id": 1, "tpu_ingest_sample_seed": 7}
+
+
 @pytest.mark.parametrize("name", sorted(
     f.name for f in FIELDS if f.name.startswith(("tpu_fleet", "tpu_ingest"))))
 def test_fleet_and_ingest_fields_name_item_7(name):
-    assert pconfig.refused_item(name) == \
-        "the rest of queue 1: parallel and fleet planes"
+    """Item 7's families are no longer refused: each field takes a value
+    besides its default (the JAX package's checks guard the rest)."""
+    assert pconfig.refused_item(name) is None
+    value = FLEET_INGEST_RUN[name]
+    assert getattr(Config.from_params({name: value}), name) == value

@@ -121,9 +121,10 @@ def test_two_round_dense_matches_reference(tmp_path, sample_cnt):
 
 @pytest.mark.parametrize("sample_cnt", [200000, 100])
 def test_two_round_libsvm_equals_in_memory(tmp_path, sample_cnt):
-    """LibSVM two_round draws the rows ``from_csr`` draws: the binned
-    dataset is the in-memory one's at any sample size, and the JAX
-    package's (its streaming reader) while the sample holds every row."""
+    """LibSVM two_round streams through ``ingest/``: its reservoir draws
+    the JAX package's rows, so the binned dataset is the JAX package's at
+    any sample size, and the in-memory ``from_csr`` one's while the sample
+    holds every row."""
     from lightgbm_tpu.io.text_loader import load_text_two_round as ref_two
     from lightgbm_tpu_torch.io.dataset import BinnedDataset
     path = str(tmp_path / "rank.svm")
@@ -132,13 +133,13 @@ def test_two_round_libsvm_equals_in_memory(tmp_path, sample_cnt):
     cfg = Config.from_params(params)
     handle, label, weight, group, names = load_text_two_round(path, cfg)
     X, label_mem, *_ = load_text(path, cfg)
-    mem = BinnedDataset.from_csr(X, cfg)
-    np.testing.assert_array_equal(handle.X_bin, mem.X_bin)
     np.testing.assert_array_equal(label, label_mem)
     np.testing.assert_array_equal(group, sizes)
+    want = ref_two(path, _ref_config(params))
+    np.testing.assert_array_equal(handle.X_bin, want[0].X_bin)
     if sample_cnt >= n:
-        want = ref_two(path, _ref_config(params))
-        np.testing.assert_array_equal(handle.X_bin, want[0].X_bin)
+        mem = BinnedDataset.from_csr(X, cfg)
+        np.testing.assert_array_equal(handle.X_bin, mem.X_bin)
 
 
 def test_binary_dataset_files_load_across_packages(tmp_path):

@@ -136,22 +136,37 @@ def test_convert_round_trips(trained):
     # the trace and telemetry planes run; the profiler window and the
     # train board do not
     {"tpu_xprof": True}, {"tpu_xprof_iters": 9},
-    {"tpu_train_metrics_port": 8080},
-    # the online knobs train since online/ was ported
-    # (test_torch_online_loop.py test_online_knobs_train), the parallel
+    # (the online knobs train since online/ was ported:
+    # test_torch_online_loop.py test_online_knobs_train; the parallel
     # learners and the serving store since parallel/ and serve/aot.py
-    # were (test_parallel_knobs_train_at_world_one); the ingest and fleet
-    # families of item 7 take their slots
-    {"tpu_fleet": 2}, {"tpu_fleet_dir": "fleet"},
-    {"tpu_fleet_heartbeat_s": 5.0}, {"tpu_fleet_transport": "tcp"},
-    {"tpu_ingest": True}, {"tpu_ingest_chunk_rows": 1000},
-    {"tpu_ingest_memmap": "mm"}, {"tpu_ingest_shards": 2},
-    {"tpu_fleet_min_ranks": 2}])
+    # were: test_parallel_knobs_train_at_world_one; the ingest and fleet
+    # families since ingest/ and fleet/ were:
+    # test_ingest_and_fleet_knobs_train)
+    {"tpu_train_metrics_port": 8080}])
 def test_outside_the_slice_is_refused(params):
     X, y = _data(n=300)
     with pytest.raises(lt.LightGBMError, match="ROADMAP"):
         lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 1,
                  device="cpu")
+
+
+@pytest.mark.parametrize("params", [
+    {"tpu_fleet": 2}, {"tpu_fleet_dir": "fleet"},
+    {"tpu_fleet_heartbeat_s": 5.0}, {"tpu_fleet_transport": "host"},
+    {"tpu_ingest": True}, {"tpu_ingest_chunk_rows": 1000},
+    {"tpu_ingest_memmap": "mm"}, {"tpu_ingest_shards": 2},
+    {"tpu_fleet_min_ranks": 2}])
+def test_ingest_and_fleet_knobs_train(params):
+    """The ingest and fleet knobs are accepted by ``train`` on an
+    in-memory Dataset, where they change nothing: the fleet runs from
+    the CLI (``tpu_fleet``) and ingestion from a stream
+    (``ingest.dataset_from_stream``, ``tpu_ingest=true`` files)."""
+    X, y = _data(n=300)
+    bst = lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 1,
+                   device="cpu")
+    ref = lt.train(PARAMS, lt.Dataset(X, label=y), 1, device="cpu")
+    assert bst.model_to_string().split("parameters:")[0] == \
+        ref.model_to_string().split("parameters:")[0]
 
 
 @pytest.mark.parametrize("params", [
