@@ -327,6 +327,34 @@ freed (lines ``ingest``, ``ingested``, ``fleet``, ``phase 32``, ``phase
    model's.  Each rank's s/iter, start-up seconds and K1 launches (from
    its ``rank<N>.stats.json``).
 
+The fifteenth slice's phases run after 28, while the headline rows and
+phase 4's booster live (lines ``C ABI``, ``board``, ``xprof``,
+``reconciliation``, ``report CLI``, ``phase 34``, ``phase 35``, then a
+``{"capi_abi": ..., "board_xprof": ...}`` line):
+
+34. the C ABI: a C program compiled with gcc against the port's loadable
+   library (``native.capi_abi_lib``: ``native/capi_abi.c``, embedding
+   CPython, built into ``build/``) reads the headline rows from raw files,
+   trains phase 4's parameters through ``LGBM_DatasetCreateFromMat`` and
+   5 ``LGBM_BoosterUpdateOneIter`` calls on the card, predicts every row
+   through ``LGBM_BoosterPredictForMat`` and saves the model: its trees
+   phase 4's (legacy digest 28b298b3082595ad), its probabilities within
+   1e-6 of ``Booster.predict`` over the same trees, its K1 launches
+   (printed by the child's embedded interpreter) at least one a wave;
+35. the train board and the profiler window: phase 4's training with the
+   board alone (its cost a round); then with the board, telemetry,
+   profile mode and ``tpu_xprof`` (3 iterations): ``/metrics`` and
+   ``/progress`` scraped at iteration 2, phase 4's trees, K1's
+   ``kernel_measured`` row (``torch.profiler``'s device time of the
+   window's launches against ``hist_wave_cost``'s bound) beside profile
+   mode's CUDA-event time of the same launches, the ``reconciliation``
+   units, ``python -m lightgbm_tpu_torch.obs.report`` over the sink; the
+   serial grower (31 leaves) 3 rounds with a 1-iteration window: K2's
+   row.  The window opens after two iterations, as the JAX package's
+   does, so 5 rounds record iterations 2-4.  Phase 31's 2xbf16 data leg
+   runs telemetry (with no metric), so its ranks exchange their phase
+   walls: the skew table is printed.
+
 Every path (each training phase, the triple grower, K2's path) sets all
 launch counts to 0 just before it and reads them just after; K1 counts
 its launches in all, by layout and by sibling form (fused or not); K2 its
@@ -337,14 +365,16 @@ of its model text (equal digests, equal trees).  Prints a
 ``check_launches`` from phase 2, ``skewed`` the skewed-bin cases' times
 and errors, K1's launches on the DART, RF, overlap, resume, estimator,
 observability, online-continue, data-parallel, ingest and fleet paths
-(per rank), and at the ingested 11M rows, K2's
-on the serial grower under health and on the voting and feature paths
-(per rank)), a
+(per rank), at the ingested 11M rows, on the C ABI's and the window's
+paths (the window's launches by the profiler and by CUDA events), K2's
+on the serial grower under health, on the voting and feature paths (per
+rank) and under the window), a
 ``{"pair_pass": {...}}`` line (the lambdarank pair pass, torch, with its
 bound), a ``{"treeshap": [...]}`` line (the TreeSHAP pass, torch, with its
 ``shap_cost`` bound), the ``{"serving": ...}``, ``{"refit": ...}``,
-``{"aot": ...}``, ``{"parallel": ...}`` and ``{"ingest": ...,
-"fleet": ...}`` lines, the card's name and
+``{"aot": ...}``, ``{"parallel": ...}``, ``{"ingest": ...,
+"fleet": ...}`` and ``{"capi_abi": ..., "board_xprof": ...}`` lines, the
+card's name and
 power limit and, last, the
 device line
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of
@@ -3860,7 +3890,13 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
     d = os.path.join(SCRATCH, "parallel")
     os.makedirs(d, exist_ok=True)
     np.savez(os.path.join(d, "rows.npz"), X=X, y=y)
-    modes = {"data_2xbf16": dict(params, tree_learner="data"),
+    # the 2xbf16 data leg runs telemetry, so the ranks exchange their
+    # phase walls (obs/ranks.py): its skew table is printed.  No metric:
+    # the iteration record would evaluate the training metrics on 1M rows
+    # each round (0.28-0.40 s/iter became 0.61, NVIDIA H100 80GB HBM3,
+    # 700 W), and the trees do not depend on them
+    modes = {"data_2xbf16": dict(params, tree_learner="data", metric="none",
+                                 tpu_telemetry=os.path.join(d, "telemetry")),
              "data_int16": dict(params, tree_learner="data",
                                 tpu_hist_dtype="int16"),
              "voting": dict(params, tree_learner="voting"),
@@ -3873,7 +3909,8 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
     with open(os.path.join(d, "spec.json"), "w") as fh:
         json.dump(spec, fh)
     t0 = time.perf_counter()
-    ranks = launch(os.path.join(d, "spec.json"), 2, d, timeout=900)
+    ranks = launch(os.path.join(d, "spec.json"), 2, d, timeout=900,
+                   rank_env={r: {"LGBM_TPU_RANK": str(r)} for r in (0, 1)})
     two_s = time.perf_counter() - t0
     rec = {"two_ranks_s": round(two_s, 1), "modes": {}}
     launches = {}
@@ -3889,6 +3926,11 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
                "k1": [r0["k1"], r1["k1"]], "k2": [r0["k2"], r1["k2"]],
                "backend": r0["backend"], "uses_wave": r0["uses_wave"],
                "trees_digest": dig}
+        if r0.get("skew"):
+            row["skew"] = r0["skew"]
+            print(f"parallel {name}: the ranks' s/iter by phase at the last "
+                  f"exchange {json.dumps(r0['skew']['ranks'])}, stragglers "
+                  f"{r0['skew']['stragglers']} [{kind}, {card}]", flush=True)
         if name.startswith("data"):
             parts = int16_parts if name == "data_int16" else main_parts
             row["legacy_digest"] = [legacy_text_digest(h, parts[1])
@@ -3969,6 +4011,361 @@ def parallel_phase(lt, hw, hc, params, ds, X, y, int16_parts, main_parts,
     print(f"phase 31: {secs:.1f} s (two ranks {two_s:.1f} s) "
           f"[{kind}, {card}]", flush=True)
     return rec, launches
+
+
+# ---- the fifteenth slice: the C ABI (34), the board and the window (35) ---
+# the C program of phase 34: the headline rows from two raw files through
+# the port's loadable C ABI, 5 rounds, predictions and the model to files;
+# the embedded interpreter (the ABI library's) prints K1's launches
+ABI_PROGRAM = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <stdint.h>
+#include <time.h>
+
+extern const char *LGBM_GetLastError(void);
+extern int LGBM_DatasetCreateFromMat(const void *, int, int32_t, int32_t,
+                                     int, const char *, const void *,
+                                     void **);
+extern int LGBM_DatasetSetField(void *, const char *, const void *, int,
+                                int);
+extern int LGBM_DatasetFree(void *);
+extern int LGBM_BoosterCreate(const void *, const char *, void **);
+extern int LGBM_BoosterUpdateOneIter(void *, int *);
+extern int LGBM_BoosterPredictForMat(void *, const void *, int, int32_t,
+                                     int32_t, int, int, int, int,
+                                     const char *, int64_t *, double *);
+extern int LGBM_BoosterSaveModel(void *, int, int, const char *);
+extern int LGBM_BoosterFree(void *);
+/* the embedded interpreter the ABI library starts */
+extern int PyGILState_Ensure(void);
+extern void PyGILState_Release(int);
+extern int PyRun_SimpleString(const char *);
+
+#define CHECK(x) do { if ((x) != 0) { \
+    fprintf(stderr, "FAIL %s: %s\n", #x, LGBM_GetLastError()); \
+    return 1; } } while (0)
+
+static double now(void) {
+    struct timespec t;
+    clock_gettime(CLOCK_MONOTONIC, &t);
+    return t.tv_sec + 1e-9 * t.tv_nsec;
+}
+
+static void *slurp(const char *path, size_t bytes) {
+    void *buf = malloc(bytes);
+    FILE *f = fopen(path, "rb");
+    if (!buf || !f || fread(buf, 1, bytes, f) != bytes) return NULL;
+    fclose(f);
+    return buf;
+}
+
+int main(int argc, char **argv) {
+    /* X.f64 y.f32 pred.f64 model.txt N F params rounds */
+    if (argc != 9) return 2;
+    int32_t N = atoi(argv[5]), F = atoi(argv[6]);
+    int rounds = atoi(argv[8]);
+    double *X = slurp(argv[1], sizeof(double) * (size_t)N * F);
+    float *y = slurp(argv[2], sizeof(float) * (size_t)N);
+    double *pred = malloc(sizeof(double) * (size_t)N);
+    if (!X || !y || !pred) { fprintf(stderr, "read failed\n"); return 3; }
+    void *ds = NULL, *bst = NULL;
+    double t0 = now();
+    CHECK(LGBM_DatasetCreateFromMat(X, 1, N, F, 1, argv[7], NULL, &ds));
+    CHECK(LGBM_DatasetSetField(ds, "label", y, N, 0));
+    double t1 = now();
+    CHECK(LGBM_BoosterCreate(ds, argv[7], &bst));
+    double t2 = now();
+    for (int it = 0; it < rounds; ++it) {
+        int fin = 0;
+        CHECK(LGBM_BoosterUpdateOneIter(bst, &fin));
+    }
+    double t3 = now();
+    int64_t out_len = 0;
+    CHECK(LGBM_BoosterPredictForMat(bst, X, 1, N, F, 1, 0, 0, -1, "",
+                                    &out_len, pred));
+    double t4 = now();
+    if (out_len != N) { fprintf(stderr, "len %lld\n", (long long)out_len);
+                        return 4; }
+    CHECK(LGBM_BoosterSaveModel(bst, 0, -1, argv[4]));
+    FILE *f = fopen(argv[3], "wb");
+    if (!f || fwrite(pred, sizeof(double), N, f) != (size_t)N) return 5;
+    fclose(f);
+    printf("C_ABI dataset_s=%.4f booster_s=%.4f train_s=%.4f "
+           "predict_s=%.4f\n", t1 - t0, t2 - t1, t3 - t2, t4 - t3);
+    fflush(stdout);
+    int st = PyGILState_Ensure();
+    PyRun_SimpleString(
+        "from lightgbm_tpu_torch import capi\n"
+        "from lightgbm_tpu_torch.ops import hist_wave as _h\n"
+        "_g = [o.b._gbdt for o in capi._handles.values()"
+        " if hasattr(o, 'b')][0]\n"
+        "print('C_ABI_K1', _h.hist_wave.launches,"
+        " sum(w for w, _ in _g.wave_stats), _g.device, flush=True)\n");
+    PyGILState_Release(st);
+    CHECK(LGBM_BoosterFree(bst));
+    CHECK(LGBM_DatasetFree(ds));
+    return 0;
+}
+"""
+
+
+def capi_abi_phase(lt, bst, X, y, main_parts, kind, card):
+    """(34) A C program linked against the port's loadable C ABI
+    (``native.capi_abi_lib``: ``native/capi_abi.c`` built with gcc against
+    libpython into ``build/``) trains phase 4's parameters on the headline
+    rows, read from raw files, through ``LGBM_DatasetCreateFromMat`` and 5
+    ``LGBM_BoosterUpdateOneIter`` calls on the card, predicts every row
+    through ``LGBM_BoosterPredictForMat`` and saves the model.  Its trees
+    must be phase 4's (legacy digest 28b298b3082595ad), its probabilities
+    within 1e-6 of phase 4's ``Booster.predict`` over the same 5 trees;
+    the child prints its K1 launches (at least one a wave) and the seconds
+    of each step.  Returns (record, K1 launches)."""
+    import shutil
+    import sysconfig
+    from lightgbm_tpu_torch import native
+    t_phase = time.perf_counter()
+    d = os.path.join(SCRATCH, "capi_abi")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    lib = native.capi_abi_lib()
+    build_s = time.perf_counter() - t0
+    src = os.path.join(d, "train.c")
+    with open(src, "w") as fh:
+        fh.write(ABI_PROGRAM)
+    exe = os.path.join(d, "train")
+    libdir = os.path.dirname(lib)
+    pylib = sysconfig.get_config_var("LIBDIR")
+    r = subprocess.run(
+        ["gcc", "-O1", src, f"-L{libdir}", f"-l:{os.path.basename(lib)}",
+         f"-Wl,-rpath,{libdir}", f"-L{pylib}", f"-Wl,-rpath,{pylib}",
+         f"-lpython{sysconfig.get_config_var('LDVERSION')}", "-o", exe],
+        capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"gcc failed on the C program:\n{r.stderr}")
+    N, F = X.shape
+    paths = [os.path.join(d, n) for n in ("X.f64", "y.f32", "pred.f64",
+                                          "model.txt")]
+    np.ascontiguousarray(X, np.float64).tofile(paths[0])
+    np.ascontiguousarray(y, np.float32).tofile(paths[1])
+    # phase 4's parameters as a C API parameter string (on the card)
+    cparams = ("objective=binary metric=binary_logloss,auc num_leaves=255 "
+               "learning_rate=0.1 max_bin=255 min_data_in_leaf=100 "
+               "verbose=-1" + (" device_type=cpu" if DEV == "cpu" else ""))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in sys.path if p and os.path.isdir(p)])
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, *paths, str(N), str(F), cparams, "5"],
+                       capture_output=True, text=True, env=env, timeout=600)
+    child_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the C program failed (rc {r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    steps = dict(kv.split("=") for kv in next(
+        ln for ln in lines if ln.startswith("C_ABI ")).split()[1:])
+    k1_line = next(ln for ln in lines if ln.startswith("C_ABI_K1")).split()
+    k1, waves, dev = int(k1_line[1]), int(k1_line[2]), k1_line[3]
+    with open(paths[3]) as fh:
+        text = fh.read()
+    head = text.split("\nparameters:")[0]
+    legacy = legacy_text_digest(head, main_parts[1])
+    pred = np.fromfile(paths[2], np.float64)
+    want = bst.predict(X, num_iteration=5)
+    err = float(np.max(np.abs(pred - want)))
+    rec = {"abi_build_s": round(build_s, 2), "child_s": round(child_s, 2),
+           "steps_s": {k: float(v) for k, v in steps.items()},
+           "k1_launches": k1, "waves": waves, "device": dev,
+           "legacy_digest": legacy, "max_abs_err": err,
+           "trees_equal": head == main_parts[0]}
+    print(f"C ABI: a C program through {os.path.basename(lib)} (built in "
+          f"{build_s:.1f} s) on {N:,} x {F} rows on {dev}: dataset "
+          f"{steps['dataset_s']} s, booster {steps['booster_s']} s, 5 rounds "
+          f"{steps['train_s']} s, predict {steps['predict_s']} s, child "
+          f"{child_s:.1f} s; K1 launches {k1} for {waves} waves; legacy "
+          f"digest {legacy}, trees equal to phase 4's {rec['trees_equal']};"
+          f" predictions max |diff| {err:.3g} against Booster.predict "
+          f"[{kind}, {card}]", flush=True)
+    if not rec["trees_equal"] or legacy != "28b298b3082595ad":
+        raise AssertionError("C ABI: the trees are not phase 4's")
+    if err > 1e-6:
+        raise AssertionError(f"C ABI: predictions {err} from Booster.predict")
+    if k1 < waves or k1 == 0 or not dev.startswith("cuda"):
+        raise AssertionError(f"C ABI: K1 launched {k1} times for {waves} "
+                             f"waves on {dev}")
+    for p in paths[:3]:
+        os.remove(p)
+    rec["phase_34_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"phase 34: {rec['phase_34_s']} s [{kind}, {card}]", flush=True)
+    return rec, k1
+
+
+def _scrape(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def board_xprof_phase(lt, hw, hc, params, ds, main_parts, iter_ms, kind,
+                      card):
+    """(35) The train board and the profiler window on the card.  (a) Phase
+    4's training, 5 rounds, with the board alone (``tpu_train_metrics_port
+    =0``): s/iter against phase 4's (the board's cost).  (b) 5 rounds with
+    the board, telemetry, profile mode and ``tpu_xprof`` (3 iterations,
+    2-4: the window opens after two, the JAX package's count):
+    ``/metrics`` and ``/progress`` scraped at iteration 2; the trees phase
+    4's; K1's ``kernel_measured`` row (the profiler's
+    device time of the window's launches, against ``hist_wave_cost``'s
+    bound) beside profile mode's CUDA-event time of the same launches; the
+    ``reconciliation`` units; the window's iterations against the others;
+    ``python -m lightgbm_tpu_torch.obs.report`` over the sink.  (c) The
+    serial grower (``feature_fraction_bynode`` 0.5, 31 leaves), 3 rounds
+    with a 1-iteration window (iteration 2): K2's ``kernel_measured`` row.
+    Returns
+    (record, counts of (b), counts of (c))."""
+    import shutil
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import board
+    from lightgbm_tpu_torch.obs.report import load_events
+    t_phase = time.perf_counter()
+    rec = {}
+    # (a) the board alone
+    reset_counts(hw, hc)
+    b_only = lt.train(dict(params, tpu_train_metrics_port=0), ds, 5,
+                      valid_sets=[ds], valid_names=["train"], device=DEV)
+    rec["board_s_per_iter"] = round(float(np.median(
+        b_only._gbdt.iter_seconds[1:])), 4)
+    rec["off_s_per_iter"] = round(iter_ms / 1e3, 4)
+    if b_only.model_to_string().split("\nparameters:")[0] != main_parts[0]:
+        raise AssertionError("board: the trees are not phase 4's")
+    del b_only
+    # (b) board, telemetry, profile mode and the window
+    tel = os.path.join(SCRATCH, "board_xprof")
+    shutil.rmtree(tel, ignore_errors=True)
+    scraped = {}
+
+    def scrape(env):
+        if env.iteration == 2:
+            url = board.current().url
+            scraped["metrics"] = _scrape(url + "/metrics")
+            scraped["progress"] = json.loads(_scrape(url + "/progress"))
+    p = dict(params, tpu_train_metrics_port=0, tpu_xprof=True,
+             tpu_xprof_iters=3, tpu_telemetry=tel, tpu_profile=True)
+    reset_counts(hw, hc)
+    t0 = time.perf_counter()
+    try:
+        bst = lt.train(p, ds, 5, device=DEV, callbacks=[scrape])
+    finally:
+        obs.disable()
+        obs.enable_profile(False)
+    wall = time.perf_counter() - t0
+    counts = read_counts(hw, hc)
+    if bst.model_to_string().split("\nparameters:")[0] != main_parts[0]:
+        raise AssertionError("xprof window: the trees are not phase 4's")
+    m, pr = scraped.get("metrics", ""), scraped.get("progress", {})
+    if "tpu_train_iteration 2" not in m or pr.get("iteration") != 2 \
+            or pr.get("total_rounds") != 5:
+        raise AssertionError(f"board: mid-run scrape {pr}\n{m[:2000]}")
+    series = sorted({ln.split("{")[0].split()[0] for ln in m.splitlines()
+                     if ln and not ln.startswith("#")})
+    print(f"board at iteration 2: {len(series)} series, "
+          + ", ".join(ln for ln in m.splitlines() if ln.startswith((
+              "tpu_train_iteration ", "tpu_train_row_iters_per_s ",
+              "tpu_train_vs_baseline ", "tpu_train_eta_seconds ",
+              "tpu_train_recompiles_total ")))
+          + f"; /progress eta {pr.get('eta_s')} s, watchdog "
+          f"{pr.get('watchdog')} [{kind}, {card}]", flush=True)
+    events = load_events(tel)
+    rows = {e["kernel"]: e for e in events
+            if e.get("event") == "kernel_measured"}
+    k1 = rows.get("lgbm/hist_wave")
+    if not k1 or not k1.get("ops") or not k1.get("model_ms"):
+        raise AssertionError(f"xprof window: no K1 row in {sorted(rows)}")
+    # profile mode's CUDA-event times of the window's launches: the window
+    # opens after two iterations (the JAX package's count) and records
+    # iterations 2-4, so the kernel_profile events between iteration 1's
+    # record and iteration 4's
+    it_pos = [i for i, e in enumerate(events)
+              if e.get("event") == "iteration"]
+    lo, hi = it_pos[1], it_pos[4]
+    ev_k1 = [e for e in events[lo:hi]
+             if e.get("event") == "kernel_profile"
+             and e.get("kernel") == "hist_wave"]
+    cuda_event_ms = sum(e["achieved_s"] for e in ev_k1) * 1e3
+    gb = bst._gbdt
+    iters = [round(s, 4) for s in gb.iter_seconds]
+    recon = [e for e in events if e.get("event") == "reconciliation"]
+    rec.update(
+        xprof_wall_s=round(wall, 2), iter_s=iters,
+        window_iter_s=round(float(np.mean(iters[2:5])), 4),
+        outside_iter_s=iters[1],
+        k1_measured_ms=k1["measured_ms"], k1_kernels=k1["ops"],
+        k1_launches_in_window=len(ev_k1), k1_cuda_event_ms=round(
+            cuda_event_ms, 4), k1_model_ms=k1["model_ms"],
+        k1_roofline_frac=k1["roofline_frac"], k1_bound=k1["bound"],
+        window_ms=k1["window_ms"],
+        unattributed={k: v["measured_ms"] for k, v in rows.items()
+                      if k == "unattributed"},
+        reconciliation=[e["units"] for e in recon
+                        if e.get("source") == "xprof"],
+        scopes={k: v["measured_ms"] for k, v in rows.items()})
+    print(f"xprof window (3 iterations, CPU and CUDA activity): K1 "
+          f"{k1['ops']} kernel(s) {k1['measured_ms']} ms by the profiler "
+          f"against {rec['k1_cuda_event_ms']} ms by profile mode's CUDA "
+          f"events over the same {len(ev_k1)} launches; bound "
+          f"{k1['model_ms']} ms ({k1['bound']}), fraction "
+          f"{k1['roofline_frac']}; window {k1['window_ms']} ms; scopes "
+          f"{rec['scopes']} [{kind}, {card}]", flush=True)
+    last = [e for e in recon if e.get("source") != "xprof"][-1]
+    print(f"reconciliation (measured / bound): iteration "
+          f"{last['iteration']} {json.dumps(last['units'])}; the window's "
+          f"{json.dumps(rec['reconciliation'])} [{kind}, {card}]",
+          flush=True)
+    print(f"xprof window: s/iter {iters} (window iterations 2-4, board, "
+          f"telemetry and profile mode on throughout); board alone "
+          f"{rec['board_s_per_iter']} s/iter against {rec['off_s_per_iter']}"
+          f" with every plane off [{kind}, {card}]", flush=True)
+    out = subprocess.run([sys.executable, "-m",
+                          "lightgbm_tpu_torch.obs.report", tel],
+                         capture_output=True, text=True, cwd=HERE,
+                         timeout=300)
+    if out.returncode != 0 or "measured roofline" not in out.stdout:
+        raise AssertionError(f"report CLI failed:\n{out.stderr[-2000:]}")
+    print("report CLI over the sink:\n" + "\n".join(
+        out.stdout.splitlines()[:60]), flush=True)
+    # (c) the serial grower: K2 under the window
+    tel2 = os.path.join(SCRATCH, "board_xprof_serial")
+    shutil.rmtree(tel2, ignore_errors=True)
+    reset_counts(hw, hc)
+    try:
+        sb = lt.train(dict(params, feature_fraction_bynode=0.5,
+                           num_leaves=31, tpu_xprof=True, tpu_xprof_iters=1,
+                           tpu_telemetry=tel2), ds, 3, device=DEV)
+    finally:
+        obs.disable()
+    counts_serial = read_counts(hw, hc)
+    if sb._gbdt.uses_wave or counts_serial["k2"] == 0:
+        raise AssertionError(f"serial leg: K2 launched "
+                             f"{counts_serial['k2']} times")
+    rows2 = {e["kernel"]: e for e in load_events(tel2)
+             if e.get("event") == "kernel_measured"}
+    k2 = rows2.get("lgbm/hist_channels")
+    if not k2 or not k2.get("model_ms"):
+        raise AssertionError(f"xprof window: no K2 row in {sorted(rows2)}")
+    rec.update(k2_measured_ms=k2["measured_ms"], k2_kernels=k2["ops"],
+               k2_model_ms=k2["model_ms"],
+               k2_roofline_frac=k2["roofline_frac"],
+               serial_iter_s=[round(s, 4) for s in sb._gbdt.iter_seconds])
+    print(f"xprof window on the serial grower (31 leaves, 1 iteration): K2 "
+          f"{k2['ops']} kernel(s) {k2['measured_ms']} ms, bound "
+          f"{k2['model_ms']} ms ({k2['bound']}), fraction "
+          f"{k2['roofline_frac']}; s/iter {rec['serial_iter_s']}; K2 "
+          f"launches {counts_serial['k2']} [{kind}, {card}]", flush=True)
+    rec["phase_35_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"phase 35: {rec['phase_35_s']} s [{kind}, {card}]", flush=True)
+    return rec, counts, counts_serial
 
 
 # ---- out-of-core ingestion (32), the elastic fleet (33) -------------------
@@ -4472,6 +4869,11 @@ def main() -> int:
           f"{api_s:.1f} s, 28 training: {obs_s:.1f} s) [{kind}, {card}]",
           flush=True)
 
+    # ---- 34. the C ABI; 35. the train board and the profiler window ----
+    abi, k1_abi = capi_abi_phase(lt, bst, X, y, main_parts, kind, card)
+    board_rec, counts_board, counts_board_serial = board_xprof_phase(
+        lt, hw, hc, params, ds, main_parts, iter_ms, kind, card)
+
     # ---- 31. the learners across ranks --------------------------------
     parallel, parallel_launches = parallel_phase(
         lt, hw, hc, params, ds, X, y, int16_parts, main_parts, res, kind,
@@ -4583,7 +4985,14 @@ def main() -> int:
               ingest_path_launches=counts_ingest["k1_packed"],
               ingested_11m_rows=skewed("k1_11m")["k1_11m"],
               fleet_host_path_launches=fleet_rec["host_2"]["k1"],
-              fleet_kill_path_launches=fleet_rec["host_3_kill"]["k1"]),
+              fleet_kill_path_launches=fleet_rec["host_3_kill"]["k1"],
+              capi_abi_path_launches=k1_abi,
+              xprof_path_launches=counts_board["k1_packed"],
+              xprof_window=dict(
+                  launches=board_rec["k1_launches_in_window"],
+                  measured_ms=board_rec["k1_measured_ms"],
+                  cuda_event_ms=board_rec["k1_cuda_event_ms"],
+                  bound_ms=board_rec["k1_model_ms"])),
         entry("hist_wave int16 (K1 e)", "k1_int16", k1_src, k1_at,
               counts16["k1_packed"], ["k1_int16", "k1_int8_ragged",
                                       "k1_high_ids_int16",
@@ -4631,7 +5040,10 @@ def main() -> int:
               side_pass_in_its_place_root_ms=side_ms,
               voting_path_launches=parallel["modes"]["voting"]["k2"],
               feature_path_launches=parallel["modes"]["feature"]["k2"],
-              feature_block=skewed("k2_block")["k2_block"]),
+              feature_block=skewed("k2_block")["k2_block"],
+              xprof_serial_path_launches=counts_board_serial["k2"],
+              xprof_window=dict(measured_ms=board_rec["k2_measured_ms"],
+                                bound_ms=board_rec["k2_model_ms"])),
     ]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in
@@ -4645,6 +5057,8 @@ def main() -> int:
     print(json.dumps({"aot": aot}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"ingest": ingest_rec, "fleet": fleet_rec}), flush=True)
+    print(json.dumps({"capi_abi": abi, "board_xprof": board_rec}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

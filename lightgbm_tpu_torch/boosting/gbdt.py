@@ -450,6 +450,9 @@ class GBDT(PredictorBase):
         #                               fatal device error
         self._boundary = None         # iteration-boundary snapshot
         self.last_refit: Optional[dict] = None  # refit_models' report
+        self._ranks = None            # obs/ranks.py RankAggregator
+        self._reconciler = None       # obs/ranks.py Reconciler
+        self._rank_sizes = None       # query sizes of lambdarank
 
     def init(self, config, train_ds, objective, metrics, device) -> None:
         self.device = torch.device(device)
@@ -493,6 +496,20 @@ class GBDT(PredictorBase):
             on_fatal=self._device_fatal_hook)
         self._telem_iters = 0
         self._telem_train_s = 0.0
+        # aggregation across ranks and the reconciliation with the cost
+        # functions (obs/ranks.py): the exchange rides the fingerprint
+        # cadence and returns at once in one process
+        from ..obs.ranks import RankAggregator, Reconciler
+        self._ranks = (RankAggregator(
+            factor=float(config.tpu_straggler_factor),
+            iters=int(config.tpu_straggler_iters))
+            if int(config.tpu_straggler_iters) > 0 else None)
+        self._reconciler = Reconciler()
+        qb = train_ds.metadata.query_boundaries
+        self._rank_sizes = (np.diff(np.asarray(qb, np.int64))
+                            if qb is not None and getattr(
+                                objective, "name", "") == "lambdarank"
+                            else None)
         if obs.profile_enabled():
             obs.memory_snapshot("train_init", buffers=self._census_buffers())
         if obs.enabled():
@@ -959,9 +976,10 @@ class GBDT(PredictorBase):
         K = self.num_tpi
         if self._ckpt_hook is not None and self._guard.active:
             self._snapshot_boundary()
-        # the iteration record's inputs; with every plane off this is one
-        # boolean check and the loop stays as it was
-        telem = obs.enabled() or obs.profile_enabled()
+        # the iteration record's inputs (the train board reads the same
+        # records); with every plane off this is one boolean check and the
+        # loop stays as it was
+        telem = obs.enabled() or obs.profile_enabled() or obs.board_active()
         if telem:
             phase0 = obs.phase_snapshot()
             builds0 = obs.compile_count()
@@ -1034,13 +1052,18 @@ class GBDT(PredictorBase):
                           reason="no_splits")
             obs.end_span(it_span, stopped=True)
             return True
-        if health_on and self._fp_freq and self.iter_ % self._fp_freq == 0:
+        fp_tick = bool(self._fp_freq) and self.iter_ % self._fp_freq == 0
+        if health_on and fp_tick:
             self._health_fingerprint(grown)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if telem:
             self._emit_iteration_record(t0, phase0, builds0, leaves_grown,
                                         waves_total, kern_rows)
+            if self._ranks is not None and fp_tick:
+                # the ranks' phase walls, exchanged on the fingerprint
+                # cadence: rank 0 names a straggler
+                self._ranks.exchange(self.iter_)
         self.iter_seconds.append(time.perf_counter() - t0)
         self.iter_ += 1
         return False
@@ -1078,17 +1101,42 @@ class GBDT(PredictorBase):
                 wave_capacity=int(self.config.tpu_wave_capacity),
                 fused_sibling=bool(self.wave_kw["fused_sibling"]),
                 overlap=self.wave_kw["overlap"] != "off")
+        phase_s = obs.phase_delta(phase0)
+        recompiles = int(obs.compile_count() - builds0)
         obs.event(
             "iteration", iteration=self.iter_, num_class=self.num_tpi,
             leaves=leaves, waves=waves, kernel_rows=kern_rows,
-            iter_s=round(iter_s, 6), phase_s=obs.phase_delta(phase0),
+            iter_s=round(iter_s, 6), phase_s=phase_s,
             metrics=metrics, counters=obs.counters_snapshot(),
-            recompiles=int(obs.compile_count() - builds0),
+            recompiles=recompiles,
             partition_passes=part_passes, partition_batched=part_batched,
             fused_grad=False, grad_hbm_bytes_saved=0,
             cum_row_iters_per_s=round(
                 N * self._telem_iters / max(self._telem_train_s, 1e-9), 1),
             **wave_fields)
+        if self._ranks is not None:
+            self._ranks.accumulate(phase_s)
+        if recompiles == 0 and self._reconciler is not None:
+            # the phase walls against the cost functions; an iteration
+            # that built the kernels would read the build as work
+            F, B = int(self.train_ds.X_bin.shape[1]), int(self.B)
+            wave_args = chan_args = None
+            if self.uses_wave:
+                wave_args = (F, B, bool(self.wave_kw.get("packed", True)),
+                             bool(self.wave_kw["fused_sibling"]),
+                             self.hist_mode in ("int16", "int8"))
+            else:
+                chan_args = (F, B, 32)
+            units = self._reconciler.score(
+                phase_s=phase_s, iter_s=iter_s, N=N, kern_rows=kern_rows,
+                waves=waves, wave_cost_args=wave_args,
+                channels_cost_args=chan_args,
+                k2_launches=0 if self.uses_wave else int(waves or 0),
+                splits=splits if self.uses_wave else 0,
+                part_batched=part_batched, rank_sizes=self._rank_sizes)
+            if units:
+                obs.event("reconciliation", iteration=self.iter_,
+                          units=units)
         if obs.profile_enabled():
             obs.memory_snapshot(f"iteration_{self.iter_}",
                                 buffers=self._census_buffers())

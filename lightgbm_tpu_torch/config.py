@@ -4,8 +4,9 @@ The alias table and parsing pipeline are the reference package's (raw
 strings -> alias resolution -> typed ``Config`` fields -> consistency
 checks).  ``Config`` has every field of the JAX package's, with its
 default: the port implements it, or accepts it where the JAX package
-gives it no effect either, or raises ``LightGBMError`` on a non-default
-value, naming the ROADMAP item that will bring it (``refused_item``).
+gives it no effect either; ``refused_item`` names the ROADMAP item of a
+parameter still to come (none is left).  ``tpu_on_device_error=fallback``
+is refused for good.
 Only parameters neither package knows warn, as in the reference.
 """
 from __future__ import annotations
@@ -132,19 +133,14 @@ _OBJECTIVE_ALIASES = {
 
 # Parameters of the JAX package whose non-default value changes what is
 # trained, predicted or written, but which the port does not implement
-# yet: canonical name -> the ROADMAP.md item that brings it.  Every other
-# field of the JAX package's ``Config`` is a field here too: implemented,
-# or accepted with no effect where the JAX package gives it none (the
-# field's comment says so).
-# the train board, the profiler window and the rest of item 8B
-_OBS_B = "Obs, tools and bindings, part B"
-# tpu_on_device_error=fallback: a step that launched kernels on the card
-# never carries on on the CPU
+# yet: canonical name -> the ROADMAP.md item that brings it.  None is left:
+# every field of the JAX package's ``Config`` is a field here too,
+# implemented, or accepted with no effect where the JAX package gives it
+# none (the field's comment says so).
+_REFUSED: Dict[str, str] = {}
+# tpu_on_device_error=fallback, refused for good: a step that launched
+# kernels on the card never carries on on the CPU
 _FALLBACK = "CPU fallback of a failed device step"
-_REFUSED: Dict[str, str] = {
-    "tpu_xprof": _OBS_B, "tpu_xprof_iters": _OBS_B,
-    "tpu_train_metrics_port": _OBS_B,
-}
 # tree_learner's LightGBM aliases (reference: config.cpp GetTreeLearnerType)
 _TREE_LEARNERS = {
     "serial_tree_learner": "serial", "feature_parallel": "feature",
@@ -339,14 +335,14 @@ class Config:
                                         # split (the oracle); same trees
     tpu_compile_cache_dir: str = ""     # no effect (as in the JAX package)
     tpu_mesh_shape: str = ""
-    # observability (obs/); the profiler window and the train board are
-    # refused (Obs, tools and bindings, part B)
+    # observability (obs/)
     tpu_telemetry: str = ""             # telemetry sink: a dir or *.jsonl
     tpu_health: str = ""                # "", monitor or strict
-    tpu_fingerprint_freq: int = 1       # read only under tpu_health
+    tpu_fingerprint_freq: int = 1       # the health fingerprint's and the
+                                        # rank exchange's cadence
     tpu_profile: bool = False           # kernel times against bounds
-    tpu_xprof: bool = False
-    tpu_xprof_iters: int = 3
+    tpu_xprof: bool = False             # a torch.profiler window
+    tpu_xprof_iters: int = 3            # of this many iterations
     tpu_trace: bool = False             # spans into the sink
     # fault tolerance (robust/)
     tpu_checkpoint_dir: str = ""        # "" = no checkpoints
@@ -360,9 +356,12 @@ class Config:
     # parameter block of model text follows)
     tpu_flight_len: int = 256           # flight ring, armed under trace,
                                         # health, the watchdog or serving
-    tpu_train_metrics_port: int = -1
-    tpu_straggler_factor: float = 2.0   # no effect in one process
-    tpu_straggler_iters: int = 3        # no effect in one process
+    tpu_train_metrics_port: int = -1    # the train board, -1 off, 0 a free
+                                        # port (obs/board.py)
+    tpu_straggler_factor: float = 2.0   # across ranks: a rank this many
+    tpu_straggler_iters: int = 3        # times the median wall for this
+                                        # many iterations is a straggler
+                                        # (obs/ranks.py; 0: not checked)
     # serving (serve/): task=serve and the heavy task=predict
     tpu_serve_max_batch: int = 1024
     tpu_serve_max_wait_ms: float = 2.0

@@ -440,3 +440,18 @@ def best_split(hist, sum_g, sum_h, cnt, meta: DeviceMeta, cfg: SplitConfig,
         left_g=left_g, left_h=left_h, left_c=left_c,
         left_out=left_out, right_out=right_out, cat_bitset=cat_bitset,
     )
+
+
+def partition_cost(N: int, splits: int = 1, batched: bool = True,
+                   waves: int = 1):
+    """(operations, bytes) of applying ``splits`` committed splits to the
+    int32 [N] leaf ids (counterpart of the JAX package's
+    ``core/splitter.py partition_cost``, with the port's own counts).  A
+    pass reads each row's u8 bin of its leaf's split feature and reads and
+    writes its leaf id: 9 bytes and two operations (the decision, the
+    select) a row.  The one-pass apply (``core/wave_grower.py``) walks the
+    rows once a wave, the sequential oracle (``build_split_once_fn``) once
+    a split.  ``obs/ranks.py Reconciler`` and ``obs/xprof.py`` hold
+    measured times against it."""
+    passes = float(max(int(waves if batched else splits), 1))
+    return 2.0 * N * passes, 9.0 * N * passes

@@ -53,7 +53,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
     supersedes ``init_model``; the recorded evaluations are replayed
     through the stateful callbacks.  A fatal device error then leaves a
     checkpoint of the last iteration boundary, and SIGTERM or SIGINT
-    finishes the round, checkpoints and exits (a second signal kills)."""
+    finishes the round, checkpoints and exits (a second signal kills).
+    ``tpu_train_metrics_port`` serves the train board for the run (bound
+    to ``port + rank``), and ``tpu_xprof`` records a profiler window of
+    ``tpu_xprof_iters`` rounds after the first two (``obs/``)."""
     params = dict(params or {})
     for alias in _ROUND_ALIASES:
         if alias in params:
@@ -151,13 +154,33 @@ def train(params: Dict[str, Any], train_set: Dataset,
             lambda reason: ckpt_mgr.save(
                 booster, booster._gbdt.iter_ - num_init, eval_history,
                 reason=reason))
+    # the train board (obs/board.py), anchored at the trainer's current
+    # iteration so that a resumed run's ETA is this run's rate, and the
+    # profiler window (obs/xprof.py): both off unless asked for
+    from .obs import board as _board
+    from .obs import xprof as _xprof
+    train_board = _board.maybe_start(
+        booster.config,
+        total_rounds=booster._gbdt.iter_ + (num_boost_round - start_round),
+        start_round=booster._gbdt.iter_)
+    if train_board is not None:
+        train_board.set_provider("watchdog", booster._gbdt._guard.snapshot)
+    xprof_win = _xprof.maybe_window(
+        booster.config, context=_xprof.train_context(booster),
+        sync=lambda: _sync_device(booster.device),
+        device=booster.device.type)
     try:
         if not stopped_in_replay:
             completed, evaluation_result_list = _boost(
                 booster, params, fobj, feval, num_boost_round, start_round,
                 cbs_before, cbs_after, is_valid_contain_train, ckpt_mgr,
-                eval_history, evaluation_result_list, preempted)
+                eval_history, evaluation_result_list, preempted,
+                xprof_win)
     finally:
+        if xprof_win is not None:
+            xprof_win.close()
+        if train_board is not None:
+            train_board.stop()
         for s, h in prev_handlers.items():
             signal.signal(s, h)
     if preempted:
@@ -200,11 +223,17 @@ def _arm_signals(preempted: Dict[str, int]) -> dict:
     return prev
 
 
+def _sync_device(device) -> None:
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+
+
 def _boost(booster, params, fobj, feval, num_boost_round, start_round,
            cbs_before, cbs_after, is_valid_contain_train, ckpt_mgr,
-           eval_history, evaluation_result_list, preempted):
+           eval_history, evaluation_result_list, preempted, xprof_win=None):
     """The boosting rounds from ``start_round``: (rounds completed, the
-    last evaluation list)."""
+    last evaluation list); ``xprof_win`` steps once a completed round."""
     completed = start_round
     for i in range(start_round, num_boost_round):
         if preempted:
@@ -217,6 +246,8 @@ def _boost(booster, params, fobj, feval, num_boost_round, start_round,
         if booster.update(fobj=fobj):
             break  # no leaf can split any more
         completed = i + 1
+        if xprof_win is not None:
+            xprof_win.step()
         evaluation_result_list = []
         # evaluate only what something reads: attached valid sets, or the
         # training data asked for through valid_sets (a metric pass costs

@@ -7,8 +7,9 @@ checkpoint and bringing back the coordinator's view (each rank's
 progress, pending joiners, stall stamps).  The gather's deadline is the
 detector: a rank missing from a collective its peers stand in is dead;
 one that arrives late inside the deadline is stamped ``fleet_stall``.
-(The JAX package also hands ``FleetSession.snapshot`` to its train
-board; the port has no board yet, ROADMAP item 8B.)
+The view feeds the train board (``obs/board.py``): its ``fleet``
+provider is ``FleetSession.snapshot``, and rank 0's ``fleet_hub`` the
+hub's.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ class FleetSession:
         self.epoch_runs = 0
 
     def snapshot(self) -> dict:
-        """The fleet as this rank sees it."""
+        """The fleet as this rank sees it (the train board's ``fleet``
+        provider)."""
         v = dict(self.view)
         return {
             "world": self.client.world,
@@ -76,6 +78,20 @@ class FleetHeartbeatCallback:
         self.session = session
         # a cadence of 0 would silence liveness: every iteration instead
         self.fp_freq = max(int(fp_freq), 1)
+        self._provider_armed = False
+
+    def _arm_board(self) -> None:
+        """Hand the fleet's view to the train board, once it is up
+        (``engine.train`` starts it after the callbacks are made)."""
+        if self._provider_armed:
+            return
+        from ..obs import board
+        b = board.current()
+        if b is not None:
+            b.set_provider("fleet", self.session.snapshot)
+            if self.session.hub is not None:
+                b.set_provider("fleet_hub", self.session.hub.snapshot)
+            self._provider_armed = True
 
     def __call__(self, env) -> None:
         from ..robust import faults
@@ -94,6 +110,7 @@ class FleetHeartbeatCallback:
 
         if it % self.fp_freq != 0:
             return
+        self._arm_board()
         s = self.session
         payload = {"iteration": it,
                    "ckpt_iter": newest_ckpt_iter(s.ckpt_dir),

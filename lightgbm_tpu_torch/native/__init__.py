@@ -1,6 +1,7 @@
 """ctypes loader for the native binning and text-parsing loops
 (counterpart of lightgbm_tpu/native/__init__.py, the entry points that
-binning and text loading use).
+binning and text loading use), and ``capi_abi_lib``, which builds the
+loadable C ABI (``capi_abi.c``).
 
 ``binning_native.cpp`` is compiled with ``g++ -O3 -fopenmp`` at first use
 into ``build/_binning_<hash>.so`` beside the CUDA kernels' library (keyed
@@ -212,3 +213,45 @@ def libsvm_parse(buf, offset: int = 0, length: Optional[int] = None):
     nnz = nnz_out.value
     return (labels[:n], qids[:n], indptr[:n + 1], idx[:nnz], vals[:nnz],
             int(mf_out.value))
+
+
+ABI_SRC = Path(__file__).resolve().parent / "capi_abi.c"
+ABI_CFLAGS = ["-O2", "-shared", "-fPIC"]
+
+
+def capi_abi_lib() -> str:
+    """The loadable C ABI (``capi_abi.c``), built once with gcc against
+    this interpreter's libpython into ``build/liblgbm_torch_<hash>.so``
+    (keyed by the source and the flags); returns its path.  A program
+    that links it embeds CPython and needs ``PYTHONPATH`` to hold the
+    repository root and the site-packages of torch and numpy.  No
+    fallback: a missing libpython or a failed build raises with gcc's
+    output."""
+    import sysconfig
+    inc = sysconfig.get_paths()["include"]
+    libdir = sysconfig.get_config_var("LIBDIR") or "/usr/local/lib"
+    ldver = sysconfig.get_config_var("LDVERSION")
+    if not ldver or not sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        raise RuntimeError("capi_abi_lib: this Python has no shared "
+                           "libpython to link the C ABI against")
+    flags = ABI_CFLAGS + [f"-I{inc}", f"-L{libdir}",
+                          f"-Wl,-rpath,{libdir}", f"-lpython{ldver}"]
+    tag = hashlib.sha256(ABI_SRC.read_bytes() + " ".join(
+        flags).encode()).hexdigest()[:16]
+    so_path = BUILD_DIR / f"liblgbm_torch_{tag}.so"
+    if so_path.exists():
+        return str(so_path)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(BUILD_DIR))
+    os.close(fd)
+    try:
+        r = subprocess.run(["gcc", str(ABI_SRC), *flags, "-o", tmp],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise RuntimeError(f"gcc failed on {ABI_SRC.name}:\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return str(so_path)

@@ -16,10 +16,16 @@ or ``obs.enable("/tmp/telem")`` / the ``tpu_telemetry`` parameter.
 events against its bound; ``LGBM_TPU_HEALTH=monitor|strict``
 (``tpu_health``) arms the sentinels; ``LGBM_TPU_TRACE=1`` (``tpu_trace``)
 writes spans; ``LGBM_TPU_FLIGHT=<n>`` (``tpu_flight_len``) sizes the
-flight ring.  With every gate off each hook is a boolean check: no sink
-file, no synchronization, no host read.  The train board, the rank
-aggregation, the report and the torch profiler window are not ported yet
-(ROADMAP.md item 8B).
+flight ring.  ``LGBM_TPU_TRAIN_METRICS=<port>`` (``tpu_train_metrics_port``)
+serves the train board (``board``: ``/metrics``, ``/progress``,
+``/debug/flight``); ``LGBM_TPU_XPROF=1`` (``tpu_xprof``,
+``tpu_xprof_iters``) records a ``torch.profiler`` window of a few
+iterations and holds its kernels against their bounds (``xprof``);
+across ranks ``ranks`` names a straggler (``tpu_straggler_factor``,
+``tpu_straggler_iters``) and scores each iteration against the cost
+functions.  ``python -m lightgbm_tpu_torch.obs.report <dir>`` summarizes
+a sink (``report``).  With every gate off each hook is a boolean check:
+no sink file, no synchronization, no host read.
 """
 from .core import (TIMETAG_ENABLED, add, count, counter_value,
                    counters_snapshot, current_phase, digest, disable,
@@ -45,7 +51,16 @@ from .spans import (Span, begin_span, current_context, emit_span,
                     flight_enabled, flight_len, flight_len_from_env,
                     flight_snapshot, new_span_id, new_trace_id, span,
                     span_record_enabled, trace_enabled)
+from .ranks import RankAggregator, Reconciler, StragglerDetector, skew_table
 from .trace import compile_count, compile_seconds, install_recompile_hook
+from .xprof import (WindowedCapture, attribute, compile_digest,
+                    install_compile_observer, maybe_window,
+                    measured_rooflines, parse_trace_dir, record_measured,
+                    resolve_trace_dir, resolve_window, trace_files,
+                    train_context, watch_jit, xprof_digest)
+from .board import TrainBoard
+from .board import active as board_active
+from .board import current as train_board
 
 __all__ = [
     "TIMETAG_ENABLED", "add", "count", "counter_value",
@@ -69,4 +84,11 @@ __all__ = [
     "enable_trace", "end_span", "flight_dump", "flight_enabled",
     "flight_len", "flight_len_from_env", "flight_snapshot", "new_span_id",
     "new_trace_id", "span", "span_record_enabled", "trace_enabled",
+    "TrainBoard", "board_active", "train_board",
+    "RankAggregator", "Reconciler", "StragglerDetector", "skew_table",
+    "WindowedCapture", "attribute", "compile_digest",
+    "install_compile_observer", "maybe_window", "measured_rooflines",
+    "parse_trace_dir", "record_measured", "resolve_trace_dir",
+    "resolve_window", "trace_files", "train_context", "watch_jit",
+    "xprof_digest",
 ]

@@ -15,9 +15,12 @@ work measures its launches unless the phase synchronizes.  ``sync(x)``
 calls ``torch.cuda.synchronize`` on ``x``'s device only while tracing is
 on (a sink, TIMETAG, profile or trace mode): with every gate off each
 entry point here is a boolean check and the training loop keeps its
-asynchronous launches.  In profile mode a phase also opens a
+asynchronous launches.  In profile mode, and while the profiler window
+records (``obs/xprof.py``), a phase also opens a
 ``torch.profiler.record_function`` range (``lgbm/<phase>``), so a
-``torch.profiler`` trace carries the phase names.
+``torch.profiler`` trace carries the phase names.  An armed train board
+(``obs/board.py``) sees every event through a hook and runs the phase
+timers, with or without a sink.
 
 Events are one JSON object a line with ``event`` (the name) and ``t``
 (unix seconds); the JAX package's ``obs/report.py`` and
@@ -53,6 +56,8 @@ _profile_active = False         # set by obs.profile
 _spans_active = False           # set by obs.spans (trace mode)
 _span_phase_hook = None         # obs.spans phase -> span promotion
 _flight_hook = None             # obs.spans flight-recorder forward
+_board_hook = None              # obs.board live-exporter forward
+_xprof_active = False           # set by obs.xprof while a window records
 _mem_probe = None               # obs.memory per-phase-exit hook
 _reset_hooks = []               # submodule state cleared by reset()
 
@@ -71,6 +76,23 @@ def _set_flight_hook(hook) -> None:
     no sink configured (one None check when disarmed)."""
     global _flight_hook
     _flight_hook = hook
+
+
+def _set_board_hook(hook) -> None:
+    """obs/board.py forwards every event to the train board, and the
+    phase timers run while it is armed (the board renders them), with no
+    sink configured too."""
+    global _board_hook
+    _board_hook = hook
+    if hook is not None:
+        _ensure_atexit()
+
+
+def _set_xprof_active(on: bool) -> None:
+    """While the profiler window records, every phase opens its
+    ``lgbm/<phase>`` range (obs/xprof.py)."""
+    global _xprof_active
+    _xprof_active = bool(on)
 
 
 def _set_profile_active(on: bool) -> None:
@@ -98,7 +120,7 @@ def enabled() -> bool:
 def tracing_enabled() -> bool:
     """True when phase timers accumulate and :func:`sync` waits."""
     return (TIMETAG_ENABLED or _path is not None or _profile_active
-            or _spans_active)
+            or _spans_active or _board_hook is not None)
 
 
 def enable(path: str) -> None:
@@ -198,6 +220,8 @@ def event(name: str, **fields) -> None:
     torch scalars are unwrapped."""
     if _flight_hook is not None:
         _flight_hook(name, fields)
+    if _board_hook is not None:
+        _board_hook(name, fields)
     if _path is None:
         return
     rec = {"event": name, "t": round(time.time(), 6)}
@@ -224,13 +248,13 @@ def write_record(rec: dict) -> None:
 
 def count(name: str, n=1) -> None:
     """Bump a monotonic counter (no-op when disabled)."""
-    if _path is not None:
+    if _path is not None or _board_hook is not None:
         _counters[name] += n
 
 
 def gauge(name: str, value) -> None:
     """Record the latest value of a gauge (no-op when disabled)."""
-    if _path is not None:
+    if _path is not None or _board_hook is not None:
         _gauges[name] = value
 
 
@@ -254,8 +278,8 @@ def counters_snapshot() -> dict:
 
 def _record_function(name: str):
     """A ``torch.profiler.record_function`` range named ``lgbm/<name>``,
-    only while profile mode is on."""
-    if not _profile_active:
+    only while profile mode is on or the profiler window records."""
+    if not (_profile_active or _xprof_active):
         return None
     import torch
     return torch.profiler.record_function("lgbm/" + name)
@@ -373,12 +397,19 @@ def digest() -> dict:
     }
     from .memory import memory_digest
     from .profile import profile_digest
+    from .xprof import compile_digest, xprof_digest
     kernels = profile_digest()
     if kernels:
         d["kernels"] = kernels
     mem = memory_digest()
     if mem:
         d["memory"] = mem
+    xp = xprof_digest()
+    if xp:
+        d["xprof"] = xp
+    comp = compile_digest()
+    if comp:
+        d["compile"] = comp
     return d
 
 

@@ -176,9 +176,14 @@ class _Profiled:
 
 def wrap(name: str, fn, cost=None):
     """``fn`` timed and held against ``cost``'s bound while profile mode
-    is on; ``fn`` itself when it is off."""
-    if fn is None or not _on or isinstance(fn, _Profiled):
+    is on; with it off, ``fn`` itself, or, once a profiler window is
+    armed, ``fn`` named ``lgbm/<name>`` in its trace
+    (``obs/xprof.py watch_jit``)."""
+    if fn is None or isinstance(fn, _Profiled):
         return fn
+    if not _on:
+        from .xprof import watch_jit
+        return watch_jit("lgbm/" + name, fn)
     return _Profiled(name, fn, cost)
 
 

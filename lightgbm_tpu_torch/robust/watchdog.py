@@ -132,6 +132,18 @@ class DeviceGuard:
             return max(4.0 * p99, self.stall_floor_s)
         return self.stall_floor_s
 
+    def snapshot(self) -> dict:
+        """The guard's retries and stalls for the train board's
+        ``watchdog`` provider (``obs/board.py``).  The deadline is read
+        before the lock is taken: ``_deadline_s`` takes it itself."""
+        deadline = self._deadline_s()
+        with self._lock:
+            return {"active": self.active, "policy": self.policy,
+                    "retries_budget": self.retries,
+                    "retry_count": self.retry_count,
+                    "stall_count": self.stall_count,
+                    "deadline_s": round(deadline, 3)}
+
     def _on_stall(self, point: str, iteration, t0: float,
                   deadline: float) -> None:
         with self._lock:

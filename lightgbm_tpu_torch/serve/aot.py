@@ -342,6 +342,8 @@ class BucketGraphs:
             self.captures += 1
             graph_captures[self.kind] += 1
             obs.count("serve/graph_captures")
+            from ..obs.trace import note_capture
+            note_capture(self.kind)
             return got
 
     def run(self, bucket: int, *arrays) -> np.ndarray:

@@ -66,9 +66,14 @@ def _train_mode(lt, data, mode, device):
     out = {"model": bst.model_to_string(),
            "iter_s": [float(s) for s in bst._gbdt.iter_seconds],
            "wall_s": wall, "uses_wave": bool(bst._gbdt.uses_wave),
-           "ranks": int(bst._gbdt._mesh.size),
+           # a serial learner per rank (replicas) has no mesh
+           "ranks": int(getattr(bst._gbdt._mesh, "size", 1)),
            "rank_sharded": bool(bst._gbdt._rank_sharded),
            **_delta(_counts(), before)}
+    # the phase walls of every rank at the last exchange (obs/ranks.py;
+    # empty unless telemetry or the train board ran the exchange)
+    from ..obs import ranks
+    out["skew"] = ranks.skew_table()
     raw = bst.predict(data["X"], raw_score=True)
     out["raw"] = np.asarray(raw, np.float64).reshape(-1).tolist()
     return bst, out
@@ -188,11 +193,13 @@ def main(argv=None) -> int:
 
 
 def launch(spec_path: str, world: int, workdir: str, timeout: float = 600,
-           env=None):
+           env=None, rank_env=None):
     """Start ``world`` ranks of this module on ``spec_path`` (a file store
     in ``workdir`` as the rendezvous), wait for all, and return their
-    results in rank order.  Raises with every rank's output when one
-    fails or times out; stops every process it started."""
+    results in rank order.  ``rank_env[r]`` adds variables to rank r's
+    environment only (a fault spec that slows one rank).  Raises with
+    every rank's output when one fails or times out; stops every process
+    it started."""
     import subprocess
     store = os.path.join(workdir, "dist_check_store")
     if os.path.exists(store):
@@ -210,7 +217,8 @@ def launch(spec_path: str, world: int, workdir: str, timeout: float = 600,
          "--spec", spec_path, "--rank", str(r), "--world", str(world),
          "--init", f"file://{store}", "--out", outs[r]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env) for r in range(world)]
+        env={**env, **((rank_env or {}).get(r) or {})})
+        for r in range(world)]
     logs = [""] * world
     try:
         t_end = time.monotonic() + timeout

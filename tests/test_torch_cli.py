@@ -112,23 +112,58 @@ def test_cli_predict_leaf_and_early_stop(workdir, tmp_path):
 
 @pytest.mark.parametrize("task,item", [
     # task=serve runs, its store directory too since serve/aot.py was
-    # ported, and the fleet family since fleet/ was; what it still
-    # refuses is the train board of item 8B
-    pytest.param("serve", "Obs, tools and bindings, part B",
-                 id="serve-serving"),
+    # ported, the fleet family since fleet/ was, and the train board's
+    # port since item 8B was (item None: nothing is refused any more)
+    pytest.param("serve", None, id="serve-serving"),
     # task=online and task=refit run since online/ was ported (item None)
     pytest.param("online", None, id="online-online"),
     pytest.param("refit", None, id="refit-online")])
 def test_unported_task_names_its_item(workdir, tmp_path, task, item):
     """A task's refusal names its ROADMAP.md item; a ported task runs:
-    ``task=refit`` writes the refit model, ``task=online`` serves the
-    model and pushes a version a cadence over a finite label stream."""
+    ``task=serve`` with the train board's port set (a training knob it
+    accepts) answers /health and stops on SIGINT, ``task=refit`` writes
+    the refit model, ``task=online`` serves the model and pushes a
+    version a cadence over a finite label stream."""
     args = [f"task={task}", "input_model=model.txt", "device_type=cpu"]
     if item is not None:
         r = _run("lightgbm_tpu_torch", args + ["tpu_train_metrics_port=1"],
                  workdir, check=False)
         assert r.returncode != 0
         assert "ROADMAP.md" in r.stderr and item in r.stderr
+        return
+    if task == "serve":
+        import signal
+        import time
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch", *args,
+             "tpu_train_metrics_port=1", f"tpu_serve_port={port}",
+             "tpu_serve_replicas=1", "tpu_serve_max_batch=16"],
+            cwd=workdir, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            deadline, code = time.time() + 120, None
+            while time.time() < deadline and proc.poll() is None:
+                try:
+                    code, _ = _http(f"http://127.0.0.1:{port}/health",
+                                    timeout=5)
+                    if code == 200:
+                        break
+                except OSError:
+                    time.sleep(0.2)
+            assert proc.poll() is None and code == 200
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+            try:
+                _, err = proc.communicate(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise
+        assert proc.returncode == 0, err[-2000:]
         return
     if task == "refit":
         out = tmp_path / "refit.txt"

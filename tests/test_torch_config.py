@@ -76,14 +76,20 @@ def test_unknown_names_still_warn(warnings_seen):
 
 
 def test_refused_items_are_roadmap_items():
-    """Every refusal names a bold item of ROADMAP.md's port queue."""
+    """Every refusal names a bold item of ROADMAP.md's port queue: since
+    item 8B no field waits for an item, and the one refusal left, the CPU
+    fallback of a failed device step (for good), names its own."""
     import os
     roadmap = open(os.path.join(os.path.dirname(__file__), os.pardir,
                                 "ROADMAP.md")).read()
     items = {pconfig.refused_item(f.name) for f in FIELDS} - {None}
-    assert items
+    assert items == set()
+    items.add(pconfig._FALLBACK)
     for item in items:
         assert item.split(": ")[-1] in roadmap, item
+    with pytest.raises(LightGBMError, match="ROADMAP.md port queue: "
+                       + pconfig._FALLBACK):
+        Config.from_params({"tpu_on_device_error": "fallback"})
 
 
 SERVE_FIELDS = [f for f in FIELDS
@@ -113,7 +119,8 @@ def test_serve_field_runs_or_names_its_item(fld):
 
 
 # the observability fields the port runs since its obs/ plane, with a
-# non-default value each, and the ones that still name item 8B
+# non-default value each, and item 8B's (the train board, the profiler
+# window), which it runs since the board and the window were ported
 OBS_RUN = {"tpu_telemetry": "telemetry.jsonl", "tpu_health": "monitor",
            "tpu_profile": True, "tpu_trace": True, "tpu_flight_len": 64,
            "tpu_drift": False, "tpu_drift_sample_rate": 0.5,
@@ -135,10 +142,11 @@ def test_obs_field_runs(name):
 
 @pytest.mark.parametrize("name", sorted(OBS_REFUSED))
 def test_obs_field_of_item_8b_is_refused(name):
-    assert pconfig.refused_item(name) == "Obs, tools and bindings, part B"
-    with pytest.raises(LightGBMError, match="ROADMAP.md port queue: Obs, "
-                       "tools and bindings, part B"):
-        Config.from_params({name: OBS_REFUSED[name]})
+    """Item 8B's fields were refused until the board and the window were
+    ported; each now takes its value and names no item."""
+    assert pconfig.refused_item(name) is None
+    value = OBS_REFUSED[name]
+    assert getattr(Config.from_params({name: value}), name) == value
 
 
 # the network fields and the parallel learners run since parallel/ was

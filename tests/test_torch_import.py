@@ -67,7 +67,9 @@ def test_exports_match_the_jax_package():
             "plot_split_value_histogram"} <= names
     for mod in ("sklearn", "plotting", "compat", "obs", "obs.core",
                 "obs.trace", "obs.spans", "obs.memory", "obs.profile",
-                "obs.health", "obs.drift", "serve.quality"):
+                "obs.health", "obs.drift", "serve.quality", "obs.board",
+                "obs.ranks", "obs.report", "obs.xprof", "capi",
+                "capi_embed"):
         assert importlib.util.find_spec("lightgbm_tpu_torch." + mod), mod
 
 
@@ -93,3 +95,20 @@ def test_the_parallel_and_store_modules_are_walked():
          % str(ROOT)], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("False")
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The port mirrors the JAX package's module tree: every source file
+    there has one at the same path here, but the Pallas kernels'
+    ``ops/pallas_hist.py``, answered by the CUDA kernels' wrappers
+    ``ops/hist_wave.py`` (K1) and ``ops/hist_channels.py`` (K2)."""
+    def sources(pkg):
+        root = ROOT / pkg
+        return {p.relative_to(root).as_posix() for ext in ("py", "c", "cpp")
+                for p in root.rglob(f"*.{ext}")}
+    missing = sources("lightgbm_tpu") - sources("lightgbm_tpu_torch")
+    assert missing == {"ops/pallas_hist.py"}
+    assert {"ops/hist_wave.py", "ops/hist_channels.py", "capi.py",
+            "capi_embed.py", "native/capi_abi.c", "obs/board.py",
+            "obs/ranks.py", "obs/report.py",
+            "obs/xprof.py"} <= sources("lightgbm_tpu_torch")

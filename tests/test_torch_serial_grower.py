@@ -28,6 +28,19 @@ PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
 ROUNDS = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for the module, its module-scoped trainings
+    included: a parallel test run shares the machine among its workers,
+    and torch's CPU thread pool then spends most of a small op waiting
+    for oversubscribed threads.  Restored after the module."""
+    import torch
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _data(n=3000, f=10, seed=1, wide=False):
     """Well separated, no NaNs (see test_torch_train.py); ``wide`` gives
     every column continuous values, so that max_bin 400 makes every column

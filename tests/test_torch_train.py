@@ -133,21 +133,22 @@ def test_convert_round_trips(trained):
 
 
 @pytest.mark.parametrize("params", [
-    # the trace and telemetry planes run; the profiler window and the
-    # train board do not
-    {"tpu_xprof": True}, {"tpu_xprof_iters": 9},
-    # (the online knobs train since online/ was ported:
+    # the profiler window and the train board (item 8B) were the last
+    # knobs outside the slice; they train since obs/xprof.py and
+    # obs/board.py were ported (as the online knobs do:
     # test_torch_online_loop.py test_online_knobs_train; the parallel
-    # learners and the serving store since parallel/ and serve/aot.py
-    # were: test_parallel_knobs_train_at_world_one; the ingest and fleet
-    # families since ingest/ and fleet/ were:
-    # test_ingest_and_fleet_knobs_train)
-    {"tpu_train_metrics_port": 8080}])
+    # learners and the serving store: test_parallel_knobs_train_at_world_one;
+    # the ingest and fleet families: test_ingest_and_fleet_knobs_train)
+    {"tpu_xprof": True}, {"tpu_xprof_iters": 9},
+    {"tpu_train_metrics_port": 0}])
 def test_outside_the_slice_is_refused(params):
+    """Nothing is outside the slice any more: each knob that was refused
+    trains, and the board it arms is stopped when training ends."""
+    from lightgbm_tpu_torch.obs import board
     X, y = _data(n=300)
-    with pytest.raises(lt.LightGBMError, match="ROADMAP"):
-        lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 1,
-                 device="cpu")
+    bst = lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 3,
+                   device="cpu")
+    assert bst.num_trees() == 3 and not board.active()
 
 
 @pytest.mark.parametrize("params", [

@@ -24,6 +24,19 @@ BASE = {"num_leaves": 15, "max_bin": 63, "min_data_in_leaf": 20,
 ROUNDS = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for the module, its module-scoped trainings
+    included: a parallel test run shares the machine among its workers,
+    and torch's CPU thread pool then spends most of a small op waiting
+    for oversubscribed threads.  Restored after the module."""
+    import torch
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _data():
     rng = np.random.default_rng(0)
     X = rng.normal(size=(N, F))

@@ -29,6 +29,19 @@ SEED = 1          # the fixture's seed: no near-tied split gains (seed 0 has
 BAG = {"bagging_fraction": 0.8, "bagging_freq": 1}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for the module, its module-scoped trainings
+    included: a parallel test run shares the machine among its workers,
+    and torch's CPU thread pool then spends most of a small op waiting
+    for oversubscribed threads.  Restored after the module."""
+    import torch
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def lgb_interp():
     pytest.importorskip("jax")
