@@ -4208,6 +4208,32 @@ def _scrape(url):
         return resp.read().decode()
 
 
+def window_index_add_ms(gb, rows: int) -> float:
+    """The ``library_ms`` of a profiler window's K1 work: one
+    ``index_add_`` of ``rows`` slotted rows (the window's launches' sum)
+    times every feature, (g, h, count) each, into the packed layout's
+    ``[F * B * 63, 3]`` f32 cells.  The rows cycle through the training
+    rows' bins and gradients, spread over the 63 slots; CUDA events."""
+    import torch
+    bins = gb._bins_fm                                  # [F, N] on the card
+    F, N = bins.shape
+    B, S = int(gb.B), 63
+    g, h = gb.objective.get_gradients(gb._train_score)
+    idx = torch.arange(rows, device=bins.device)
+    r = idx % N
+    flat_idx = ((torch.arange(F, device=bins.device)[:, None] * B
+                 + bins[:, r].long()) * S + (idx % S)[None, :]).reshape(-1)
+    src = torch.stack([g.reshape(-1)[r].float(), h.reshape(-1)[r].float(),
+                       torch.ones(rows, device=bins.device)], 1)
+    src = src[None].expand(F, -1, -1).reshape(-1, 3).contiguous()
+    out = torch.zeros((F * B * S, 3), dtype=torch.float32,
+                      device=bins.device)
+    ms = cuda_ms(lambda: out.index_add_(0, flat_idx, src), reps=5)
+    del flat_idx, src, out
+    torch.cuda.empty_cache()
+    return ms
+
+
 def board_xprof_phase(lt, hw, hc, params, ds, main_parts, iter_ms, kind,
                       card):
     """(35) The train board and the profiler window on the card.  (a) Phase
@@ -4311,6 +4337,14 @@ def board_xprof_phase(lt, hw, hc, params, ds, main_parts, iter_ms, kind,
         reconciliation=[e["units"] for e in recon
                         if e.get("source") == "xprof"],
         scopes={k: v["measured_ms"] for k, v in rows.items()})
+    # the library yardstick of the window's K1 work: one index_add_ of as
+    # many (row, feature) sums as the window's launches slotted
+    rec["k1_window_rows"] = int(sum(r for _, r in gb.wave_stats[2:5]))
+    rec["k1_library_ms"] = round(window_index_add_ms(
+        gb, rec["k1_window_rows"]), 4)
+    print(f"xprof window: index_add_ of the window's {rec['k1_window_rows']}"
+          f" slotted rows x {gb._bins_fm.shape[0]} features (g, h, count)"
+          f" {rec['k1_library_ms']} ms [{kind}, {card}]", flush=True)
     print(f"xprof window (3 iterations, CPU and CUDA activity): K1 "
           f"{k1['ops']} kernel(s) {k1['measured_ms']} ms by the profiler "
           f"against {rec['k1_cuda_event_ms']} ms by profile mode's CUDA "
@@ -4366,6 +4400,61 @@ def board_xprof_phase(lt, hw, hc, params, ds, main_parts, iter_ms, kind,
     rec["phase_35_s"] = round(time.perf_counter() - t_phase, 1)
     print(f"phase 35: {rec['phase_35_s']} s [{kind}, {card}]", flush=True)
     return rec, counts, counts_serial
+
+
+# ---- 36: the tools' fault and chaos matrices on the card ------------------
+TOOLS_ROUNDS = 3
+TOOLS_LEAVES = 31
+
+
+def tools_phase(hw, hc, kind, card):
+    """(36) The port's tools on the card: the in-process legs of
+    ``lightgbm_tpu_torch/tools/fault_matrix.py`` and the seven scenarios
+    of ``tools/chaos_serve.py``, at phase 4's data's shapes (1,000,000 x
+    28 HIGGS-shaped, seed 0), 3 rounds of 31 leaves.  Every check must
+    hold and the training legs must launch K1.  Returns the record."""
+    from lightgbm_tpu_torch.tools import chaos_serve, fault_matrix
+    t0 = time.perf_counter()
+    X, y = higgs_like(MAIN_ROWS)
+    reset_counts(hw, hc)
+    fm = fault_matrix.run_matrix(DEV, legs="in_process", X=X, y=y,
+                                 rounds=TOOLS_ROUNDS,
+                                 num_leaves=TOOLS_LEAVES, quiet=True)
+    t_fm = time.perf_counter() - t0
+    cs = chaos_serve.run_matrix(DEV, X=X, y=y, rounds=TOOLS_ROUNDS,
+                                num_leaves=TOOLS_LEAVES, quiet=True)
+    counts = read_counts(hw, hc)
+    checks = {**{"fault_matrix." + k: v for k, v in fm["checks"].items()},
+              **{"chaos_serve." + k: v for k, v in cs["checks"].items()}}
+    failed = sorted(k for k, ok in checks.items() if not ok)
+    secs = time.perf_counter() - t0
+    rec = {"checks_passed": len(checks) - len(failed),
+           "checks": len(checks), "failed": failed,
+           "k1_launches": counts["k1"],
+           "k1_fault_matrix": fm["k1_launches"],
+           "k1_chaos_serve": cs["k1_launches"],
+           "fault_matrix_s": round(t_fm, 1),
+           "chaos_serve_s": round(secs - t_fm, 1),
+           "chaos_leg_s": cs["leg_s"], "swap_ms": cs.get("swap_ms"),
+           "swap_blip_p99_ms": cs.get("swap_blip_p99_ms"),
+           "steady_p99_ms": cs.get("steady_p99_ms"),
+           "restart_boot_ms": cs.get("restart_boot_ms"),
+           "restart_boot_captures": cs.get("restart_boot_captures"),
+           "phase_36_s": round(secs, 1)}
+    print(f"tools: {rec['checks_passed']}/{rec['checks']} checks passed "
+          f"(fault_matrix {sum(fm['checks'].values())}/{len(fm['checks'])}"
+          f" in {rec['fault_matrix_s']} s, chaos_serve "
+          f"{sum(cs['checks'].values())}/{len(cs['checks'])} in "
+          f"{rec['chaos_serve_s']} s); K1 launches {rec['k1_launches']} "
+          f"({rec['k1_fault_matrix']} fault matrix, {rec['k1_chaos_serve']}"
+          f" chaos models); phase 36 {rec['phase_36_s']} s [{kind}, {card}]",
+          flush=True)
+    if failed:
+        raise AssertionError(f"tools: checks failed on the card: {failed}")
+    if rec["k1_launches"] == 0 or fm["k1_launches"] == 0:
+        raise AssertionError(f"tools: the training legs launched no K1 "
+                             f"({counts})")
+    return rec
 
 
 # ---- out-of-core ingestion (32), the elastic fleet (33) -------------------
@@ -4940,6 +5029,9 @@ def main() -> int:
     # ---- 30: cold restarts of the served model, the serving store -------
     aot = aot_phase(lt, serve_model, kind, card)
 
+    # ---- 36: the tools' fault and chaos matrices --------------------------
+    tools = tools_phase(hw, hc, kind, card)
+
     # launches: each kernel's count in its own path's run (the trainer's
     # phases for K1 packed, the triple grower path, K2's path);
     # training_path_launches: the count summed over the three trainer
@@ -5059,6 +5151,7 @@ def main() -> int:
     print(json.dumps({"ingest": ingest_rec, "fleet": fleet_rec}), flush=True)
     print(json.dumps({"capi_abi": abi, "board_xprof": board_rec}),
           flush=True)
+    print(json.dumps({"tools": tools}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

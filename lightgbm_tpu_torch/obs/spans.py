@@ -382,14 +382,22 @@ def flight_dump(reason: str, out_dir: Optional[str] = None,
             else os.getcwd()
     try:
         os.makedirs(out_dir, exist_ok=True)
-        n = _next_flight_round(out_dir)
-        path = os.path.join(out_dir, f"FLIGHT_r{n:02d}.json")
         rec = {"kind": "flight", "reason": reason,
                "t": round(time.time(), 6), "ring_len": flight_len(),
                "events": events}
         if extra:
             rec.update(extra)
-        with open(path, "w") as fh:
+        # created exclusively: processes that dump into one directory at
+        # once (a fleet's ranks) each take their own round
+        while True:
+            n = _next_flight_round(out_dir)
+            path = os.path.join(out_dir, f"FLIGHT_r{n:02d}.json")
+            try:
+                fh = open(path, "x")
+                break
+            except FileExistsError:
+                continue
+        with fh:
             json.dump(rec, fh, indent=1, default=core._json_default)
         log.warning("flight recorder: dumped %d event(s) to %s (%s)",
                     len(events), path, reason)

@@ -306,6 +306,7 @@ def _counts(booster: Any) -> Dict[str, float]:
     gbdt = getattr(booster, "_gbdt", None)
     stats = getattr(gbdt, "wave_stats", None) or []
     return {"k1_launches": int(hist_wave.launches),
+            "k1_plain_calls": int(hist_wave.plain_calls),
             "k1_rows": int(sum(r for _, r in stats)),
             "k2_launches": int(hist_channels.launches)}
 
@@ -354,9 +355,11 @@ def _model_cost(scope: str, ctx: Dict[str, Any]
     N = int(ctx.get("rows", 0) or 0)
     F = int(ctx.get("features", 0) or 0)
     B = int(ctx.get("bins", 256) or 256)
-    if scope == "lgbm/hist_wave" and N and F and ctx.get("k1_launches"):
+    # K1's launches on the card; on the CPU, the plain version's calls
+    # (the same work, held against the CPU row of the peak table)
+    n = int(ctx.get("k1_launches") or ctx.get("k1_plain_calls") or 0)
+    if scope == "lgbm/hist_wave" and N and F and n:
         from ..ops.hist_wave import hist_wave_cost
-        n = int(ctx["k1_launches"])
         rows = float(ctx.get("k1_rows") or N * n) / n
         ops, nbytes = hist_wave_cost(
             N, F, B, rows, packed=bool(ctx.get("packed", True)),
@@ -634,6 +637,7 @@ class WindowedCapture:
         if self._active:
             self._finish()
         self._done = True
+        _armed_flag[0] = False
 
     def _start(self) -> None:
         import torch
@@ -664,6 +668,7 @@ class WindowedCapture:
         self._active = False
         self._done = True
         _capturing[0] = False
+        _armed_flag[0] = False
         core._set_xprof_active(False)
         if self._sync is not None:
             self._sync()
@@ -766,6 +771,7 @@ def maybe_window(config: Any = None,
 def reset_xprof() -> None:
     global _state
     _state = _fresh_state()
+    _armed_flag[0] = False
 
 
 core._register_reset(reset_xprof)

@@ -233,6 +233,7 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
         raise ValueError("hist_wave: exact sums are the int modes' and "
                          "unfused")
     if bins_fm.device.type == "cpu":
+        hist_wave.plain_calls += 1
         return hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B,
                                highest=highest, packed=packed, parent=parent,
                                exact=exact)
@@ -356,5 +357,6 @@ def decode_packed(acc, F: int, B: int, S: int, packed: bool = True):
 
 
 hist_wave.launches = 0                                   # all launches
+hist_wave.plain_calls = 0           # calls answered by the plain version
 hist_wave.layout_launches = {"packed": 0, "triple": 0}   # by layout
 hist_wave.sibling_launches = {"fused": 0, "unfused": 0}  # by sibling form

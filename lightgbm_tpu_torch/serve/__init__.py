@@ -19,9 +19,12 @@ behind a threaded HTTP front end.
 - ``metrics``  — counters, the latency histogram, SLO burn, Prometheus
 
 No request is ever answered from the host: a failed device batch fails
-its requests (``DeviceFailed``, HTTP 503).  The JAX package's ``aot``
-(persisted per-bucket executables) waits for ROADMAP.md's "serve AOT
-store" item.  ``quality`` tracks a served model's rolling label quality.
+its requests (``DeviceFailed``, HTTP 503).  ``aot`` is the port's
+counterpart of the JAX package's store of per-bucket executables
+(ROADMAP.md's "serve AOT store" item): it persists the packed forest, the
+bin space and the bucket ladder, and each process captures one CUDA graph
+per bucket at warm-up.  ``quality`` tracks a served model's rolling label
+quality.
 """
 from .arena import ForestArena
 from .batcher import (PRIORITIES, DeadlineExceeded, DeviceFailed,

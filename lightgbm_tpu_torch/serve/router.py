@@ -200,6 +200,7 @@ class ReplicaRouter:
         self.failovers = 0
         self.events: list = []
         self._t_start = time.time()
+        self._warmed = False
 
     def _event(self, name: str, **fields) -> None:
         self.events.append(dict(fields, event=name, t=time.time()))
@@ -223,6 +224,7 @@ class ReplicaRouter:
         return getattr(self.replicas[0].session, item)
 
     def warmup(self) -> int:
+        self._warmed = True
         return sum(r.session.warmup() for r in self.replicas)
 
     def warmup_explain(self) -> int:
@@ -327,9 +329,14 @@ class ReplicaRouter:
 
     def restart_replica(self, idx: int) -> dict:
         """Replace one replica in place: a new ``PredictorSession`` packed
-        from the router's model source on the same device, a fresh
-        breaker, the shared metrics.  In-flight work of the old replica
-        drains (its batcher finishes its queue on close)."""
+        from the router's model source on the same device (from the
+        serving store when one is armed), a fresh breaker, the shared
+        metrics.  After :meth:`warmup` the replacement is warmed before
+        it takes traffic, so its requests capture no CUDA graph.
+        In-flight work of the old replica drains (its batcher finishes
+        its queue on close).  Returns the boot's wall ms, the graphs it
+        captured (``boot_captures``) and whether a store was armed
+        (``aot``)."""
         if self._model_src is None:
             raise RuntimeError(
                 "router built from caller-provided sessions has no model "
@@ -344,6 +351,8 @@ class ReplicaRouter:
         sess.model_name = self.name
         sess.model_version = self.version
         sess.replica_id = f"r{idx}"
+        if self._warmed:
+            sess.warmup()
         old = rep.session
         self.replicas[idx] = Replica(idx, sess, self._breaker(idx))
         try:
@@ -351,8 +360,11 @@ class ReplicaRouter:
         except Exception as exc:  # noqa: BLE001 — the replacement is live
             log.warning("restart_replica(%d): closing the old session "
                         "failed (%s: %s)", idx, type(exc).__name__, exc)
+        st = sess.stats()
         boot = {"replica": idx,
-                "boot_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+                "boot_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                "boot_captures": int(st.get("graph_captures") or 0),
+                "aot": st.get("aot") is not None}
         self._event("serve_replica_restart", **boot)
         log.info("router: replica r%d restarted in %.1f ms", idx,
                  boot["boot_ms"])

@@ -19,15 +19,22 @@ from lightgbm_tpu_torch.obs import board, core
 
 @pytest.fixture(autouse=True)
 def _one_cpu_thread():
-    """One intra-op thread a test; restored after."""
+    """One intra-op thread a test, the flight ring off (a serving session
+    or a guarded training of an earlier file in this process may have
+    armed it: the board arms only a ring that is off); each restored
+    after, and the board's records reset."""
     import torch
     prev = torch.get_num_threads()
+    ring = obs.flight_len()
     torch.set_num_threads(1)
+    obs.enable_flight(0)
     yield
     torch.set_num_threads(prev)
     b = board.current()
     if b is not None:
         b.stop()
+    obs.reset()
+    obs.enable_flight(ring)
 
 
 def _get(url, timeout=10):

@@ -39,10 +39,14 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_in_port_sources():
-    """No source line of the port names jax or the JAX package as a module
-    to import."""
-    for path in list((ROOT / "lightgbm_tpu_torch").rglob("*.py")) + [
-            ROOT / "chip_smoke.py"]:
+    """No source line of the port, its tools (``lightgbm_tpu_torch/
+    tools/*.py``) included, names jax or the JAX package as a module to
+    import."""
+    paths = list((ROOT / "lightgbm_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    tools = set((ROOT / "lightgbm_tpu_torch" / "tools").glob("*.py"))
+    assert len(tools) >= 10 and tools <= set(paths)
+    for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
@@ -112,3 +116,67 @@ def test_every_module_of_the_jax_package_has_a_counterpart():
             "capi_embed.py", "native/capi_abi.c", "obs/board.py",
             "obs/ranks.py", "obs/report.py",
             "obs/xprof.py"} <= sources("lightgbm_tpu_torch")
+
+
+_TOOLS_PROBE = """
+import importlib, sys
+from pathlib import Path
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+names = sorted(p.stem for p in Path({root!r}, "lightgbm_tpu_torch",
+                                    "tools").glob("*.py"))
+for n in names:
+    importlib.import_module("lightgbm_tpu_torch.tools." + n)
+bad = sorted(m for m in sys.modules
+             if m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_tools_import_without_jax():
+    """Every module of ``lightgbm_tpu_torch/tools/`` (outside the package
+    walk above) imports where jax is blocked and loads nothing of the JAX
+    package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _TOOLS_PROBE.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
+    assert bad == "[]" and int(count) >= 10
+
+
+def test_every_jax_tool_has_a_twin_or_a_reason():
+    """Each ``tools/*.py`` that imports the JAX package has a twin of the
+    same file name under ``lightgbm_tpu_torch/tools/``, or a row with a
+    reason in ``run_suite.NO_TWIN``; no tool has both, and every row names
+    a tool that exists."""
+    import ast
+
+    from lightgbm_tpu_torch.tools.run_suite import NO_TWIN
+
+    def imports_jax_package(path):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            if any(m == "lightgbm_tpu" or m.startswith("lightgbm_tpu.")
+                   for m in mods):
+                return True
+        return False
+
+    jax_tools = {p.name for p in (ROOT / "tools").glob("*.py")
+                 if imports_jax_package(p)}
+    twins = {p.name for p in (ROOT / "lightgbm_tpu_torch" / "tools")
+             .glob("*.py")}
+    assert jax_tools, "no tool of tools/ imports the JAX package?"
+    for name in sorted(jax_tools):
+        assert (name in twins) != (name in NO_TWIN), name
+    assert set(NO_TWIN) <= {p.name for p in (ROOT / "tools").glob("*.py")}
+    assert all(len(why) > 20 for why in NO_TWIN.values())
+    assert {"fault_matrix.py", "chaos_serve.py", "online_smoke.py",
+            "arena_smoke.py", "drift_report.py", "ingest_bench.py",
+            "fleet_smoke.py", "board_smoke.py", "xprof_smoke.py",
+            "run_suite.py"} <= twins

@@ -47,6 +47,7 @@ def sink(tmp_path_factory):
         obs.enable_profile(False)
         obs.enable_trace(False)
         obs.disable()
+        obs.reset()
     return d
 
 

@@ -144,10 +144,14 @@ def test_convert_round_trips(trained):
 def test_outside_the_slice_is_refused(params):
     """Nothing is outside the slice any more: each knob that was refused
     trains, and the board it arms is stopped when training ends."""
+    from lightgbm_tpu_torch import obs
     from lightgbm_tpu_torch.obs import board
     X, y = _data(n=300)
-    bst = lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 3,
-                   device="cpu")
+    try:
+        bst = lt.train({**PARAMS, **params}, lt.Dataset(X, label=y), 3,
+                       device="cpu")
+    finally:
+        obs.reset()
     assert bst.num_trees() == 3 and not board.active()
 
 

@@ -47,6 +47,7 @@ def cpu_window(tmp_path_factory):
         lt.train(params, lt.Dataset(X, label=y), 4, device="cpu")
     finally:
         obs.disable()
+        obs.reset()
     return d
 
 
@@ -238,8 +239,24 @@ def test_window_on_card_finds_k1(tmp_path):
         lt.train(params, lt.Dataset(X, label=y), 4, device="cuda")
     finally:
         obs.disable()
+        obs.reset()
     rows = {e["kernel"]: e for e in load_events(str(tmp_path))
             if e.get("event") == "kernel_measured"}
     k1 = rows["lgbm/hist_wave"]
     assert k1["ops"] > 0 and k1["model"] == "hist_wave"
     assert 0 < k1["roofline_frac"] <= 1.0
+
+
+def test_window_arming_ends_with_reset():
+    """After a ``tpu_xprof`` training and ``obs.reset()``, no window is
+    armed: ``profile_wrap`` hands back the function itself."""
+    X, y = _data()
+    params = {"objective": "binary", "num_leaves": 7, "verbose": -1,
+              "min_data_in_leaf": 10, "tpu_xprof": True,
+              "tpu_xprof_iters": 2}
+    try:
+        lt.train(params, lt.Dataset(X, label=y), 3, device="cpu")
+    finally:
+        obs.reset()
+    fn = lambda x: x  # noqa: E731
+    assert obs.profile_wrap("k", fn) is fn
