@@ -1,0 +1,13 @@
+"""hist_ms_per_iter: device time of the work launched under the
+program's ``lgbm/grow.hist`` range (a wave's histograms: K1, which
+``k1_ms_per_iter`` reads alone, the layouts, the sibling and the
+stores), per traced iteration; nothing without a device track or where
+the program opens no such range."""
+RANGE = "lgbm/grow.hist"
+
+
+def read(run):
+    if run.trace is None or not run.trace.device \
+            or not run.trace.ranges(RANGE):
+        return None
+    return run.trace.under_range_us(RANGE) / 1e3 / run.traced_iters

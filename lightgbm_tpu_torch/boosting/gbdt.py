@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..convert import to_device
 from ..core.forest import forest_leaf_fn, forest_predict_fn, stack_forest
 from ..core.grower import CegbConfig, build_grow_fn
 from ..core.meta import (SplitConfig, _padded_bin_width, build_device_meta,
@@ -933,8 +934,7 @@ class GBDT(PredictorBase):
         else:
             mask[self._rng.permutation(N)[:int(c.bagging_fraction * N)]] = True
         self._bag_mask_host = mask
-        self._bag_mask = torch.as_tensor(mask.astype(np.float32)).to(
-            self.device)
+        self._bag_mask = to_device(mask.astype(np.float32), self.device)
 
     def _sample(self, it: int, g, h):
         """The rows iteration ``it`` grows on: refreshes the sample mask
@@ -951,7 +951,7 @@ class GBDT(PredictorBase):
             cnt = max(1, int(round(frac * F)))
             mask[:] = False
             mask[self._feat_rng.permutation(F)[:cnt]] = True
-        return torch.as_tensor(mask).to(self.device)
+        return to_device(mask, self.device)
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration; True when training should stop (no
@@ -1018,7 +1018,8 @@ class GBDT(PredictorBase):
                 with timetag("tree growth"):
                     arrs, leaf_id, stats = self._grow_tree(k, g, h,
                                                            feature_mask)
-                    nl = int(arrs.num_leaves)
+                    with timetag("wait"):
+                        nl = int(arrs.num_leaves)
                 if health_on:
                     obs.check_tree(arrs, phase="tree growth",
                                    iteration=self.iter_, class_id=k)
@@ -1055,8 +1056,11 @@ class GBDT(PredictorBase):
         fp_tick = bool(self._fp_freq) and self.iter_ % self._fp_freq == 0
         if health_on and fp_tick:
             self._health_fingerprint(grown)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        # the iteration's end (the range opens on the CPU too, so a trace
+        # counts the same waits on either device)
+        with timetag("wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         if telem:
             self._emit_iteration_record(t0, phase0, builds0, leaves_grown,
                                         waves_total, kern_rows)
@@ -1164,7 +1168,7 @@ class GBDT(PredictorBase):
         K, N = self.num_tpi, self.train_ds.num_data
         arr = np.asarray(values, np.float32).reshape(K, N).T
         arr = arr[:, 0] if K == 1 else arr
-        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+        return to_device(np.ascontiguousarray(arr), self.device)
 
     def load_initial_models(self, models: List[Tree],
                             replay_scores: bool = True) -> None:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import obs
+from ..convert import to_device
 from ..utils import log
 from ..utils.random import fold_in, prng_key, uniform_f32
 from .gbdt import GBDT
@@ -51,13 +52,12 @@ class GOSS(GBDT):
         is_top = weight >= threshold
         # f32 division, as jnp divides a Python int by an int32 count
         rest_k = torch.clamp((~is_top).sum(), min=1).to(torch.float32)
-        prob = torch.tensor(float(other_k), dtype=torch.float32,
-                            device=self.device) / rest_k
+        prob = to_device(float(other_k), self.device, torch.float32) / rest_k
         unif = uniform_f32(fold_in(self._key, it), N, self.device)
         sampled = ~is_top & (unif < prob)
         self._bag_mask = (is_top | sampled).to(torch.float32)
-        amp = torch.where(sampled, torch.tensor(multiply, dtype=torch.float32,
-                                                device=self.device),
+        amp = torch.where(sampled,
+                          to_device(multiply, self.device, torch.float32),
                           torch.ones((), dtype=torch.float32,
                                      device=self.device))
         if g.dim() == 2:

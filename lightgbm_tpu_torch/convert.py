@@ -14,6 +14,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .obs.core import phase
 from .utils import log
 
 _META_FIELDS = ("num_bins", "default_bins", "missing_types", "monotone",
@@ -25,6 +26,15 @@ _TREE_INT = ("split_feature", "threshold_bin", "left_child", "right_child",
              "internal_count", "leaf_count", "num_leaves")
 _TREE_FLOAT = ("split_gain", "internal_value", "internal_weight",
                "leaf_value", "leaf_weight")
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """``a`` (a host array or scalar) as a tensor on ``device``.  The copy
+    leaves pageable memory, which PyTorch does only after the device's
+    stream has drained: the host blocks, so the copy is a ``wait`` phase
+    (``obs/core.py``), the same on every device."""
+    with phase("wait"):
+        return torch.as_tensor(a, dtype=dtype).to(device)
 
 
 def meta_from_numpy(fields: dict, device):
@@ -54,15 +64,15 @@ def tree_arrays_from_numpy(d: dict, device):
     from .core.grower import TreeArrays
     out = {}
     for name in _TREE_INT:
-        out[name] = torch.tensor(np.asarray(d[name], np.int32)).to(device)
+        out[name] = to_device(np.array(d[name], np.int32), device)
     for name in _TREE_FLOAT:
-        out[name] = torch.tensor(np.asarray(d[name], np.float32)).to(device)
-    out["default_left"] = torch.tensor(
-        np.asarray(d["default_left"], bool)).to(device)
+        out[name] = to_device(np.array(d[name], np.float32), device)
+    out["default_left"] = to_device(np.array(d["default_left"], bool),
+                                    device)
     n = len(np.asarray(d["split_feature"]))
     bits = np.asarray(d.get("cat_bitset", np.zeros((n, 0), np.uint32)))
-    out["cat_bitset"] = torch.tensor(
-        bits.astype(np.uint32).view(np.int32).reshape(n, -1)).to(device)
+    out["cat_bitset"] = to_device(
+        bits.astype(np.uint32).view(np.int32).reshape(n, -1), device)
     return TreeArrays(**out)
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..io.binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
+from ..obs.core import phase
 
 K_ZERO_THRESHOLD = 1e-35
 
@@ -26,7 +27,8 @@ _DEFAULT_LEFT_MASK = 2
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with phase("wait"):
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 

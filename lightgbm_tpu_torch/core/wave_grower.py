@@ -25,6 +25,21 @@ work stays on the device: the partition, the row compaction, K1 and the
 split scan.  Each wave copies the children's split results to the host
 once.
 
+Each step is a phase (``obs/core.py phase``: a ``torch.profiler`` range
+``lgbm/<name>`` while a profiler records, seconds in the telemetry's
+``phase_s`` while tracing is on): ``grow.commit`` (a split phase's host
+loop), ``grow.partition``, ``grow.compact`` (the active-row compaction),
+``grow.hist`` (two a wave: K1's slot table and parents before the
+compaction, then K1 and the layouts and stores) and ``grow.scan``;
+``wait`` marks each point where the host blocks on the device: each read
+of a result (the root sums, the compaction's count, the scan's results)
+and each host array's copy to the device (``convert.to_device``: PyTorch
+copies pageable memory only once the stream has drained).  A wave waits
+13 times (4 in ``grow.hist``, 2 in ``grow.compact``, 7 in ``grow.scan``),
+a batched partition 10 times (the sequential oracle 8 a split) and a tree
+16 times more: the root read, its 14 arrays and, in the trainer, its
+``num_leaves``.
+
 Bundles (``bundled``): K1 histograms the physical columns (``B_phys``
 bins), ``expand_bundled`` maps them to features and ``fix_default_bins``
 rebuilds each member's default bin from the leaf totals, so the sibling
@@ -59,8 +74,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import tree_arrays_from_numpy
+from ..convert import to_device, tree_arrays_from_numpy
 from ..obs import profile as obs_profile
+from ..obs.core import phase
 from ..ops.hist_wave import (C_MAX, hist_wave, hist_wave_call_cost,
                              resolve_mode, wave_capacity_max)
 from ..ops.quant import QUANT_MODES, QUANT_QMAX, SEED_H_XOR, stochastic_round
@@ -138,8 +154,8 @@ def build_split_apply_fn(meta_np: dict, L: int, bundled: bool = False,
         tbl[leaf] = np.arange(n)
 
         def slot_arr(a, fill):
-            return torch.as_tensor(np.append(a, fill)).to(dev)[srow]
-        srow = torch.as_tensor(tbl).to(dev)[leaf_id.clamp(0, L + 1).long()]
+            return to_device(np.append(a, fill), dev)[srow]
+        srow = to_device(tbl, dev)[leaf_id.clamp(0, L + 1).long()]
         phys = (meta_np["feat2phys"][f] if bundled else f).astype(np.int64)
         if mixed is None:
             col = torch.gather(bins_rm, 1, slot_arr(phys, 0)[:, None])
@@ -157,8 +173,8 @@ def build_split_apply_fn(meta_np: dict, L: int, bundled: bool = False,
             col = decode_feature_col(
                 col, slot_arr(meta_np["feat_offset"][f], 0), nb, db)
         W = words.shape[1]
-        flat = torch.as_tensor(np.concatenate(
-            [words, np.zeros((1, W), np.int32)]).reshape(-1)).to(dev)
+        flat = to_device(np.concatenate(
+            [words, np.zeros((1, W), np.int32)]).reshape(-1), dev)
         word = flat[srow * W + torch.clamp(col // 32, max=W - 1)]
         go = go_left_bins(col, slot_arr(t.astype(np.int32), 0),
                           slot_arr(dl.astype(bool), False),
@@ -192,7 +208,7 @@ def build_split_once_fn(meta_np: dict, bundled: bool = False,
         col = col.long()
 
         def c(v):
-            return torch.as_tensor(np.asarray(v)).to(dev)
+            return to_device(np.asarray(v), dev)
         nb, db = c(meta_np["num_bins"][f]), c(meta_np["default_bins"][f])
         if bundled:
             col = decode_feature_col(col, c(meta_np["feat_offset"][f]), nb,
@@ -203,8 +219,7 @@ def build_split_once_fn(meta_np: dict, bundled: bool = False,
                           c(meta_np["missing_types"][f]), nb, db,
                           c(bool(meta_np["is_categorical"][f])), word)
         return torch.where((leaf_id == leaf) & ~go,
-                           torch.tensor(new, dtype=leaf_id.dtype, device=dev),
-                           leaf_id)
+                           to_device(new, dev, leaf_id.dtype), leaf_id)
 
     return apply
 
@@ -393,43 +408,47 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
 
     def scan_children(st, hist, cand, feature_mask, scales, coupled):
         """Best splits of one wave's children, copied to the host state in
-        one read; ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit
-        histograms; ``coupled`` (CEGB) is the pending coupled penalties."""
-        dev = hist.device
-        cand_t = torch.as_tensor(cand, dtype=torch.int64).to(dev)
+        one read (the ``grow.scan`` range, its read a ``wait``);
+        ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit histograms;
+        ``coupled`` (CEGB) is the pending coupled penalties."""
+        with phase("grow.scan"):
+            dev = hist.device
+            cand_t = to_device(cand, dev, torch.int64)
 
-        def col(a):
-            return torch.as_tensor(a[cand]).to(dev)
-        hist_c = hist[cand_t]
-        if scales is not None:
-            hist_c = hist_c * scales
-        cnt = col(st.c)
-        pen = (cnt[:, None] * split_pen + coupled[None, :]
-               if coupled is not None else None)
-        bs = best_split(hist_c, col(st.g), col(st.h), cnt, meta,
-                        cfg, col(st.min_c), col(st.max_c),
-                        feature_mask=feature_mask, has_cat=has_cat,
-                        penalty_sub=pen)
-        gain = bs.gain
-        if cfg.max_depth > 0:
-            gain = torch.where(col(st.depth) < cfg.max_depth, gain,
-                               torch.full_like(gain, float("-inf")))
-        # one f64 block: the f32 results and the int32 bitset words both
-        # convert exactly
-        res = torch.cat([torch.stack(
-            [gain, bs.feature.float(), bs.threshold.float(),
-             bs.default_left.float(), bs.left_g, bs.left_h, bs.left_c,
-             bs.left_out, bs.right_out], 1).double(),
-            bs.cat_bitset.double()], 1).cpu().numpy()
-        st.ready[cand] = True
-        st.best_gain[cand] = res[:, 0]
-        st.best_feat[cand] = res[:, 1].astype(np.int32)
-        st.best_thr[cand] = res[:, 2].astype(np.int32)
-        st.best_dl[cand] = res[:, 3] > 0
-        st.best_lg[cand], st.best_lh[cand], st.best_lc[cand] = \
-            res[:, 4], res[:, 5], res[:, 6]
-        st.best_lout[cand], st.best_rout[cand] = res[:, 7], res[:, 8]
-        st.best_cb[cand] = res[:, 9:].astype(np.int64).astype(np.int32)
+            def col(a):
+                return to_device(a[cand], dev)
+            hist_c = hist[cand_t]
+            if scales is not None:
+                hist_c = hist_c * scales
+            cnt = col(st.c)
+            pen = (cnt[:, None] * split_pen + coupled[None, :]
+                   if coupled is not None else None)
+            bs = best_split(hist_c, col(st.g), col(st.h), cnt, meta,
+                            cfg, col(st.min_c), col(st.max_c),
+                            feature_mask=feature_mask, has_cat=has_cat,
+                            penalty_sub=pen)
+            gain = bs.gain
+            if cfg.max_depth > 0:
+                gain = torch.where(col(st.depth) < cfg.max_depth, gain,
+                                   torch.full_like(gain, float("-inf")))
+            # one f64 block: the f32 results and the int32 bitset words
+            # both convert exactly
+            res = torch.cat([torch.stack(
+                [gain, bs.feature.float(), bs.threshold.float(),
+                 bs.default_left.float(), bs.left_g, bs.left_h, bs.left_c,
+                 bs.left_out, bs.right_out], 1).double(),
+                bs.cat_bitset.double()], 1)
+            with phase("wait"):
+                res = res.cpu().numpy()
+            st.ready[cand] = True
+            st.best_gain[cand] = res[:, 0]
+            st.best_feat[cand] = res[:, 1].astype(np.int32)
+            st.best_thr[cand] = res[:, 2].astype(np.int32)
+            st.best_dl[cand] = res[:, 3] > 0
+            st.best_lg[cand], st.best_lh[cand], st.best_lc[cand] = \
+                res[:, 4], res[:, 5], res[:, 6]
+            st.best_lout[cand], st.best_rout[cand] = res[:, 7], res[:, 8]
+            st.best_cb[cand] = res[:, 9:].astype(np.int64).astype(np.int32)
 
     def to_leaf_major(h, n, F):
         """K1's channel layout -> per-leaf [n, F, B, 3]."""
@@ -477,8 +496,7 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                               lanes=lanes * n)
         if B_phys > B_kern:
             hw = torch.nn.functional.pad(hw, (0, 0, 0, B_phys - B_kern))
-        return torch.cat([hw, hw_w], 0)[torch.as_tensor(inv_perm).to(
-            hw.device)]
+        return torch.cat([hw, hw_w], 0)[to_device(inv_perm, hw.device)]
 
     def wave(st, hist, bins_fm, bins_rm, leaf_id, gv, hv, cv, feature_mask,
              scales, coupled):
@@ -489,13 +507,17 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         n = st.pend_cnt
         smalls = st.pend_small[:n].copy()
         larges = st.pend_large[:n].copy()
-        parents = np.minimum(smalls, larges)   # the left child kept its id
-        slot_leaf = np.full(C_MAX, -1, np.int32)
-        slot_leaf[:lanes * n] = np.repeat(smalls, lanes)
-        slot_t = torch.as_tensor(slot_leaf).to(dev)
-        par_t = torch.as_tensor(parents, dtype=torch.int64).to(dev)
-        F = hist.shape[1]
-        kern_parent = to_channels(hist[par_t], n, F) if fused else None
+        # K1's slot table and parents go to the card before the
+        # compaction: its gathers then run while the host queues K1 behind
+        # them (a table copy after the gathers would wait for them)
+        with phase("grow.hist"):
+            parents = np.minimum(smalls, larges)  # the left child kept its id
+            slot_leaf = np.full(C_MAX, -1, np.int32)
+            slot_leaf[:lanes * n] = np.repeat(smalls, lanes)
+            slot_t = to_device(slot_leaf, dev)
+            par_t = to_device(parents, dev, torch.int64)
+            F = hist.shape[1]
+            kern_parent = to_channels(hist[par_t], n, F) if fused else None
         if mixed is not None:
             bins_n, (rm_n, rm_w) = bins_fm[0], bins_rm
         else:
@@ -506,38 +528,44 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         # The reference gathers them into the smallest of a few static
         # size tiers (a TPU grid must be static); here torch.nonzero sizes
         # the gather exactly.  Inactive rows add zero either way.
-        pend_tbl = np.zeros(st.tree.leaf_value.shape[0] + 2, bool)
-        pend_tbl[smalls] = True
-        active = (torch.as_tensor(pend_tbl).to(dev)[leaf_id.long()]
-                  & ((gv != 0) | (hv != 0) | (cv != 0)))
-        idx = torch.nonzero(active)[:, 0]
-        n_rows = int(idx.numel())
-        if n_rows == leaf_id.numel():
-            args = (bins_n, rm_w, gv, hv, cv, leaf_id)
-        else:
-            args = (rm_n.index_select(0, idx).t().contiguous(),
-                    None if rm_w is None else rm_w.index_select(0, idx),
-                    gv[idx], hv[idx], cv[idx], leaf_id[idx])
-        hw = wave_hist(*args, slot_t, n, kern_parent)
-        sib = None
-        if fused:
-            hw, hw_sib = hw
-            sib = to_leaf_major(hw_sib, n, F)
-        if bundled:
-            # physical columns -> per-feature histograms; each member's
-            # default bin is rebuilt from the leaf totals below
-            hw = (tuple(expand_bundled(x, meta, B) for x in hw) if packed
-                  else expand_bundled(hw, meta, B))
-        child = to_leaf_major(hw, n, F)
-        if bundled:
-            def leaf_col(a):
-                return torch.as_tensor(a[smalls]).to(dev)
-            child = fix_default_bins(child, leaf_col(st.g), leaf_col(st.h),
-                                     leaf_col(st.c), meta)
-        if sib is None:
-            sib = hist_subtract(hist[par_t], child)
-        hist[torch.as_tensor(smalls, dtype=torch.int64).to(dev)] = child
-        hist[torch.as_tensor(larges, dtype=torch.int64).to(dev)] = sib
+        with phase("grow.compact"):
+            pend_tbl = np.zeros(st.tree.leaf_value.shape[0] + 2, bool)
+            pend_tbl[smalls] = True
+            active = (to_device(pend_tbl, dev)[leaf_id.long()]
+                      & ((gv != 0) | (hv != 0) | (cv != 0)))
+            with phase("wait"):
+                # nonzero sizes its result on the host: the count's wait
+                idx = torch.nonzero(active)[:, 0]
+                n_rows = int(idx.numel())
+            if n_rows == leaf_id.numel():
+                args = (bins_n, rm_w, gv, hv, cv, leaf_id)
+            else:
+                args = (rm_n.index_select(0, idx).t().contiguous(),
+                        None if rm_w is None else rm_w.index_select(0, idx),
+                        gv[idx], hv[idx], cv[idx], leaf_id[idx])
+
+        with phase("grow.hist"):
+            hw = wave_hist(*args, slot_t, n, kern_parent)
+            sib = None
+            if fused:
+                hw, hw_sib = hw
+                sib = to_leaf_major(hw_sib, n, F)
+            if bundled:
+                # physical columns -> per-feature histograms; each member's
+                # default bin is rebuilt from the leaf totals below
+                hw = (tuple(expand_bundled(x, meta, B) for x in hw)
+                      if packed else expand_bundled(hw, meta, B))
+            child = to_leaf_major(hw, n, F)
+            if bundled:
+                def leaf_col(a):
+                    return to_device(a[smalls], dev)
+                child = fix_default_bins(child, leaf_col(st.g),
+                                         leaf_col(st.h), leaf_col(st.c),
+                                         meta)
+            if sib is None:
+                sib = hist_subtract(hist[par_t], child)
+            hist[to_device(smalls, dev, torch.int64)] = child
+            hist[to_device(larges, dev, torch.int64)] = sib
         st.pend_small[:] = -1
         st.pend_large[:] = -1
         st.pend_cnt = 0
@@ -564,8 +592,8 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             # per-tree symmetric scales over the bag-masked rows, then
             # value-hash stochastic rounding; masked rows are exact zeros
             # and stay zeros.  Root sums are integer totals times the scale.
-            qmax = torch.tensor(QUANT_QMAX[mode], device=dev)
-            tiny = torch.tensor(1e-30, device=dev)
+            qmax = to_device(QUANT_QMAX[mode], dev)
+            tiny = to_device(1e-30, dev)
             amax = torch.stack([gv.abs().amax(), hv.abs().amax()]) if N \
                 else torch.zeros(2, dtype=torch.float32, device=dev)
             if reduce_max_fn is not None:
@@ -592,8 +620,9 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             if reduce_fn is not None:
                 root = reduce_fn(root)
         root_out = leaf_output(root[0], root[1], cfg)
-        sum_g, sum_h, cnt, out0 = torch.cat(
-            [root, root_out[None]]).cpu().numpy()
+        root = torch.cat([root, root_out[None]])
+        with phase("wait"):
+            sum_g, sum_h, cnt, out0 = root.cpu().numpy()
 
         st = _LeafState(L, P, W)
         st.g[0], st.h[0], st.c[0], st.out[0] = sum_g, sum_h, cnt, out0
@@ -609,24 +638,27 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
         n_waves = n_rows = 0
         queue = None            # children whose scan is deferred
         while True:
-            ready = st.ready_gains(L)
-            phase_max = ready.max()
-            can_split = phase_max > 0.0 and int(st.tree.num_leaves) < L
-            if not (st.pend_cnt > 0 or can_split or queue is not None):
-                break
-            deferred, queue = queue, None
-            splits = []
-            for _ in range(P):
-                leaf, ok = pick_split(st, phase_max)
-                if not ok:
-                    break       # the state is unchanged: no later step can
-                sp = commit(st, leaf, coupled)
+            with phase("grow.commit"):
+                ready = st.ready_gains(L)
+                phase_max = ready.max()
+                can_split = phase_max > 0.0 and int(st.tree.num_leaves) < L
+                if not (st.pend_cnt > 0 or can_split or queue is not None):
+                    break
+                deferred, queue = queue, None
+                splits = []
+                for _ in range(P):
+                    leaf, ok = pick_split(st, phase_max)
+                    if not ok:
+                        break   # the state is unchanged: no later step can
+                    splits.append(commit(st, leaf, coupled))
+            with phase("grow.partition"):
                 if batched_apply:
-                    splits.append(sp)
+                    leaf_id = apply_splits(leaf_id, bins_rm, splits)
                 else:
-                    leaf_id = split_once(leaf_id, bins_fm, sp)
-            if batched_apply:
-                leaf_id = apply_splits(leaf_id, bins_rm, splits)
+                    # the oracle walks the rows once a split, in commit
+                    # order (a commit reads the host state alone)
+                    for sp in splits:
+                        leaf_id = split_once(leaf_id, bins_fm, sp)
             if overlap == "serial" and deferred is not None:
                 scan_children(st, hist, deferred, feature_mask, scales,
                               coupled)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..convert import to_device
 from ..core.query import (build_query_blocks, chunk_queries,
                           default_label_gain, pair_chunk_elems,
                           sort_key)
@@ -39,7 +40,7 @@ def _chunk_lambdas(score_pad, idx, labs, gains, inv, sentinel: int,
     rank.py:65-110), operation for operation."""
     valid = idx < sentinel
     s_raw = score_pad[idx]                     # the pad slot is masked
-    neg_inf = torch.tensor(float("-inf"), device=idx.device)
+    neg_inf = to_device(float("-inf"), idx.device)
     s_sort = torch.where(valid, s_raw, neg_inf)
     # rank positions: a stable sort in jnp.argsort's float order (ties
     # keep document order like the reference's stable_sort), then its

@@ -20,7 +20,10 @@ flight ring.  ``LGBM_TPU_TRAIN_METRICS=<port>`` (``tpu_train_metrics_port``)
 serves the train board (``board``: ``/metrics``, ``/progress``,
 ``/debug/flight``); ``LGBM_TPU_XPROF=1`` (``tpu_xprof``,
 ``tpu_xprof_iters``) records a ``torch.profiler`` window of a few
-iterations and holds its kernels against their bounds (``xprof``);
+iterations and holds its kernels against their bounds (``xprof``).
+Under any ``torch.profiler`` that records, the window's or a caller's,
+each phase (``obs.phase``, the training loop's and the wave grower's)
+is a ``record_function`` range ``lgbm/<phase>``: the one range gate;
 across ranks ``ranks`` names a straggler (``tpu_straggler_factor``,
 ``tpu_straggler_iters``) and scores each iteration against the cost
 functions.  ``python -m lightgbm_tpu_torch.obs.report <dir>`` summarizes
@@ -54,10 +57,9 @@ from .spans import (Span, begin_span, current_context, emit_span,
 from .ranks import RankAggregator, Reconciler, StragglerDetector, skew_table
 from .trace import compile_count, compile_seconds, install_recompile_hook
 from .xprof import (WindowedCapture, attribute, compile_digest,
-                    install_compile_observer, maybe_window,
-                    measured_rooflines, parse_trace_dir, record_measured,
-                    resolve_trace_dir, resolve_window, trace_files,
-                    train_context, watch_jit, xprof_digest)
+                    maybe_window, measured_rooflines, parse_trace_dir,
+                    record_measured, resolve_trace_dir, resolve_window,
+                    trace_files, train_context, xprof_digest)
 from .board import TrainBoard
 from .board import active as board_active
 from .board import current as train_board
@@ -86,9 +88,8 @@ __all__ = [
     "new_trace_id", "span", "span_record_enabled", "trace_enabled",
     "TrainBoard", "board_active", "train_board",
     "RankAggregator", "Reconciler", "StragglerDetector", "skew_table",
-    "WindowedCapture", "attribute", "compile_digest",
-    "install_compile_observer", "maybe_window", "measured_rooflines",
-    "parse_trace_dir", "record_measured", "resolve_trace_dir",
-    "resolve_window", "trace_files", "train_context", "watch_jit",
+    "WindowedCapture", "attribute", "compile_digest", "maybe_window",
+    "measured_rooflines", "parse_trace_dir", "record_measured",
+    "resolve_trace_dir", "resolve_window", "trace_files", "train_context",
     "xprof_digest",
 ]

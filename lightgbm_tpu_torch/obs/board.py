@@ -328,7 +328,7 @@ class TrainBoard:
               "Live row_iters/s over LightGBM's OpenCL GPU run on HIGGS.")
         out.append("tpu_train_vs_baseline "
                    + _fmt(round(rps / self._baseline, 4) if rps else None))
-        total_phase = sum(phase_cum.values())
+        total_phase = core.share_total(phase_cum)
         _head(out, "tpu_train_phase_seconds", "counter",
               "Cumulative wall seconds per training phase.")
         for p in sorted(phase_cum):

@@ -15,10 +15,15 @@ work measures its launches unless the phase synchronizes.  ``sync(x)``
 calls ``torch.cuda.synchronize`` on ``x``'s device only while tracing is
 on (a sink, TIMETAG, profile or trace mode): with every gate off each
 entry point here is a boolean check and the training loop keeps its
-asynchronous launches.  In profile mode, and while the profiler window
-records (``obs/xprof.py``), a phase also opens a
-``torch.profiler.record_function`` range (``lgbm/<phase>``), so a
-``torch.profiler`` trace carries the phase names.  An armed train board
+asynchronous launches.  Whenever a ``torch.profiler`` records on this
+thread (the profiler window of ``obs/xprof.py``, or any caller's), a
+phase also opens a ``torch.profiler.record_function`` range
+(``lgbm/<phase>``), so the trace carries the phase names; the range
+never synchronizes, and with no profiler recording a phase enters none.
+Phases nest (the wave grower's ``grow.*`` and ``wait`` run inside
+``tree growth``): a nested phase keeps its seconds and its range, but
+trace mode makes spans of the top-level phases only, and a share divides
+by their seconds alone (``share_total``).  An armed train board
 (``obs/board.py``) sees every event through a hook and runs the phase
 timers, with or without a sink.
 
@@ -36,6 +41,8 @@ import time
 from collections import defaultdict
 from typing import Optional
 
+from torch._C._autograd import _profiler_enabled
+
 from ..utils import log
 
 TIMETAG_ENABLED = os.environ.get("LGBM_TPU_TIMETAG", "") not in ("", "0",
@@ -50,6 +57,7 @@ _path: Optional[str] = None     # configured sink (dir or *.jsonl file)
 _fh = None                      # lazily opened per-process file
 _fh_idx = None                  # the rank the open file was named for
 _cur_phase = ""                 # innermost active phase
+_nested = set()                 # phases opened inside another phase
 _atexit_on = False
 _write_warned = False
 _profile_active = False         # set by obs.profile
@@ -57,7 +65,6 @@ _spans_active = False           # set by obs.spans (trace mode)
 _span_phase_hook = None         # obs.spans phase -> span promotion
 _flight_hook = None             # obs.spans flight-recorder forward
 _board_hook = None              # obs.board live-exporter forward
-_xprof_active = False           # set by obs.xprof while a window records
 _mem_probe = None               # obs.memory per-phase-exit hook
 _reset_hooks = []               # submodule state cleared by reset()
 
@@ -86,13 +93,6 @@ def _set_board_hook(hook) -> None:
     _board_hook = hook
     if hook is not None:
         _ensure_atexit()
-
-
-def _set_xprof_active(on: bool) -> None:
-    """While the profiler window records, every phase opens its
-    ``lgbm/<phase>`` range (obs/xprof.py)."""
-    global _xprof_active
-    _xprof_active = bool(on)
 
 
 def _set_profile_active(on: bool) -> None:
@@ -276,37 +276,34 @@ def counters_snapshot() -> dict:
 # Phase timers (the TIMETAG accumulators)
 # ---------------------------------------------------------------------------
 
-def _record_function(name: str):
-    """A ``torch.profiler.record_function`` range named ``lgbm/<name>``,
-    only while profile mode is on or the profiler window records."""
-    if not (_profile_active or _xprof_active):
-        return None
-    import torch
-    return torch.profiler.record_function("lgbm/" + name)
-
-
 class phase:
     """Context manager adding its wall time to ``name`` while tracing is
-    on (``utils.timetag.timetag``)."""
+    on (``utils.timetag.timetag``), and opening the range ``lgbm/<name>``
+    while a ``torch.profiler`` records (the one range gate)."""
 
     __slots__ = ("name", "t0", "_t0w", "_on", "_prev", "_rf")
 
     def __init__(self, name: str):
         self.name = name
         self._on = False
+        self._rf = None
 
     def __enter__(self):
+        if _profiler_enabled():
+            import torch
+            self._rf = torch.profiler.record_function("lgbm/" + self.name)
+            self._rf.__enter__()
         if tracing_enabled():
             global _cur_phase
             self._on = True
             self._prev = _cur_phase
+            if _cur_phase:
+                _nested.add(self.name)
             _cur_phase = self.name
-            self._rf = _record_function(self.name)
-            if self._rf is not None:
-                self._rf.__enter__()
-            # trace mode turns this timer into a span, which takes a wall
-            # clock start
-            self._t0w = time.time() if _span_phase_hook is not None else None
+            # trace mode turns a top-level timer into a span, which takes a
+            # wall clock start (a nested one's time is in its holder's span)
+            self._t0w = (time.time() if _span_phase_hook is not None
+                         and not self._prev else None)
             self.t0 = time.perf_counter()
         return self
 
@@ -317,18 +314,28 @@ class phase:
             _acc[self.name] += dur
             _cnt[self.name] += 1
             _cur_phase = self._prev
-            if self._rf is not None:
-                self._rf.__exit__(exc_type, exc_value, tb)
             if _span_phase_hook is not None and self._t0w is not None:
                 _span_phase_hook(self.name, self._t0w, dur)
             if _mem_probe is not None:
                 _mem_probe(self.name)
             self._on = False
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc_value, tb)
+            self._rf = None
         return False
 
 
 def current_phase() -> str:
     return _cur_phase
+
+
+def share_total(phase_s: dict) -> float:
+    """The seconds a phase's share of ``phase_s`` divides by: those of
+    the phases never opened inside another.  A nested phase (the wave
+    grower's ``grow.*`` and ``wait`` inside ``tree growth``) spends its
+    holder's seconds; a name opened both ways (``wait``, which also ends
+    the iteration at the top) counts as nested."""
+    return sum(v for k, v in phase_s.items() if k not in _nested)
 
 
 def _cuda_device(x):
@@ -380,6 +387,7 @@ def phase_delta(snapshot: dict) -> dict:
 def reset() -> None:
     _acc.clear()
     _cnt.clear()
+    _nested.clear()
     _counters.clear()
     _gauges.clear()
     for hook in _reset_hooks:
@@ -395,6 +403,8 @@ def digest() -> dict:
         "phase_calls": dict(_cnt),
         "counters": counters_snapshot(),
     }
+    if _nested:
+        d["phase_nested"] = sorted(_nested)
     from .memory import memory_digest
     from .profile import profile_digest
     from .xprof import compile_digest, xprof_digest
@@ -417,11 +427,12 @@ def report() -> None:
     """Log the accumulated phase times, largest first, and the
     counters."""
     if _acc:
-        total = sum(_acc.values())
-        log.info("TIMETAG phase times:")
+        total = share_total(_acc)
+        log.info("TIMETAG phase times (* inside another phase):")
         for name, t in sorted(_acc.items(), key=lambda kv: -kv[1]):
             log.info("  %-24s %8.3f s  (%d calls, %4.1f%%)",
-                     name, t, _cnt[name], 100.0 * t / total if total else 0.0)
+                     name + (" *" if name in _nested else ""), t,
+                     _cnt[name], 100.0 * t / total if total else 0.0)
     if _counters:
         log.info("telemetry counters:")
         for name, v in sorted(_counters.items()):

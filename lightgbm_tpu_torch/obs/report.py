@@ -114,7 +114,9 @@ def summarize(events: List[dict]) -> dict:
     summaries = [e for e in events if e.get("event") == "summary"]
     sum_phase = defaultdict(float)
     proc_phase = defaultdict(dict)   # proc -> {phase: seconds}
+    nested = set()                   # phases opened inside another
     for e in summaries:
+        nested.update(e.get("phase_nested") or ())
         for k, v in (e.get("counters") or {}).items():
             if isinstance(v, (int, float)):
                 counters[k] += v
@@ -174,6 +176,8 @@ def summarize(events: List[dict]) -> dict:
         "parse_errors": sum(e.get("count", 0) for e in events
                             if e.get("event") == "_parse_errors"),
     }
+    if nested:
+        out["phase_nested"] = sorted(nested)
     if wave_pipeline:
         out["wave_pipeline"] = wave_pipeline
     skew = phase_skew(proc_phase)
@@ -352,8 +356,8 @@ def xprof_summary(events: List[dict]) -> dict:
 def compile_summary(events: List[dict]) -> dict:
     """Fold ``compile`` events (obs/xprof.py) into the compile-plane
     digest.  The JAX package's keys stay (XLA backend compiles by jit,
-    cache traffic, retraces: zero in a port run but for ``retraces``,
-    which ``watch_jit`` stamps); the port's builds add
+    cache traffic, retraces: zero in a port run, which compiles nothing
+    per shape); the port's builds add
     ``kernel_builds``/``kernel_build_s`` (``nvcc`` builds of the CUDA
     kernels) and ``graph_captures`` by kind (one CUDA graph per serving
     bucket)."""
@@ -1138,14 +1142,20 @@ def render(digest: dict) -> str:
     out.append(f"processes: {len(digest['processes'])}  "
                f"iterations: {digest['iterations']}")
     if digest["phase_s"]:
-        total = sum(digest["phase_s"].values()) or 1.0
+        # a share divides by the phases no other phase holds: a nested
+        # one's (*) seconds are inside its holder's
+        nested = set(digest.get("phase_nested") or ())
+        total = sum(s for name, s in digest["phase_s"].items()
+                    if name not in nested) or 1.0
         calls = digest.get("phase_calls") or {}
         out.append("")
-        out.append(f"{'phase':<28}{'seconds':>10}{'share':>8}{'calls':>8}")
+        out.append(f"{'phase (* inside another)':<28}{'seconds':>10}"
+                   f"{'share':>8}{'calls':>8}")
         for name, s in sorted(digest["phase_s"].items(),
                               key=lambda kv: -kv[1]):
             c = calls.get(name)
-            out.append(f"{name:<28}{s:>10.3f}{100.0 * s / total:>7.1f}%"
+            label = name + (" *" if name in nested else "")
+            out.append(f"{label:<28}{s:>10.3f}{100.0 * s / total:>7.1f}%"
                        f"{c if c is not None else '-':>8}")
     rows = digest["per_iteration"]
     if rows:

@@ -6,8 +6,9 @@ iterations, read back and held against the port's cost functions
    around ``tpu_xprof_iters`` iterations (after the first two: the first
    builds and warms) when ``tpu_xprof`` or ``LGBM_TPU_XPROF`` asks for
    it.  On the card it records CPU and CUDA activity, on the CPU the CPU
-   only; while it records, every phase timer (``obs/core.py phase``) opens a
-   ``torch.profiler.record_function`` range ``lgbm/<phase>``.  The
+   only.  It is a ``torch.profiler`` like any other, so while it records
+   every phase (``obs/core.py phase``) opens its range ``lgbm/<phase>``
+   through the one gate there: is a profiler recording?  The
    window ends with ``torch.cuda.synchronize`` and writes a Chrome trace,
    ``*.trace.json``, under ``<sink>/xprof/``.
 
@@ -31,8 +32,7 @@ iterations, read back and held against the port's cost functions
 4. **Builds.**  The port compiles its CUDA kernels once per source
    digest (``ops/build.py``) and captures one CUDA graph per serving
    bucket (``serve/aot.py``); :func:`compile_digest` counts both
-   (``obs/trace.py`` notes them).  :func:`watch_jit` names a call's range
-   while a window records: there is no jit to watch.
+   (``obs/trace.py`` notes them).
 """
 from __future__ import annotations
 
@@ -52,7 +52,6 @@ __all__ = [
     "WindowedCapture",
     "attribute",
     "compile_digest",
-    "install_compile_observer",
     "maybe_window",
     "measured_rooflines",
     "parse_trace_dir",
@@ -62,7 +61,6 @@ __all__ = [
     "resolve_window",
     "trace_files",
     "train_context",
-    "watch_jit",
     "xprof_digest",
 ]
 
@@ -506,13 +504,6 @@ def xprof_digest() -> Dict[str, Any]:
 # builds and graph captures
 # ---------------------------------------------------------------------------
 
-def install_compile_observer() -> bool:
-    """Kept for the JAX package's API: ``obs/trace.py`` notes every
-    kernel build and graph capture where it happens, so there is nothing
-    to install."""
-    return True
-
-
 def compile_digest() -> Dict[str, Any]:
     """The compile plane of ``core.digest()`` (``{}`` when nothing was
     built or captured): the JAX package's keys (no XLA compile in the
@@ -532,44 +523,6 @@ def compile_digest() -> Dict[str, Any]:
         "kernel_build_s": round(build_s, 4),
         "graph_captures": dict(sorted(captures.items())),
     }
-
-
-# true while a window records: the watched calls open their ranges
-_capturing = [False]
-
-
-class _Watched:
-    """A call that opens its named ``record_function`` range while a
-    window records (one list lookup otherwise)."""
-
-    def __init__(self, name: str, fn: Callable):
-        self._name = name
-        self._fn = fn
-
-    def __getattr__(self, item: str) -> Any:
-        return getattr(self._fn, item)
-
-    def __call__(self, *args: Any, **kwargs: Any) -> Any:
-        if _capturing[0]:
-            import torch
-            with torch.profiler.record_function(self._name):
-                return self._fn(*args, **kwargs)
-        return self._fn(*args, **kwargs)
-
-
-# a window was armed in this process (maybe_window)
-_armed_flag = [False]
-
-
-def watch_jit(name: str, fn: Optional[Callable]) -> Optional[Callable]:
-    """*fn* with its calls named ``name`` in a window's trace, once a
-    window is armed; *fn* itself otherwise.  The JAX package's form also
-    reports retraces (an argument signature that forces ``jax.jit`` to
-    compile again); the port compiles nothing per shape, so there is
-    nothing of that to report."""
-    if fn is None or not _armed_flag[0] or isinstance(fn, _Watched):
-        return fn
-    return _Watched(name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +590,6 @@ class WindowedCapture:
         if self._active:
             self._finish()
         self._done = True
-        _armed_flag[0] = False
 
     def _start(self) -> None:
         import torch
@@ -659,17 +611,12 @@ class WindowedCapture:
             self._done = True
             return
         self._active = True
-        _capturing[0] = True
-        core._set_xprof_active(True)
         log.info("xprof window open: %d iteration(s) -> %s", self.iters,
                  self.out_dir)
 
     def _finish(self) -> None:
         self._active = False
         self._done = True
-        _capturing[0] = False
-        _armed_flag[0] = False
-        core._set_xprof_active(False)
         if self._sync is not None:
             self._sync()
         counts = self.context.get("_counts")
@@ -762,7 +709,6 @@ def maybe_window(config: Any = None,
     iters = resolve_window(config)
     if iters <= 0:
         return None
-    _armed_flag[0] = True
     return WindowedCapture(resolve_trace_dir(config), iters=iters,
                            skip=skip, context=context, sync=sync,
                            device=device)
@@ -771,7 +717,6 @@ def maybe_window(config: Any = None,
 def reset_xprof() -> None:
     global _state
     _state = _fresh_state()
-    _armed_flag[0] = False
 
 
 core._register_reset(reset_xprof)

@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from ..obs.core import phase
 from . import build as _build
 
 GROUP = 32                   # C must be a multiple of this
@@ -89,7 +90,10 @@ def hist_channels(bins_fm, gh, B: int):
     plain version for CPU tensors.  bins_fm: uint8 [F, N]; gh: f32 [N, C],
     C a multiple of 32; B <= 256.  Returns f32 [F, B, C]."""
     if bins_fm.device.type == "cpu":
-        return hist_channels_plain(bins_fm, gh, B)
+        # the range a CPU profiler window holds against K2's cost (on the
+        # card K2 is found by its CUDA symbol)
+        with phase("hist_channels"):
+            return hist_channels_plain(bins_fm, gh, B)
     if not bins_fm.is_cuda:
         raise ValueError(f"hist_channels: no kernel for device "
                          f"{bins_fm.device}")

@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.core import phase
 from ..utils import log
 from . import build as _build
 from .quant import QUANT_MODES
@@ -234,9 +235,12 @@ def hist_wave(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B: int,
                          "unfused")
     if bins_fm.device.type == "cpu":
         hist_wave.plain_calls += 1
-        return hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf, B,
-                               highest=highest, packed=packed, parent=parent,
-                               exact=exact)
+        # the range a CPU profiler window holds against K1's cost (on the
+        # card K1 is found by its CUDA symbol)
+        with phase("hist_wave"):
+            return hist_wave_plain(bins_fm, gv, hv, cv, leaf_id, slot_leaf,
+                                   B, highest=highest, packed=packed,
+                                   parent=parent, exact=exact)
     if not bins_fm.is_cuda:
         raise ValueError(f"hist_wave: no kernel for device {bins_fm.device}")
     mode = resolve_mode(highest)

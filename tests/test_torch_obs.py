@@ -156,7 +156,8 @@ def test_profile_records_k1_against_its_bound(telem_run, report):
         assert e["roofline_s"] == pytest.approx(
             profile.roofline_seconds(e["flops"], e["bytes"]), rel=0,
             abs=1e-9)
-        assert e["phase"] == "tree growth"
+        # the innermost phase: the wave grower's histogram range
+        assert e["phase"] == "grow.hist"
     k = digest["kernels"]["hist_wave"]
     assert k["calls"] == len(kp) and k["roofline_frac"] > 0
     assert report.summarize(events)["kernels"]["hist_wave"]["calls"] \
