@@ -10,7 +10,9 @@ the float and the quantized int16/int8 modes (columns wider than 256 bins
 on a PyTorch side-pass), the serial grower (forced splits, CEGB, by-node
 sampling, all-wide columns) whose leaf histograms come from the second
 kernel (``ops/hist_channels.py``, ``csrc/hist_channels.cu``), the split
-scan (numerical and categorical), the score update, init scores and
+scan (a wave's numerical splits in one launch of a third kernel,
+``ops/split_scan.py``, ``csrc/split_scan.cu``; categorical ones in
+PyTorch), the score update, init scores and
 continued training, callbacks (learning-rate schedules included), early
 stopping and cross-validation (``cv``), checkpoints with bit-exact resume
 and a guard around the device steps (``robust/``).  It saves and loads

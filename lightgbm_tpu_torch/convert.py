@@ -37,6 +37,19 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(device)
 
 
+def to_device_async(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` (a host array) as a tensor on ``device`` without blocking the
+    host, so no ``wait``: on a CUDA device the array is staged in
+    page-locked memory and copied on the current stream with
+    ``non_blocking=True`` (the work queued after it on that stream reads
+    it; PyTorch's caching host allocator keeps the staging block until the
+    copy is done).  On the CPU the tensor shares ``a``'s memory."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def meta_from_numpy(fields: dict, device):
     """``DeviceMeta`` from numpy fields (a reference ``DeviceMeta``'s work,
     EFB and categorical fields included; absent ones mean an unbundled

@@ -284,21 +284,14 @@ def _cat_winner_bitset(cat: dict, f_best, B: int):
     return pack_bitset(member)
 
 
-def best_split(hist, sum_g, sum_h, cnt, meta: DeviceMeta, cfg: SplitConfig,
-               min_constraint, max_constraint, feature_mask=None,
-               has_cat=None, penalty_sub=None) -> BestSplit:
-    """Best (feature, threshold or category set) split of each leaf.
-
-    hist: f32 [..., F, B, 3]; sum_g/sum_h/cnt and the monotone window
-    min/max_constraint: f32 tensors of the batch shape ``[...]``.
-    feature_mask: optional bool [F] or [..., F] (feature_fraction and
-    by-node sampling).  penalty_sub: optional f32 [..., F] gain penalty
-    per feature, subtracted after the scan (CEGB's DeltaGain, reference:
-    cost_effective_gradient_boosting.hpp:50-61).
-    has_cat: whether any feature is categorical (None reads it from
-    ``meta``, a device read; the grower knows it on the host)."""
-    if has_cat is None:
-        has_cat = bool(meta.is_categorical.any())
+def threshold_gains(hist, sum_g, sum_h, cnt, meta: DeviceMeta,
+                    cfg: SplitConfig, min_constraint, max_constraint) -> dict:
+    """Every numerical threshold's gain, shifted by the parent's gain and
+    ``min_gain_to_split`` and scaled by the feature's penalty (-inf where
+    a guard fails), in the reference's visiting order: ``stacked`` [...,
+    F, 2B] holds at k < B dir = -1 at threshold B-1-k (high to low), at k
+    >= B dir = +1 at threshold k-B; with the two directions' running sums
+    and what ``best_split`` reads besides.  Arguments as ``best_split``'s."""
     F, B = hist.shape[-3], hist.shape[-2]
     dev = hist.device
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]          # [..., F, B]
@@ -362,17 +355,46 @@ def best_split(hist, sum_g, sum_h, cnt, meta: DeviceMeta, cfg: SplitConfig,
     # features with a single scan use dir=-1 only (reference:
     # feature_histogram.hpp:104-111)
     gains1 = torch.where(use_both, gains1, torch.full_like(gains1, NEG_INF))
+    stacked = torch.cat([torch.flip(gains2, [-1]), gains1], -1)  # [..., F, 2B]
+    return dict(stacked=stacked, lg1=lg1, lh1=lh1, lc1=lc1, lg2=lg2,
+                lh2=lh2, lc2=lc2, g=g, h=h, c=c, sg=sg, sh=sh, sc=sc,
+                min_c=min_c, max_c=max_c, min_gain_shift=min_gain_shift)
+
+
+def best_split(hist, sum_g, sum_h, cnt, meta: DeviceMeta, cfg: SplitConfig,
+               min_constraint, max_constraint, feature_mask=None,
+               has_cat=None, penalty_sub=None) -> BestSplit:
+    """Best (feature, threshold or category set) split of each leaf.
+
+    hist: f32 [..., F, B, 3]; sum_g/sum_h/cnt and the monotone window
+    min/max_constraint: f32 tensors of the batch shape ``[...]``.
+    feature_mask: optional bool [F] or [..., F] (feature_fraction and
+    by-node sampling).  penalty_sub: optional f32 [..., F] gain penalty
+    per feature, subtracted after the scan (CEGB's DeltaGain, reference:
+    cost_effective_gradient_boosting.hpp:50-61).
+    has_cat: whether any feature is categorical (None reads it from
+    ``meta``, a device read; the grower knows it on the host)."""
+    if has_cat is None:
+        has_cat = bool(meta.is_categorical.any())
+    F, B = hist.shape[-3], hist.shape[-2]
+    dev = hist.device
+    tg = threshold_gains(hist, sum_g, sum_h, cnt, meta, cfg, min_constraint,
+                         max_constraint)
+    stacked = tg["stacked"]
+    lg1, lh1, lc1, lg2, lh2, lc2 = (tg[k] for k in ("lg1", "lh1", "lc1",
+                                                    "lg2", "lh2", "lc2"))
 
     # ---- per-feature best with the reference's tie order ---------------
     # per feature the reference tries dir=-1 first (high t to low), then
     # dir=+1 (low t to high), keeping the FIRST strict max; across
     # features the lower index wins.  Both argmaxes return the first max.
-    stacked = torch.cat([torch.flip(gains2, [-1]), gains1], -1)  # [..., F, 2B]
     within_f = torch.argmax(stacked, -1)                         # [..., F]
     feat_gain = torch.gather(stacked, -1, within_f[..., None])[..., 0]
     if has_cat:
-        cat = _categorical_best(g, h, c, sg, sh, sc, meta, cfg, min_c,
-                                max_c, min_gain_shift)
+        min_gain_shift = tg["min_gain_shift"]
+        cat = _categorical_best(tg["g"], tg["h"], tg["c"], tg["sg"],
+                                tg["sh"], tg["sc"], meta, cfg, tg["min_c"],
+                                tg["max_c"], min_gain_shift)
         cat_gain = torch.where(
             cat["gain"] > NEG_INF,
             (cat["gain"] - min_gain_shift[..., 0]) * meta.penalties,

@@ -14,7 +14,9 @@ nothing is pending:
   wave phase:  ONE K1 launch (``ops/hist_wave.py``) histograms the smaller
       child of every split just made and, fused, each sibling as parent
       minus child; then all children's best splits are scanned in one
-      batched ``best_split`` call.
+      launch of the split-scan kernel (``ops/split_scan.py``), or, for a
+      dataset with a categorical feature, one batched ``best_split``
+      call.
 
 The reference runs the whole loop inside one ``lax.while_loop`` on the
 device.  Here the loop is a host loop that evaluates ``loop_cond`` once
@@ -34,9 +36,11 @@ compaction, then K1 and the layouts and stores) and ``grow.scan``;
 ``wait`` marks each point where the host blocks on the device: each read
 of a result (the root sums, the compaction's count, the scan's results)
 and each host array's copy to the device (``convert.to_device``: PyTorch
-copies pageable memory only once the stream has drained).  A wave waits
-13 times (4 in ``grow.hist``, 2 in ``grow.compact``, 7 in ``grow.scan``),
-a batched partition 10 times (the sequential oracle 8 a split) and a tree
+copies pageable memory only once the stream has drained; the scan's one
+block goes through page-locked memory, ``convert.to_device_async``, and
+does not wait).  A wave waits 7 times (4 in ``grow.hist``, 2 in
+``grow.compact``, 1 in ``grow.scan``: its results' read), a batched
+partition 10 times (the sequential oracle 8 a split) and a tree
 16 times more: the root read, its 14 arrays and, in the trainer, its
 ``num_leaves``.
 
@@ -74,19 +78,34 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import to_device, tree_arrays_from_numpy
+from ..convert import to_device, to_device_async, tree_arrays_from_numpy
 from ..obs import profile as obs_profile
 from ..obs.core import phase
 from ..ops.hist_wave import (C_MAX, hist_wave, hist_wave_call_cost,
                              resolve_mode, wave_capacity_max)
 from ..ops.quant import QUANT_MODES, QUANT_QMAX, SEED_H_XOR, stochastic_round
+from ..ops.split_scan import (pack_block, split_scan, split_scan_call_cost,
+                              split_scan_plain)
 from .grower import CegbConfig, _empty_tree, decode_feature_col, go_left_bins
 from .histogram import (expand_bundled, fix_default_bins, hist_subtract,
                         hist_wave_side)
 from .meta import DeviceMeta, SplitConfig
-from .splitter import best_split, bitset_words, leaf_output
+from .splitter import bitset_words, leaf_output
 
 NEG_INF = np.float32(-np.inf)
+
+
+class WaveStats(tuple):
+    """A grown tree's ``(waves, rows)``: its K1 launches and the rows they
+    histogrammed, the pair ``GBDT.wave_stats`` keeps a tree; ``scans``
+    counts its waves scanned by ``ops/split_scan.py split_scan`` (the
+    kernel on the card), which is every wave of a dataset without a
+    categorical feature."""
+
+    def __new__(cls, waves: int, rows: int, scans: int = 0):
+        self = super().__new__(cls, (waves, rows))
+        self.scans = scans
+        return self
 
 
 class MixedWidth(NamedTuple):
@@ -246,6 +265,7 @@ class _LeafState:
         self.pend_small = np.full(P, -1, np.int32)
         self.pend_large = np.full(P, -1, np.int32)
         self.pend_cnt = 0
+        self.scans = 0          # waves scanned by ops/split_scan.py
         self.tree = _empty_tree(L, W)
 
     def ready_gains(self, L: int):
@@ -262,11 +282,12 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
                        overlap: str = "off", reduce_fn=None,
                        reduce_max_fn=None):
     """``grow(bins_fm, g, h, sample_mask, feature_mask, cegb_state=None)``
-    with K1 on the bins' device.  Returns ``(TreeArrays, leaf_id, (waves,
-    rows))``: tensors on that device, then the K1 launches taken and the
-    rows they histogrammed.  With ``cegb``, ``cegb_state[0]`` is the f32
-    [F] tensor of pending coupled penalties (tradeoff x penalty), kept by
-    the trainer across trees and zeroed in place as features are used.
+    with K1 on the bins' device.  Returns ``(TreeArrays, leaf_id,
+    WaveStats)``: tensors on that device, then the K1 launches taken, the
+    rows they histogrammed and the scans through the split-scan kernel.
+    With ``cegb``, ``cegb_state[0]`` is the f32 [F] tensor of pending
+    coupled penalties (tradeoff x penalty), kept by the trainer across
+    trees and zeroed in place as features are used.
 
     ``gain_gate`` commits only leaves whose gain is at least ``gain_gate``
     times the phase's best ready gain (0 = split everything positive, 1 =
@@ -408,36 +429,25 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
 
     def scan_children(st, hist, cand, feature_mask, scales, coupled):
         """Best splits of one wave's children, copied to the host state in
-        one read (the ``grow.scan`` range, its read a ``wait``);
-        ``scales`` ([s_g, s_h, 1]) dequantizes integer-unit histograms;
-        ``coupled`` (CEGB) is the pending coupled penalties."""
+        one read (the ``grow.scan`` range, its read a ``wait``): one
+        split-scan launch fed by one block of the children's state, or
+        ``best_split`` where a feature is categorical; ``scales`` ([s_g,
+        s_h, 1]) dequantizes integer-unit histograms; ``coupled`` (CEGB)
+        is the pending coupled penalties."""
         with phase("grow.scan"):
-            dev = hist.device
-            cand_t = to_device(cand, dev, torch.int64)
-
-            def col(a):
-                return to_device(a[cand], dev)
-            hist_c = hist[cand_t]
-            if scales is not None:
-                hist_c = hist_c * scales
-            cnt = col(st.c)
-            pen = (cnt[:, None] * split_pen + coupled[None, :]
-                   if coupled is not None else None)
-            bs = best_split(hist_c, col(st.g), col(st.h), cnt, meta,
-                            cfg, col(st.min_c), col(st.max_c),
-                            feature_mask=feature_mask, has_cat=has_cat,
-                            penalty_sub=pen)
-            gain = bs.gain
-            if cfg.max_depth > 0:
-                gain = torch.where(col(st.depth) < cfg.max_depth, gain,
-                                   torch.full_like(gain, float("-inf")))
-            # one f64 block: the f32 results and the int32 bitset words
-            # both convert exactly
-            res = torch.cat([torch.stack(
-                [gain, bs.feature.float(), bs.threshold.float(),
-                 bs.default_left.float(), bs.left_g, bs.left_h, bs.left_c,
-                 bs.left_out, bs.right_out], 1).double(),
-                bs.cat_bitset.double()], 1)
+            blk = to_device_async(pack_block(cand, st.g, st.h, st.c,
+                                             st.min_c, st.max_c, st.depth),
+                                  hist.device)
+            kw = dict(scales=scales, feature_mask=feature_mask,
+                      coupled=coupled, split_pen=split_pen)
+            if has_cat:
+                res = split_scan_plain(hist, blk, meta, cfg, has_cat=True,
+                                       **kw)
+            else:
+                scan = obs_profile.wrap("split_scan", split_scan,
+                                        cost=split_scan_call_cost)
+                res = scan(hist, blk, meta, cfg, **kw)
+                st.scans += 1
             with phase("wait"):
                 res = res.cpu().numpy()
             st.ready[cand] = True
@@ -679,6 +689,6 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             leaf_weight=st.h[:L].copy(),
         )
         return (tree_arrays_from_numpy(tr._asdict(), dev), leaf_id,
-                (n_waves, n_rows))
+                WaveStats(n_waves, n_rows, st.scans))
 
     return grow

@@ -26,13 +26,14 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                       "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry points: name -> (argument types, result type)
 _SIGNATURES = {
     "lgbm_hist_wave": ([_P] * 4 + [_I] * 6 + [_P] * 9, _I),
     "lgbm_hist_wave_int": ([_P] * 6 + [_I] * 5 + [_P] * 8, _I),
     "lgbm_hist_channels": ([_P] * 2 + [_I] * 6 + [_P] * 3, _I),
     "lgbm_hist_channels_smem_bytes": ([_I], _I),
+    "lgbm_split_scan": ([_P] * 10 + [_I] * 6 + [_D] * 7 + [_P] * 2, _I),
 }
 
 _lib = None

@@ -3,7 +3,7 @@ the one range gate): under ``torch.profiler`` a training shows
 ``lgbm/grow.commit``, ``grow.partition``, ``grow.compact``, ``grow.hist``
 and ``grow.scan`` inside ``lgbm/tree growth``, one ``grow.scan`` a wave
 and ``lgbm/wait`` at every point where the host blocks on the device
-(each read of a result and each host array's copy to the device: 23 a
+(each read of a result and each host array's copy to the device: 17 a
 wave + 22 a tree on the default path, PERF.md §3); with no profiler
 recording a training enters no ``record_function``; the profiler
 window's attribution keeps the dotted names whole."""
@@ -25,9 +25,10 @@ GROW = ("lgbm/grow.commit", "lgbm/grow.partition", "lgbm/grow.compact",
 # The waits, each in the innermost range that holds it.  A wave: K1's
 # slot table and parents, then the stores of the children and siblings
 # (grow.hist); the active-row table and the count (grow.compact); the
-# candidates, five leaf-state columns and the results' read (grow.scan).
+# results' read (grow.scan: the candidates' block goes through page-locked
+# memory without a wait).
 WAITS_A_WAVE = {"lgbm/grow.hist": 4, "lgbm/grow.compact": 2,
-                "lgbm/grow.scan": 7}
+                "lgbm/grow.scan": 1}
 # A partition (grow.partition): the batched apply's slot table, eight
 # per-split columns and the bitset words, in every wave but the root's;
 # the sequential oracle's eight columns a split.

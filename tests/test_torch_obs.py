@@ -142,14 +142,18 @@ def test_report_roundtrip_and_tool(telem_run, report, capsys, monkeypatch):
 def test_profile_records_k1_against_its_bound(telem_run, report):
     """Each K1 launch is a ``kernel_profile`` event whose operations and
     bytes are ``hist_wave_cost``'s and whose bound is over the device's
-    peaks; the digest sums them."""
+    peaks; the digest sums them.  Each wave's split scan is one more
+    event, in the scan's range."""
     from lightgbm_tpu_torch.obs import profile
     sink, digest = telem_run
     events = report.load_events(str(sink))
-    kp = [e for e in events if e["event"] == "kernel_profile"]
-    assert kp and {e["kernel"] for e in kp} == {"hist_wave"}
+    kp_all = [e for e in events if e["event"] == "kernel_profile"]
+    assert {e["kernel"] for e in kp_all} == {"hist_wave", "split_scan"}
+    kp = [e for e in kp_all if e["kernel"] == "hist_wave"]
+    scans = [e for e in kp_all if e["kernel"] == "split_scan"]
     waves = sum(e["waves"] for e in events if e["event"] == "iteration")
-    assert len(kp) == waves
+    assert len(kp) == waves and len(scans) == waves
+    assert all(e["phase"] == "grow.scan" and e["bytes"] > 0 for e in scans)
     for e in kp:
         assert e["flops"] > 0 and e["bytes"] > 0 and e["achieved_s"] > 0
         # the event rounds the bound to 1e-9 s
