@@ -697,8 +697,10 @@ class GBDT(PredictorBase):
             hist_mode = "2xbf16"
         self.hist_mode = hist_mode
         if mixed is None:
-            self._bins_fm = torch.as_tensor(
-                np.ascontiguousarray(X.T)).to(self.device)
+            # the feature-major bins, transposed by torch on the device
+            # (numpy's byte transpose of a wide matrix takes seconds)
+            self._bins_fm = torch.as_tensor(X).to(self.device).t() \
+                .contiguous()
         else:
             xbt = X.T
             self._bins_fm = (

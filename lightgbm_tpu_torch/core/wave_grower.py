@@ -33,13 +33,18 @@ Each step is a phase (``obs/core.py phase``: a ``torch.profiler`` range
 loop), ``grow.partition``, ``grow.compact`` (the active-row compaction),
 ``grow.hist`` (two a wave: K1's slot table and parents before the
 compaction, then K1 and the layouts and stores) and ``grow.scan``;
+``grow.hist_store``, inside ``grow.hist``, holds the work around K1 on
+the leaf histograms: the parents' gather into K1's layout, then the
+children's and siblings' layouts (and, unfused, the subtraction) and their
+stores into ``hist``;
 ``wait`` marks each point where the host blocks on the device: each read
 of a result (the root sums, the compaction's count, the scan's results)
 and each host array's copy to the device (``convert.to_device``: PyTorch
 copies pageable memory only once the stream has drained; the scan's one
 block goes through page-locked memory, ``convert.to_device_async``, and
-does not wait).  A wave waits 7 times (4 in ``grow.hist``, 2 in
-``grow.compact``, 1 in ``grow.scan``: its results' read), a batched
+does not wait).  A wave waits 7 times (2 in ``grow.hist``: K1's slot
+table and parents; 2 in ``grow.hist_store``: the stores' indexes; 2 in
+``grow.compact``; 1 in ``grow.scan``: its results' read), a batched
 partition 10 times (the sequential oracle 8 a split) and a tree
 16 times more: the root read, its 14 arrays and, in the trainer, its
 ``num_leaves``.
@@ -527,7 +532,10 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
             slot_t = to_device(slot_leaf, dev)
             par_t = to_device(parents, dev, torch.int64)
             F = hist.shape[1]
-            kern_parent = to_channels(hist[par_t], n, F) if fused else None
+            kern_parent = None
+            if fused:
+                with phase("grow.hist_store"):
+                    kern_parent = to_channels(hist[par_t], n, F)
         if mixed is not None:
             bins_n, (rm_n, rm_w) = bins_fm[0], bins_rm
         else:
@@ -556,26 +564,28 @@ def build_wave_grow_fn(meta: DeviceMeta, cfg: SplitConfig, B: int,
 
         with phase("grow.hist"):
             hw = wave_hist(*args, slot_t, n, kern_parent)
-            sib = None
-            if fused:
-                hw, hw_sib = hw
-                sib = to_leaf_major(hw_sib, n, F)
-            if bundled:
-                # physical columns -> per-feature histograms; each member's
-                # default bin is rebuilt from the leaf totals below
-                hw = (tuple(expand_bundled(x, meta, B) for x in hw)
-                      if packed else expand_bundled(hw, meta, B))
-            child = to_leaf_major(hw, n, F)
-            if bundled:
-                def leaf_col(a):
-                    return to_device(a[smalls], dev)
-                child = fix_default_bins(child, leaf_col(st.g),
-                                         leaf_col(st.h), leaf_col(st.c),
-                                         meta)
-            if sib is None:
-                sib = hist_subtract(hist[par_t], child)
-            hist[to_device(smalls, dev, torch.int64)] = child
-            hist[to_device(larges, dev, torch.int64)] = sib
+            with phase("grow.hist_store"):
+                sib = None
+                if fused:
+                    hw, hw_sib = hw
+                    sib = to_leaf_major(hw_sib, n, F)
+                if bundled:
+                    # physical columns -> per-feature histograms; each
+                    # member's default bin is rebuilt from the leaf totals
+                    # below
+                    hw = (tuple(expand_bundled(x, meta, B) for x in hw)
+                          if packed else expand_bundled(hw, meta, B))
+                child = to_leaf_major(hw, n, F)
+                if bundled:
+                    def leaf_col(a):
+                        return to_device(a[smalls], dev)
+                    child = fix_default_bins(child, leaf_col(st.g),
+                                             leaf_col(st.h), leaf_col(st.c),
+                                             meta)
+                if sib is None:
+                    sib = hist_subtract(hist[par_t], child)
+                hist[to_device(smalls, dev, torch.int64)] = child
+                hist[to_device(larges, dev, torch.int64)] = sib
         st.pend_small[:] = -1
         st.pend_large[:] = -1
         st.pend_cnt = 0

@@ -26,6 +26,7 @@ from typing import List
 import numpy as np
 
 from ..utils import log
+from .binning import BIN_NUMERICAL
 
 
 @dataclass
@@ -53,9 +54,15 @@ class BundleInfo:
                 and not self.needs_fix.any())
 
 
+# a feature at its default bin in fewer of the sample's rows than this
+# share stays alone (the reference's FindGroups threshold)
+SPARSE_THRESHOLD = 0.8
+
+
 def find_groups(nonzero_idx: List[np.ndarray], nbins: List[int],
                 sparse_rates: List[float], total_sample: int,
-                max_conflict_rate: float, sparse_threshold: float = 0.8,
+                max_conflict_rate: float,
+                sparse_threshold: float = SPARSE_THRESHOLD,
                 max_bins_per_group: int = 256,
                 max_search_group: int = 128) -> List[List[int]]:
     """Greedy conflict-budgeted grouping over the row sample (reference:
@@ -125,6 +132,16 @@ def build_bundles(mappers, used_features: np.ndarray, sample: np.ndarray,
     idxs, rates = [], []
     for j in used_features:
         m = mappers[int(j)]
+        if sample_csc is None and m.bin_type == BIN_NUMERICAL \
+                and m.sparse_rate < SPARSE_THRESHOLD \
+                and not np.isnan(sample[:, int(j)]).any():
+            # without NaN, the sample rows a numerical feature's values
+            # put in its default bin are the share its mapper counted,
+            # at most ``sparse_rate``: a dense feature, never a candidate,
+            # whose rows need not be binned again
+            idxs.append(np.zeros(0, np.int64))
+            rates.append(m.sparse_rate)
+            continue
         if sample_csc is not None:
             lo, hi = sample_csc.indptr[int(j)], sample_csc.indptr[int(j) + 1]
             fb = np.asarray(m.value_to_bin(sample_csc.data[lo:hi]))

@@ -14,6 +14,8 @@ binning loop where it loads.
 from __future__ import annotations
 
 import json
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,6 +26,31 @@ from ..utils import log
 from ..utils.random import Random
 from ..utils.timetag import timetag
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN, BinMapper
+
+
+# rows of a column task below which the loops run on the calling thread:
+# there the threads' hand-offs of the interpreter lock cost more than
+# the work they share
+THREAD_MIN_ROWS = 65536
+
+
+def _workers() -> int:
+    """Threads of the per-column host loops: the cores this process may
+    run on.  Their numpy sorts and native calls release the interpreter
+    lock; each column's result is its own, so the loops give the same
+    bytes on any number of threads."""
+    if hasattr(os, "sched_getaffinity"):
+        return max(1, len(os.sched_getaffinity(0)))
+    return os.cpu_count() or 1
+
+
+def _pool_map(fn, items, threads: int) -> list:
+    """``[fn(x) for x in items]`` on up to ``threads`` threads, in order."""
+    items = list(items)
+    if threads <= 1 or len(items) <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(min(threads, len(items))) as pool:
+        return list(pool.map(fn, items))
 
 
 class Metadata:
@@ -203,26 +230,34 @@ class BinnedDataset:
                       "same size as feature number")
             log.check(min(mbf) > 1,
                       "max_bin_by_feature values should be greater than 1")
+
+        def find(j):
+            if sample_csc is not None:
+                # only stored entries can be non-zero
+                lo, hi = sample_csc.indptr[j], sample_csc.indptr[j + 1]
+                col = np.asarray(sample_csc.data[lo:hi], np.float64)
+            else:
+                # sorted here (numpy's vectorised sort; NaNs go last):
+                # find_bin's stable sort of the values then runs over
+                # sorted input, and the values are the same
+                col = np.sort(sample[:, j])
+            # drop "zero" values (|v| <= kZeroThreshold); NaN compares
+            # False, so NaNs stay for the missing-type decision
+            non_zero = col[~((col > -1e-35) & (col <= 1e-35))]
+            mapper = BinMapper()
+            mapper.find_bin(non_zero, sample.shape[0],
+                            mbf[j] if mbf else config.max_bin,
+                            config.min_data_in_bin, filter_cnt,
+                            config.use_missing, config.zero_as_missing,
+                            forced.get(j),
+                            bin_type=(BIN_CATEGORICAL if j in cat_set
+                                      else BIN_NUMERICAL))
+            return mapper
+
         with timetag("bin finding"):
-            for j in range(p):
-                if sample_csc is not None:
-                    # only stored entries can be non-zero
-                    lo, hi = sample_csc.indptr[j], sample_csc.indptr[j + 1]
-                    col = np.asarray(sample_csc.data[lo:hi], np.float64)
-                else:
-                    col = sample[:, j]
-                # drop "zero" values (|v| <= kZeroThreshold); NaN compares
-                # False, so NaNs stay for the missing-type decision
-                non_zero = col[~((col > -1e-35) & (col <= 1e-35))]
-                mapper = BinMapper()
-                mapper.find_bin(non_zero, sample.shape[0],
-                                mbf[j] if mbf else config.max_bin,
-                                config.min_data_in_bin, filter_cnt,
-                                config.use_missing, config.zero_as_missing,
-                                forced.get(j),
-                                bin_type=(BIN_CATEGORICAL if j in cat_set
-                                          else BIN_NUMERICAL))
-                ds.bin_mappers.append(mapper)
+            ds.bin_mappers.extend(_pool_map(
+                find, range(p), _workers()
+                if sample.shape[0] >= THREAD_MIN_ROWS else 1))
         ds._finalize_features()
         if (config.enable_bundle and len(ds.real_feature_idx) >= 2
                 and config.max_bin <= 255):
@@ -380,7 +415,9 @@ class BinnedDataset:
         native library each numerical column of a uint8 matrix is binned
         in place, strided, straight into its column of ``X_bin`` (the
         reference copies the columns feature-major first; the bytes are
-        the same, without the f64 copy); every other column goes through
+        the same, without the f64 copy), the rows split among
+        ``_workers()`` threads (at least ``THREAD_MIN_ROWS`` a thread);
+        every other column goes through
         ``value_to_bin``, and a bundle's members through
         ``io/bundling.py encode_column``."""
         from .bundling import encode_column
@@ -394,6 +431,7 @@ class BinnedDataset:
         fast = _native.lib() is not None and dtype == np.uint8
         groups = (self.bundle.groups if self.bundle is not None
                   else [[i] for i in range(len(used))])
+        native_cols = []      # (data column, physical column, mapper)
         with timetag("binarize"):
             for gp, members in enumerate(groups):
                 if len(members) > 1:
@@ -406,13 +444,24 @@ class BinnedDataset:
                 inner = members[0]
                 m = self.inner_to_mapper(inner)
                 if fast and m.bin_type == BIN_NUMERICAL:
+                    native_cols.append((int(used[inner]), gp, m))
+                else:
+                    X[:, gp] = self._feature_bins(data, inner)
+
+            threads = _workers()
+            step = max(THREAD_MIN_ROWS, -(-n // threads))
+
+            def bin_rows(lo):
+                hi = min(lo + step, n)
+                for j, gp, m in native_cols:
                     ns = m.num_bin - (1 if m.missing_type == MISSING_NAN
                                       else 0)
                     _native.binarize_numerical_u8(
-                        data[:, int(used[inner])], m.bin_upper_bound, ns - 1,
-                        m.missing_type, m.num_bin, X[:, gp])
-                else:
-                    X[:, gp] = self._feature_bins(data, inner)
+                        data[lo:hi, j], m.bin_upper_bound, ns - 1,
+                        m.missing_type, m.num_bin, X[lo:hi, gp])
+
+            if native_cols:
+                _pool_map(bin_rows, range(0, n, step), threads)
 
 
 def _load_forced_bins(path: str, num_features: int,

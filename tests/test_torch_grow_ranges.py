@@ -23,12 +23,13 @@ from lightgbm_tpu_torch.obs import xprof
 GROW = ("lgbm/grow.commit", "lgbm/grow.partition", "lgbm/grow.compact",
         "lgbm/grow.hist", "lgbm/grow.scan")
 # The waits, each in the innermost range that holds it.  A wave: K1's
-# slot table and parents, then the stores of the children and siblings
-# (grow.hist); the active-row table and the count (grow.compact); the
-# results' read (grow.scan: the candidates' block goes through page-locked
-# memory without a wait).
-WAITS_A_WAVE = {"lgbm/grow.hist": 4, "lgbm/grow.compact": 2,
-                "lgbm/grow.scan": 1}
+# slot table and parents (grow.hist), then the indexes of the children's
+# and siblings' stores (grow.hist_store, inside grow.hist); the
+# active-row table and the count (grow.compact); the results' read
+# (grow.scan: the candidates' block goes through page-locked memory
+# without a wait).
+WAITS_A_WAVE = {"lgbm/grow.hist": 2, "lgbm/grow.hist_store": 2,
+                "lgbm/grow.compact": 2, "lgbm/grow.scan": 1}
 # A partition (grow.partition): the batched apply's slot table, eight
 # per-split columns and the bitset words, in every wave but the root's;
 # the sequential oracle's eight columns a split.
